@@ -5,20 +5,44 @@
 Drives the port's main path -- one static-stage GI frame as
 ``vri_tpu_torch.renderer.Renderer.render(gi=True)`` runs it -- at the size
 a user runs: the 49k-triangle kitchen stage, 1920x1080, the "room" SDF
-preset.  Phases, each fatal on failure:
+preset; then the other visibility paths: the ranged tier, the app's
+default frame and a city-scale stage.  Phases, each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc;
+2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once;
 3. kernel R (``raster_tiles``) against its plain PyTorch version on the
    frame's real tile lists: slots, z, u and v bit-equal;
-4. kernel M (``march_rays``) against its plain version on the frame's real
+4. kernel K6 (``raster_ranged``) against its plain version on the same
+   frame's chunks: slots, z, u and v bit-equal; both times;
+5. tiers on the card: on the kitchen at 1080p the sorted and ranged tiers
+   give bit-equal ``HitRecord`` tri, t, u and v; on ``kitchen_stress(256,
+   tess=1)`` at 512x512 (the binned tier's shape) the sorted, binned and
+   ranged tiers do; each tier's whole raster time (setup to HitRecord) at
+   both shapes; kernel R on the binned tier's lists at 512x512 (K5's walk)
+   bit-equal to its plain version, both times;
+6. kernel M (``march_rays``) against its plain version on the frame's real
    shadow and GI rays: t, hit voxel, iterations and activity exactly equal;
-5. main path: build the SDF cascades and render three frames with every
+7. main path: build the SDF cascades and render three frames with every
    launch counter reset first; checks zero raster overflow, zero SDF list
    drops, finite colour, >50% coverage, and that the counters account for
    every raster pass and every march;
-6. agreement on a small input: Cornell box at 64^2 rendered on the card
-   and, with the plain versions, on the CPU.
+8. the ladder's last rung: one ``render(gi=True, backend="raster_ranged")``
+   frame of the same stage, counters reset first: exactly one
+   ``raster_ranged`` launch, and ``instance_id`` and ``color`` equal to
+   the sorted-tier frame's with the same GI uniforms;
+9. the app's default frame: the Cornell box at 512x512, room preset,
+   through ``render(gi=True)``: the binned tier, its ``raster_tiles``
+   launch counted, zero overflow, finite colour;
+10. agreement on a small input: Cornell box at 64^2 rendered on the card
+    and, with the plain versions, on the CPU;
+11. city: ``bench.py``'s city stage (4,500 instanced towers, 1.35M faces)
+    at 1920x1080 without LOD chains: frustum-compacted raster frames,
+    escalating the capacities as the renderer's ladder does until a frame
+    reports no overflow; then three frames at that scale (zero overflow,
+    ``raster_tiles`` counted), the compacted ``HitRecord`` equal to an
+    uncompacted sorted raster of the frame; the live face count, the
+    longest tile list, the ladder, frame times and peak memory.
 
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -73,6 +97,124 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _counts() -> dict:
+    from vri_tpu_torch.ops import march_kernel, rasterize
+
+    return {"raster_tiles": rasterize.raster_tiles.launches,
+            "raster_ranged": rasterize.raster_ranged.launches,
+            "march_rays": march_kernel.march_rays.launches}
+
+
+def _reset_counts() -> None:
+    from vri_tpu_torch.ops import march_kernel, rasterize
+
+    rasterize.raster_tiles.launches = 0
+    rasterize.raster_ranged.launches = 0
+    march_kernel.march_rays.launches = 0
+
+
+def _tagged(fn, tag: str, log: list):
+    """``fn`` that appends ``tag`` to ``log`` on every call."""
+    def run(*args, **kw):
+        log.append(tag)
+        return fn(*args, **kw)
+    return run
+
+
+def _city(dev, card: str) -> None:
+    """bench.py's city row (``bench.py:327-343``) without LOD chains:
+    frustum-compacted raster frames at 1920x1080, at the capacities the
+    renderer's overflow ladder settles on."""
+    import torch
+
+    from vri_tpu_torch import RenderConfig, SceneLimits, scenes
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    h, w = 1080, 1920
+    t0 = time.perf_counter()
+    stage = scenes.city_stress(num_buildings=4500, tess=5, num_protos=24)
+    t1 = time.perf_counter()
+    lim = SceneLimits(max_instances=8192, max_vertices=1 << 22,
+                      max_faces=1 << 22)
+    d = RenderDelegate(RenderConfig(width=w, height=h, limits=lim,
+                                    lod_levels=0), device=dev)
+    d.populate(stage)
+    scene = d.sync()
+    t2 = time.perf_counter()
+    world = bake_world(scene)
+    fp = frame_mod.FrameParams.from_camera(d.camera, h, device=dev)
+    pool = int(scene.tri_vertices.shape[0])
+    _check(pool >= frame_mod._CULL_COMPACT_MIN_POOL,
+           f"city pool of {pool} faces is below the compaction threshold")
+    face_ids, live, pair_inst, _ = frame_mod._compact_visible_faces(
+        scene, fp.view_proj, 1 << 20)
+    inst_sign = frame_mod._cull_sign_instance(scene)
+    counts = rasterize.prepare_sorted(
+        world, scene.tri_vertices[face_ids.long()], live, fp.view_proj,
+        height=h, width=w, cap=4096, pairs_cap=1 << 20, src_map=face_ids,
+        cull_sign=(None if inst_sign is None
+                   else inst_sign[pair_inst.long()]))["counts"]
+    live, longest = int(live), int(counts.max())
+    over_4096 = int((counts > 4096).sum())
+    del face_ids, pair_inst, counts
+
+    def frame(scale):
+        return frame_mod._visibility_raster(
+            scene, world, fp, h, w, caps_scale=scale, lod_tau=0.0,
+            cull_instances=True, compact_cap=1 << 20)
+
+    # the renderer's ladder: an overflowed frame doubles the capacities
+    scale = 1
+    ladder = []
+    while True:
+        over = int(frame(scale).overflow)
+        ladder.append((scale, over))
+        if not over:
+            break
+        scale *= 2
+        _check(scale <= 4, f"city: overflow at 4x capacities ({ladder})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times = []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        hit = frame(scale)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        _check(int(hit.overflow) == 0, f"city frame {i} at {scale}x: "
+               f"overflow {int(hit.overflow)}")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches["raster_tiles"] == 3 and launches["raster_ranged"] == 0,
+           f"city: launch counts {launches}")
+    full, _ = rasterize.rasterize_sorted(
+        world, scene.tri_vertices, scene.num_faces, fp.view_proj, height=h,
+        width=w, cap=4096, pairs_cap=1 << 22, caps_scale=scale,
+        cull_sign=frame_mod._cull_sign(scene))
+    _check(int(full.overflow) == 0, "city: the uncompacted raster overflowed")
+    for key in ("tri", "t", "u", "v"):
+        _check(torch.equal(getattr(hit, key), getattr(full, key)),
+               f"city: compacted {key} differs from the uncompacted raster")
+    cov = float((hit.tri >= 0).float().mean())
+    print(f"city: {int(scene.num_faces)} faces in a pool of {pool}, "
+          f"{int(scene.num_instances)} instances; authoring {t1 - t0:.1f} s, "
+          f"sync {t2 - t1:.1f} s (host clock); {live} live faces after the "
+          f"frustum cull; longest tile list {longest} pairs, {over_4096} "
+          f"tiles over 4096; ladder (caps_scale, overflow) {ladder}; "
+          f"coverage {cov:.4f}, equal to the uncompacted raster [{card}]")
+    print(f"  compacted raster frames at {scale}x: "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms (CUDA events), 0 overflow, launches {launches}, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -84,6 +226,7 @@ def main() -> int:
     print(f"card: {card}")
 
     from vri_tpu_torch import RenderConfig, SDFConfig, _cuda, scenes
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
     from vri_tpu_torch.ops import gi, march_kernel, rasterize, shading
     from vri_tpu_torch.ops import raygen
     from vri_tpu_torch.passes import frame as frame_mod
@@ -99,9 +242,11 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _cuda.build()
+    lib_paths = _cuda.build()
     _cuda.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({lib_path}) [{card}]")
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(os.path.basename(p) for p in lib_paths.values())}) "
+          f"[{card}]")
     if _cuda.build_log:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write(_cuda.build_log)
@@ -139,7 +284,8 @@ def main() -> int:
     kernels["raster_tiles"] = dict(
         route="cuda", source="vri_tpu_torch/csrc/raster_tiles.cu",
         replaces="vri_tpu/ops/rasterize.py:1550",
-        also_replaces="vri_tpu/ops/rasterize.py:1879",
+        also_replaces="vri_tpu/ops/rasterize.py:1879 (K2), :1712 (K7), "
+                      ":658 (K5)",
         max_abs_err=r_err,
         ms=_time_ms(lambda: rasterize.raster_tiles(*rargs, **rkw), 20),
         plain_ms=_time_ms(lambda: rasterize.raster_tiles_reference(
@@ -150,7 +296,97 @@ def main() -> int:
           f"{kernels['raster_tiles']['ms']:.3f} ms vs plain "
           f"{kernels['raster_tiles']['plain_ms']:.1f} ms [{card}]")
 
-    # -- 4. kernel M on the frame's real shadow and GI rays ------------------------
+    # -- 4. kernel K6 on the frame's chunks -----------------------------------
+    cull = frame_mod._cull_sign(r.scene)
+    rprep = rasterize.prepare_ranged(
+        world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
+        height=h, width=w, cull_sign=cull)
+    kargs = (rprep["coef"], rprep["order"], rprep["ranges"], rprep["words"])
+    kkw = dict(n_global=rprep["n_global"], num_tx=rprep["num_tx"])
+    got = rasterize.raster_ranged(*kargs, **kkw)
+    torch.cuda.synchronize()
+    want = rasterize.raster_ranged_reference(*kargs, **kkw)
+    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
+        _check(torch.equal(g, wv), f"raster_ranged {name} differs from the "
+               "plain version")
+    kernels["raster_ranged"] = dict(
+        route="cuda", source="vri_tpu_torch/csrc/raster_ranged.cu",
+        replaces="vri_tpu/ops/rasterize.py:400",
+        max_abs_err=max(float((g.float() - wv.float()).abs().max())
+                        for g, wv in zip(got, want)),
+        ms=_time_ms(lambda: rasterize.raster_ranged(*kargs, **kkw), 10),
+        plain_ms=_time_ms(lambda: rasterize.raster_ranged_reference(
+            *kargs, **kkw), 1))
+    spans = (rprep["ranges"][:, 1] - rprep["ranges"][:, 0]).clamp(min=0)
+    print(f"raster_ranged: {int(rprep['order'].shape[0]) // 128} chunks, "
+          f"{rprep['n_global']} global, local ranges up to "
+          f"{int(spans.max())} chunks (mean {float(spans.float().mean()):.1f})"
+          f", equal to the plain version; "
+          f"{kernels['raster_ranged']['ms']:.3f} ms vs plain "
+          f"{kernels['raster_ranged']['plain_ms']:.1f} ms [{card}]")
+    del rprep, kargs, got, want
+
+    # -- 5. the tiers agree on the card; each tier's whole raster time ---------
+    small_stage = RenderDelegate(RenderConfig(width=512, height=512),
+                                 device=dev)
+    small_stage.populate(scenes.kitchen_stress(num_objects=256, tess=1))
+    s_scene = small_stage.sync()
+    s_fp = frame_mod.FrameParams.from_camera(small_stage.camera, 512,
+                                             device=dev)
+    shapes = {
+        "kitchen 1920x1080": (r.scene, world, fp, h, w),
+        "kitchen_stress(256, tess=1) 512x512": (
+            s_scene, bake_world(s_scene), s_fp, 512, 512)}
+    for label, (sc, wv_, fpv, hh, ww) in shapes.items():
+        args = (wv_, sc.tri_vertices, sc.num_faces, fpv.view_proj)
+        kw = dict(height=hh, width=ww, cull_sign=frame_mod._cull_sign(sc))
+        tiers = {"sorted": rasterize.rasterize_sorted,
+                 "binned": rasterize.rasterize_binned,
+                 "ranged": rasterize.rasterize}
+        hits = {t: fn(*args, **kw)[0] for t, fn in tiers.items()}
+        clean = [t for t, hit in hits.items()
+                 if hit.overflow is None or int(hit.overflow) == 0]
+        need = ["sorted", "ranged"] + (["binned"] if hh <= 512 else [])
+        _check(all(t in clean for t in need),
+               f"{label}: a tier overflowed ({clean} without overflow)")
+        for t in clean[1:]:
+            for key in ("tri", "t", "u", "v"):
+                _check(torch.equal(getattr(hits[t], key),
+                                   getattr(hits["sorted"], key)),
+                       f"{label}: the {t} tier's {key} differs from the "
+                       "sorted tier's")
+        times = {t: _time_ms(lambda fn=fn: fn(*args, **kw), 5)
+                 for t, fn in tiers.items()}
+        print(f"tiers, {label} ({int(sc.num_faces)} faces): "
+              f"{' = '.join(clean)} bit-equal; whole raster "
+              + ", ".join(f"{t} {times[t]:.3f} ms" for t in tiers)
+              + "".join(f" ({t} overflows {int(hits[t].overflow)} tiles)"
+                        for t in tiers if t not in clean)
+              + f" (CUDA events, mean of 5) [{card}]")
+        if hh > 512:
+            continue
+        # kernel R on the binned tier's lists (K5's walk)
+        bprep = rasterize.prepare_binned(*args, **kw)
+        bargs = (bprep["coef"], bprep["lists"], bprep["starts"],
+                 bprep["counts"])
+        bkw = dict(num_tx=bprep["num_tx"], cap=bprep["cap"])
+        got = rasterize.raster_tiles(*bargs, **bkw)
+        torch.cuda.synchronize()
+        want = rasterize.raster_tiles_reference(*bargs, **bkw)
+        for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
+            _check(torch.equal(g, wv), f"raster_tiles on the binned lists: "
+                   f"{name} differs from the plain version")
+        k_ms = _time_ms(lambda: rasterize.raster_tiles(*bargs, **bkw), 20)
+        p_ms = _time_ms(lambda: rasterize.raster_tiles_reference(
+            *bargs, **bkw), 2)
+        print(f"raster_tiles on the binned lists, {label}: "
+              f"{int(bprep['counts'].sum())} slots over "
+              f"{int(bprep['counts'].shape[0])} tiles (longest list "
+              f"{int(bprep['counts'].max())}), equal to the plain version; "
+              f"{k_ms:.3f} ms vs plain {p_ms:.1f} ms [{card}]")
+    del small_stage, s_scene, shapes, hits, bprep, bargs, got, want
+
+    # -- 6. kernel M on the frame's real shadow and GI rays ------------------------
     cas = r.ensure_cascades(eye=cam.eye)
     o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
     hit, _ = rasterize.rasterize_sorted(
@@ -199,13 +435,12 @@ def main() -> int:
     del r, cas, gb, hit, o, d, u, prep, rargs, margs, got, want
     torch.cuda.empty_cache()
 
-    # -- 5. main path ------------------------------------------------------------
+    # -- 7. main path ------------------------------------------------------------
     r2 = Renderer(RenderConfig(width=w, height=h, sdf=sdf_cfg), device=dev)
     r2.load_stage(scenes.kitchen_stress(num_objects=256, tess=4))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rasterize.raster_tiles.launches = 0
-    march_kernel.march_rays.launches = 0
+    _reset_counts()
     frames = []
     for i in range(3):
         start = torch.cuda.Event(enable_timing=True)
@@ -227,13 +462,12 @@ def main() -> int:
                "finite")
         cov = float((aovs["instance_id"] >= 0).mean())
         _check(cov > 0.5, f"frame {i}: coverage {cov:.3f}")
-    launches = {"raster_tiles": rasterize.raster_tiles.launches,
-                "march_rays": march_kernel.march_rays.launches}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     _check(r2.list_overflow == 0,
            f"SDF list drops: {r2.list_overflow}")
     n_lights = int(r2.scene.num_lights)
-    want_launch = {"raster_tiles": 3,
+    want_launch = {"raster_tiles": 3, "raster_ranged": 0,
                    # bake: one shadow march; per frame one shadow march
                    # (all lights in one ray set) and one GI march
                    "march_rays": (1 if n_lights else 0) + 3 * 2}
@@ -247,14 +481,74 @@ def main() -> int:
               f"host{' (includes the SDF build)' if i == 0 else ''} [{card}]")
     print(f"  coverage {cov:.4f}, launches {launches}, peak memory "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
-    for name in kernels:
+    for name in ("raster_tiles", "march_rays"):
         kernels[name]["launches"] = launches[name]
     # the same frame without the host copy of the AOVs (device work only)
     dev_ms = _time_ms(lambda: r2.render(gi=True, to_numpy=False), 3)
     print(f"  frame without the host copy of the AOVs: {dev_ms:.2f} ms "
           f"(CUDA events, mean of 3) [{card}]")
 
-    # -- 6. small-input agreement with the plain versions on the CPU ---------------
+    # -- 8. the ladder's last rung on the main path's stage -------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    uni = torch.rand((1, h * w, 2), generator=gen, device=dev)
+    _reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ranged = r2.render(gi=True, backend="raster_ranged", uniforms=uni)
+    stop.record()
+    torch.cuda.synchronize()
+    ranged_ms = start.elapsed_time(stop)
+    launches = _counts()
+    want_launch = {"raster_tiles": 0, "raster_ranged": 1, "march_rays": 2}
+    _check(launches == want_launch,
+           f"ranged frame: launch counts {launches}, expected {want_launch}")
+    kernels["raster_ranged"]["launches"] = launches["raster_ranged"]
+    plain = r2.render(gi=True, uniforms=uni)
+    _check("raster_overflow_tiles" not in ranged,
+           "the ranged frame reported an overflow count")
+    for key in ("instance_id", "color"):
+        _check(np.array_equal(ranged[key], plain[key]),
+               f"ranged frame: {key} differs from the sorted-tier frame's")
+    print(f"ranged frame (render(gi=True, backend='raster_ranged')): "
+          f"{ranged_ms:.2f} ms (CUDA events, with the host copy), launches "
+          f"{launches}, instance_id and color equal to the sorted-tier "
+          f"frame's [{card}]")
+    del r2, ranged, plain, uni
+    torch.cuda.empty_cache()
+
+    # -- 9. the app's default frame: Cornell at 512x512, room preset ----------
+    ra = Renderer(RenderConfig(width=512, height=512, sdf=sdf_cfg),
+                  device=dev)
+    ra.load_stage(scenes.cornell_box())
+    tiers_run = []
+    real_binned, real_sorted = (rasterize.rasterize_binned,
+                                rasterize.rasterize_sorted)
+    rasterize.rasterize_binned = _tagged(real_binned, "binned", tiers_run)
+    rasterize.rasterize_sorted = _tagged(real_sorted, "sorted", tiers_run)
+    _reset_counts()
+    try:
+        app = ra.render(gi=True)
+    finally:
+        rasterize.rasterize_binned = real_binned
+        rasterize.rasterize_sorted = real_sorted
+    launches = _counts()
+    want_launch = {"raster_tiles": 1, "raster_ranged": 0,
+                   "march_rays": (1 if int(ra.scene.num_lights) else 0) + 2}
+    _check(tiers_run == ["binned"], f"app frame ran the tiers {tiers_run}")
+    _check(launches == want_launch,
+           f"app frame: launch counts {launches}, expected {want_launch}")
+    _check(int(app["raster_overflow_tiles"]) == 0, "app frame: overflow")
+    _check(np.isfinite(app["color"]).all(), "app frame: colour not finite")
+    app_ms = _time_ms(lambda: ra.render(gi=True, to_numpy=False), 3)
+    print(f"app default frame (Cornell 512x512, room): binned tier, "
+          f"launches {launches}, coverage "
+          f"{float((app['instance_id'] >= 0).mean()):.4f}; {app_ms:.2f} ms "
+          f"without the host copy (CUDA events, mean of 3) [{card}]")
+    del ra, app
+
+    # -- 10. small-input agreement with the plain versions on the CPU --------------
     small = SDFConfig(num_cascades=2, cascade_resolution=64, brick_size=8,
                       max_bricks=16384, base_voxel_size=0.075,
                       truncation_voxels=3.0, max_triangles_per_brick=16,
@@ -275,6 +569,9 @@ def main() -> int:
           "apart where they are")
     _check(same.mean() >= 0.999 and col.max() <= 2e-3,
            "card and CPU renders of the Cornell box disagree")
+
+    # -- 11. city: frustum compaction at 1.35M faces ---------------------------
+    _city(dev, card)
 
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in kernels.items()]}))

@@ -21,5 +21,6 @@ re-exported here::
 
 __version__ = "0.1.0"
 
-from vri_tpu.config import DebugMode, RenderConfig, SDFConfig  # noqa: F401
+from vri_tpu.config import (DebugMode, RenderConfig, SceneLimits,  # noqa: F401
+                             SDFConfig)
 from vri_tpu.usd import Stage, scenes  # noqa: F401

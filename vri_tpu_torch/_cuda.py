@@ -1,12 +1,14 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``.
-Every entry point launches on the stream it is given and returns
+Each source in :data:`SOURCES` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface,
+loaded with ``ctypes``; the ``nvcc`` processes run in parallel.  Every
+entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
-exception.  The library lands in ``vri_tpu_torch/_build/`` under a name
-that carries a digest of the sources and flags, so an edited source is
-never served by a stale build.  Nothing here runs at import time.
+exception.  The libraries land in ``vri_tpu_torch/_build/`` under names
+that carry a digest of the flags and of every file under ``csrc/``
+(shared headers included), so an edited source or header is never served
+by a stale build.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,17 +19,32 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster_tiles.cu", "march_rays.cu")
+SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "march_rays.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C entry point -> (source, argument types); every entry returns an int
+_ENTRIES = {
+    "vri_raster_tiles": ("raster_tiles.cu",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P]),
+    "vri_raster_ranged": ("raster_ranged.cu",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P]),
+    "vri_march_rays": ("march_rays.cu",
+                       [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I,
+                        _P, _P, _P, _P, _P]),
+}
+
 _lib = None
-#: compiler output of the build this process made (None when the library
-#: was already built)
+#: compiler output of the builds this process made (None when every
+#: library was already built)
 build_log: str | None = None
 
 
@@ -41,49 +58,68 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
+def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in sorted(os.listdir(CSRC)):
         with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libvri_kernels_{h.hexdigest()[:16]}.so")
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the kernels if this source digest has no library yet;
-    returns the library path."""
+def library_paths() -> dict:
+    """Source -> path of its built library."""
+    d = _digest()
+    return {s: os.path.join(BUILD_DIR, f"libvri_{s[:-3]}_{d}.so")
+            for s in SOURCES}
+
+
+def build() -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together; returns :func:`library_paths`."""
     global build_log
-    out = library_path()
-    if os.path.exists(out):
-        return out
+    paths = library_paths()
+    todo = {s: p for s, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (%d):\n%s%s" % (
-            proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, out)
-    build_log = proc.stdout + proc.stderr
-    return out
+    nvcc = _nvcc()
+    jobs = []
+    for src, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    logs, failed = [], []
+    for src, out, tmp, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src}\n{text}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n"
+                          f"{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_log = "".join(logs)
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library() -> types.SimpleNamespace:
+    """The kernels' C entry points, by name (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vri_raster_tiles.restype = i
-        lib.vri_raster_tiles.argtypes = [p, p, p, p, i, i, i, i, i,
-                                         p, p, p, p, p]
-        lib.vri_march_rays.restype = i
-        lib.vri_march_rays.argtypes = [p, i, p, i, i, i, p, p, p, i,
-                                       p, p, p, p, p]
-        _lib = lib
+        paths = build()
+        libs = {s: ctypes.CDLL(p) for s, p in paths.items()}
+        fns = {}
+        for name, (src, argtypes) in _ENTRIES.items():
+            fn = getattr(libs[src], name)
+            fn.restype = _I
+            fn.argtypes = argtypes
+            fns[name] = fn
+        _lib = types.SimpleNamespace(libraries=libs, **fns)
     return _lib
 
 

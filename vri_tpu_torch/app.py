@@ -3,8 +3,9 @@ vri_tpu_torch.app``.
 
 Takes the flags of ``python -m vri_tpu.app`` and runs the paths the port
 has: GI frames (``--mode none``) or G-buffer debug views through the
-sorted raster, written as PNGs.  Flags whose paths are not ported yet
-(``--no-gi``, the SDF debug modes, ``--backend bvh|brute``,
+raster tiers (``--backend raster``) or the brute-force tracer
+(``--backend brute``), written as PNGs.  Flags whose paths are not
+ported yet (``--no-gi``, the SDF debug modes, ``--backend bvh``,
 ``--multichip``, ``--lod``, ``--cache``, ``--trace``, the ``animated``
 builtin) exit with an error naming them.  It renders on the CUDA card.
 """
@@ -63,8 +64,8 @@ def _unported(args) -> list:
         bad.append("--no-gi")
     if args.mode.lower().startswith("sdf"):
         bad.append(f"--mode {args.mode}")
-    if args.backend != "raster":
-        bad.append(f"--backend {args.backend}")
+    if args.backend == "bvh":
+        bad.append("--backend bvh")
     for flag, on in (("--multichip", args.multichip), ("--lod", args.lod),
                      ("--cache", args.cache), ("--trace", args.trace)):
         if on:

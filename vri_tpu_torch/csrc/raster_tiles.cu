@@ -1,11 +1,21 @@
-// Kernel R: per-tile visibility walk over sorted per-tile slot lists.
+// Kernel R: per-tile visibility walk over per-tile slot lists.
 //
-// Replaces the two TPU visibility kernels of the sorted raster path:
+// Replaces the TPU visibility kernels of the sorted and binned raster
+// tiers:
 //   vri_tpu/ops/rasterize.py:_pass1_kernel   (K1, work-list walk)
 //   vri_tpu/ops/rasterize.py:_grouped_kernel (K2, grouped short lists)
+//   vri_tpu/ops/rasterize.py:_tileloop_kernel (K7, K1 with one grid step
+//                                              per tile)
+//   vri_tpu/ops/rasterize.py:_raster_binned_kernel (K5, group-binned lists)
 // On the TPU, K2 exists to dodge the per-grid-step cost for tiles with
 // short lists; a GPU has no such floor, so a short list is just a short
-// loop here and one kernel serves both.
+// loop here and one kernel serves both.  K7 is K1's contract with one
+// grid step per tile -- exactly this kernel's schedule.  K5's contract is
+// the nearest covering slot over one tile's list, as (z, winner): this
+// kernel's without the fused (u, v).  Its TPU layers (the bf16 split on
+// the matrix unit, statically unrolled subs, activity masks) have no
+// counterpart here, so the binned tier hands its per-tile lists, sorted
+// to setup order, to this kernel.
 //
 // Layout: one thread block per tile_h x tile_w pixel tile (8 x 128 =
 // 1024 threads), one thread per pixel.  Each thread walks the tile's own
@@ -33,6 +43,8 @@
 //
 // Winner rule: minimum of (z with its 7 low mantissa bits cleared,
 // position in the tile's list) -- a strict "<" over increasing positions.
+// Every tier's lists hold slot ids in ascending setup order, so the
+// position order is the setup order, the key raster_ranged.cu ties on.
 // K1 instead used the GLOBAL stream position mod 128 as its lane
 // tiebreak, compared steps with "<", and also visited foreign slots at
 // the ends of its 128-slot chunks; K2 picked the lowest position within
@@ -46,43 +58,13 @@
 // L1 broadcast latency per step, not by device-memory bandwidth.  Staging
 // a tile's coefficients in shared memory is left for later work.
 
-#include <cuda_runtime.h>
+#include "raster_common.cuh"
 
 namespace {
 
-// slot record: x0 y0 x1 y1 x2 y2 (global pixels), area sign, pad,
-// depth (a b c), un (a b c), vn (a b c), den (a b c), ox, oy, pad, pad
-constexpr int kCoef = 24;
-constexpr int kMissKey = 0x40000000;  // bit pattern of 2.0f
-
-// Affine field (a*lx + b*ly) + c at the pixel center's offset (lx, ly)
-// from the slot frame's origin (exact in FP32: integers plus one half).
-__device__ __forceinline__ float field(const float* __restrict__ c,
-                                       float lx, float ly) {
-  const float a = __ldg(c), b = __ldg(c + 1), k = __ldg(c + 2);
-  return (a * lx + b * ly) + k;
-}
-
-// cross(B - A, P - A) with the endpoints in canonical (x, then y) order
-// and the sign restored: bit-identical for both triangles of an edge.
-__device__ __forceinline__ float edge(float ax, float ay, float bx, float by,
-                                      float px, float py) {
-  const bool swap = bx < ax || (bx == ax && by < ay);
-  const float x0 = swap ? bx : ax, y0 = swap ? by : ay;
-  const float x1 = swap ? ax : bx, y1 = swap ? ay : by;
-  const float e = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0);
-  return swap ? -e : e;
-}
-
-__device__ __forceinline__ bool covers(const float* __restrict__ c,
-                                       float gx, float gy) {
-  const float x0 = __ldg(c), y0 = __ldg(c + 1), x1 = __ldg(c + 2),
-              y1 = __ldg(c + 3), x2 = __ldg(c + 4), y2 = __ldg(c + 5);
-  const float sg = __ldg(c + 6);
-  return edge(x0, y0, x1, y1, gx, gy) * sg >= 0.0f &&
-         edge(x1, y1, x2, y2, gx, gy) * sg >= 0.0f &&
-         edge(x2, y2, x0, y0, gx, gy) * sg >= 0.0f;
-}
+using vri::GlobalLoad;
+using vri::kCoef;
+using vri::kMissKey;
 
 __global__ void raster_tiles_kernel(const float* __restrict__ coef,
                                     const int* __restrict__ list,
@@ -108,11 +90,7 @@ __global__ void raster_tiles_kernel(const float* __restrict__ coef,
   int win = -1;
   for (int i = 0; i < n; ++i) {
     const float* c = coef + (size_t)__ldg(list + s0 + i) * kCoef;
-    const float lx = gx - __ldg(c + 20);
-    const float ly = gy - __ldg(c + 21);
-    const float z = field(c + 8, lx, ly);
-    const bool ok = covers(c, gx, gy) && z >= 0.0f && z <= 1.0f;
-    const int key = __float_as_int(ok ? z : 2.0f) & ~127;
+    const int key = vri::slot_key<GlobalLoad>(c, gx, gy);
     if (key < best) {
       best = key;
       win = i;
@@ -122,17 +100,9 @@ __global__ void raster_tiles_kernel(const float* __restrict__ coef,
   const int o = tile * (tile_h * tile_w) + p;
   if (win >= 0) {
     const int slot = list[s0 + win];
-    const float* c = coef + (size_t)slot * kCoef;
-    const float lx = gx - c[20];
-    const float ly = gy - c[21];
-    const float un = field(c + 11, lx, ly);
-    const float vn = field(c + 14, lx, ly);
-    const float dn = field(c + 17, lx, ly);
-    const float rcp = 1.0f / (fabsf(dn) > 1e-20f ? dn : 1.0f);
     z_out[o] = __int_as_float(best);
     slot_out[o] = slot;
-    u_out[o] = un * rcp;
-    v_out[o] = vn * rcp;
+    vri::slot_uv(coef + (size_t)slot * kCoef, gx, gy, u_out + o, v_out + o);
   } else {
     z_out[o] = 3.0e38f;
     slot_out[o] = -1;

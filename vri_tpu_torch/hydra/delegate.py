@@ -206,12 +206,13 @@ class RenderDelegate:
             return {}
         from concurrent.futures import ThreadPoolExecutor
 
-        from vri_tpu.runtime import native
+        from vri_tpu_torch import _native
 
-        # load (building it if absent) the native library on this thread:
-        # its build-on-first-use is not safe from several threads at once
-        # (a thread can load the half-written .so and fall back to numpy)
-        native.available()
+        # load (building it if absent) the native library on this thread,
+        # under the cross-process lock: its build-on-first-use is not safe
+        # from several threads or processes at once (one can load the
+        # half-written .so and fall back to numpy)
+        _native.ensure_native()
         res = self.config.limits.texture_res
         prepared: dict = {}
         with ThreadPoolExecutor(max_workers=workers) as ex:

@@ -1,27 +1,38 @@
-"""Sort-binned tiled visibility raster (counterpart of the sorted path of
-``vri_tpu/ops/rasterize.py``, ``rasterize_sorted``).
+"""Tiled visibility raster (counterpart of ``vri_tpu/ops/rasterize.py``):
+three tiers that share the triangle setup, the per-slot table and the
+per-(pixel, slot) math, and differ in how each tile finds its candidate
+slots.
 
-Per frame:
+* :func:`rasterize_sorted` -- exact emission: every visible slot emits
+  one (tile, slot) pair per 8x128 tile its screen bbox covers, in slot
+  order (``pairs_cap`` bounds the stream); one stable sort on the tile
+  key turns the stream into per-tile lists (``_segment_lists``), walked
+  to ``cap`` each.  Near-plane second slots are compacted into a counted
+  ``extra_cap``.
+* :func:`rasterize_binned` -- slots in screen-Morton order packed in
+  groups of 8; each tile lists the first ``cap_groups`` groups whose bbox
+  overlaps it (``_bin_groups``), sorted back to setup order.
+* :func:`rasterize` -- the capacity-free ranged tier: slots in
+  screen-Morton order packed in chunks of 128; each tile walks the global
+  (screen-spanning) chunks and its own Morton chunk range, skipping a
+  chunk whose overlap bit is clear.  Nothing can overflow: it is the
+  last rung of the renderer's overflow ladder.
 
-1. ``triangle_setup_clipped``: clip-space transform, near-plane clipping
-   (each source triangle owns up to two clipped slots; second slots are
-   compacted into a counted ``extra_cap``), the USD cull sign, and pixel
-   space projection.
-2. Exact emission: every visible slot emits one (tile, slot) pair per
-   8x128 tile its screen bbox covers, in slot order; pairs beyond
-   ``pairs_cap`` are dropped and counted.
-3. One stable sort on the tile key turns the pair stream into per-tile
-   lists (``_segment_lists``); a list longer than ``cap`` is walked only
-   to ``cap`` and counted.
-4. Kernel R (``raster_tiles``, ``csrc/raster_tiles.cu``) walks each tile's
-   list and returns the winner slot, its quantized depth and the
-   perspective-correct source barycentrics (u, v) from the slot's
-   rational-affine fields (un, vn, den) -- the JAX package's fused resolve.
+The sorted and binned lists go to kernel R (``raster_tiles``,
+``csrc/raster_tiles.cu``), the ranged tier to ``raster_ranged``
+(``csrc/raster_ranged.cu``).  Both kernels evaluate a pixel against a
+slot with the same device functions (``csrc/raster_common.cuh``) and take
+the minimum of (depth with 7 low mantissa bits cleared, slot index in
+setup order), and every tier numbers first slots before second slots in
+source order, so the three tiers give the same winner triangle, depth
+and (u, v) at every pixel whenever none of them overflows.  The winner's
+perspective-correct source barycentrics (u, v) come from the slot's
+rational-affine fields (un, vn, den) -- the JAX package's fused resolve.
 
-The TPU-only layers of the JAX path -- the bf16 cascade split of the
-edge coefficients, the packed work-list words and the grouped-tile
-packing -- have no counterpart: the kernel evaluates every field in
-scalar FP32 and walks each tile's own list.
+The TPU-only layers of the JAX tiers -- the bf16 cascade split of the
+edge coefficients, the packed work-list words, the grouped-tile packing,
+the statically unrolled binned subs -- have no counterpart: the kernels
+evaluate every field in scalar FP32.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from vri_tpu_torch.ops.intersect import HitRecord
 _BIG = 3.0e38
 _MISS_KEY = 0x40000000           # bit pattern of 2.0f: the key of a miss
 _NCOEF = 24                      # see slot_coefficients
+_TC = 128                        # slot padding quantum and ranged chunk
+_NEVER = torch.iinfo(torch.int64).max
 
 
 def _round_up(x: int, m: int) -> int:
@@ -52,14 +65,18 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
                            tri_vertices: torch.Tensor, num_faces,
                            view_proj: torch.Tensor, height: int, width: int,
                            w_eps: float = 1e-4, extra_cap: int | None = None,
-                           cull_sign: torch.Tensor | None = None):
+                           cull_sign: torch.Tensor | None = None,
+                           src_map: torch.Tensor | None = None):
     """Near-plane-clipped triangle setup (vectorized Sutherland-Hodgman
     against w = eps).  Each output corner carries its source-triangle
-    barycentrics so hits map back to the authored triangle.
+    barycentrics so hits map back to the authored triangle.  ``src_map``
+    (frustum-compacted rasterization) gives each of the F faces here its
+    face id in the scene's pool.
 
     Returns (tx, ty, tz, inv_w, bary1, bary2, src_id, valid,
     clip_overflow); the per-corner arrays are (S, 3) with S = F + E slots
-    (E = ``extra_cap`` compacted second slots, or F when None)."""
+    (E = ``extra_cap`` compacted second slots, or F when None: second
+    slot i at F + i)."""
     f = tri_vertices.shape[0]
     dev = world_verts.device
     v = world_verts
@@ -124,7 +141,8 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
                 - cy[:, 0] * (cx[:, 1] * cw[:, 2] - cx[:, 2] * cw[:, 1])
                 + cw[:, 0] * (cx[:, 1] * cy[:, 2] - cx[:, 2] * cy[:, 1]))
         in_range &= (cull_sign == 0.0) | (dhom * cull_sign > 0.0)
-    ids = torch.arange(f, dtype=torch.int32, device=dev)
+    ids = (torch.arange(f, dtype=torch.int32, device=dev) if src_map is None
+           else src_map.to(torch.int32))
     if extra_cap is None:
         tri6 = torch.cat([out1, two_in_2], dim=0)
         valid = torch.cat([valid1 & in_range, valid2 & in_range])
@@ -159,6 +177,26 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
             clip_overflow)
 
 
+def _padded_setup(world_verts, tri_vertices, num_faces, view_proj, *,
+                  height: int, width: int, extra_cap, cull_sign, src_map=None):
+    """Triangle setup padded to a multiple of 128 slots with at least one
+    dead pad slot; dead slots carry z = 10 (culled by the depth test).
+    Returns (tx, ty, tz, tw, b1, b2, src, valid, clip_overflow)."""
+    tx, ty, tz, tw, b1, b2, src, valid, clip_over = triangle_setup_clipped(
+        world_verts, tri_vertices, num_faces, view_proj, height, width,
+        extra_cap=extra_cap, cull_sign=cull_sign, src_map=src_map)
+    f2 = tx.shape[0]
+    pad = _round_up(f2 + 1, _TC) - f2
+
+    def padf(a):
+        return torch.cat([a, torch.zeros((pad,) + a.shape[1:], dtype=a.dtype,
+                                         device=a.device)])
+    tx, ty, tz, tw, b1, b2, valid, src = map(
+        padf, (tx, ty, tz, tw, b1, b2, valid, src))
+    tz = torch.where(valid[:, None], tz, 10.0)
+    return tx, ty, tz, tw, b1, b2, src, valid, clip_over
+
+
 def _segment_lists(tile_of: torch.Tensor, slot_of: torch.Tensor,
                    num_tiles: int):
     """(tile, slot) pair stream -> per-tile lists.  A stable sort on the
@@ -189,7 +227,7 @@ def _edge(ax, ay, bx, by, px, py):
 def _field(c, k, lx, ly):
     """Affine field of slot coefficients ``c`` (..., 24) starting at column
     k, at the pixel centers' offsets (lx, ly) from the slot frame's
-    origin: (a*lx + b*ly) + c -- kernel R's order."""
+    origin: (a*lx + b*ly) + c -- the kernels' order."""
     a, b, kc = c[..., k, None], c[..., k + 1, None], c[..., k + 2, None]
     return (a * lx + b * ly) + kc
 
@@ -206,54 +244,36 @@ def _covers(c, gx, gy):
             & (_edge(x2, y2, x0, y0, gx, gy) * sg >= 0.0))
 
 
-def raster_tiles_reference(coef, lists, starts, counts, *, num_tx: int,
-                           tile_h: int = 8, tile_w: int = 128,
-                           cap: int = 2048):
-    """Plain PyTorch version of kernel R.  For each tile t the winner over
-    list positions i < min(counts[t], cap) is the minimum of (z with its 7
-    low mantissa bits cleared, i) among slots whose pixel passes the
-    edge and depth tests.  Same operations in the same order as the
-    kernel.  Returns (z, slot, u, v), each (T, tile_h * tile_w)."""
-    dev = coef.device
-    T = counts.shape[0]
-    P = tile_h * tile_w
-    pix = torch.arange(P, device=dev)
+def _slot_keys(c, gx, gy):
+    """Depth keys (int64) of slot records ``c`` (..., S, 24) at pixel
+    centers (gx, gy) broadcast to (..., 1, P): z with its 7 low mantissa
+    bits cleared where the center is covered and 0 <= z <= 1, the miss
+    key elsewhere (``raster_common.cuh:slot_key``)."""
+    z = _field(c, 8, gx - c[..., 20, None], gy - c[..., 21, None])
+    ok = _covers(c, gx, gy) & (z >= 0.0) & (z <= 1.0)
+    zm = torch.where(ok, z, 2.0)
+    return (zm.view(torch.int32) & ~127).to(torch.int64)
+
+
+def _tile_pixels(T: int, num_tx: int, tile_h: int, tile_w: int, dev):
+    """Global pixel centers (gx, gy), each (T, P), of every tile."""
+    pix = torch.arange(tile_h * tile_w, device=dev)
     px = 0.5 + (pix % tile_w).float()
     py = 0.5 + (pix // tile_w).float()
     tid = torch.arange(T, device=dev)
     fx0 = ((tid % num_tx) * tile_w).float()
     fy0 = ((tid // num_tx) * tile_h).float()
-    n = torch.clamp(counts.long(), max=cap)
-    s0 = starts[:T].long()
-    maxn = int(n.max()) if T else 0
-    # list positions per vectorized step, bounding the (T, chunk, P) temps
-    chunk = max(1, min(64, (1 << 24) // max(T * P, 1)))
-    never = torch.iinfo(torch.int64).max
-    best = torch.full((T, P), never, dtype=torch.int64, device=dev)
-    last = max(lists.shape[0] - 1, 0)
-    for i0 in range(0, maxn, chunk):
-        pos = torch.arange(i0, min(i0 + chunk, maxn), device=dev)
-        live = pos[None, :] < n[:, None]                      # (T, C)
-        slot = lists[torch.clamp(s0[:, None] + pos[None, :], max=last)]
-        c = coef[slot.long()]                                 # (T, C, 24)
-        gx = fx0[:, None, None] + px
-        gy = fy0[:, None, None] + py
-        z = _field(c, 8, gx - c[..., 20, None], gy - c[..., 21, None])
-        ok = _covers(c, gx, gy) & (z >= 0.0) & (z <= 1.0)
-        zm = torch.where(ok, z, 2.0)
-        key = (zm.view(torch.int32) & ~127).to(torch.int64)
-        comp = (key << 32) | pos[None, :, None]
-        comp = torch.where(live[..., None], comp, never)
-        best = torch.minimum(best, comp.min(dim=1).values)
-    key = best >> 32
+    return fx0[:, None] + px, fy0[:, None] + py
+
+
+def _resolve_winners(coef, key, slot, gx, gy):
+    """Kernel outputs (z, slot, u, v), each (T, P), from the winners'
+    depth keys and slot ids (``raster_common.cuh:slot_uv``)."""
     hit = key < _MISS_KEY
-    win = torch.where(hit, best & 0xFFFFFFFF, 0)
-    slot = lists[torch.clamp(s0[:, None] + win, max=last)].long() \
-        if lists.numel() else torch.zeros_like(win)
-    c = coef[slot] if lists.numel() else torch.zeros(
-        (T, P, _NCOEF), dtype=torch.float32, device=dev)
-    lx = (fx0[:, None] + px) - c[..., 20]
-    ly = (fy0[:, None] + py) - c[..., 21]
+    slot = torch.where(hit, slot, 0)
+    c = coef[slot]
+    lx = gx - c[..., 20]
+    ly = gy - c[..., 21]
 
     def win_field(k):     # the winner's field at its own pixel
         a, b, kc = c[..., k], c[..., k + 1], c[..., k + 2]
@@ -268,42 +288,89 @@ def raster_tiles_reference(coef, lists, starts, counts, *, num_tx: int,
             torch.where(hit, vn * rcp, 0.0))
 
 
+def raster_tiles_reference(coef, lists, starts, counts, *, num_tx: int,
+                           tile_h: int = 8, tile_w: int = 128,
+                           cap: int = 2048):
+    """Plain PyTorch version of kernel R.  For each tile t the winner over
+    list positions i < min(counts[t], cap) is the minimum of (z with its 7
+    low mantissa bits cleared, i) among slots whose pixel passes the
+    edge and depth tests.  Same operations in the same order as the
+    kernel.  Returns (z, slot, u, v), each (T, tile_h * tile_w)."""
+    dev = coef.device
+    T = counts.shape[0]
+    P = tile_h * tile_w
+    gx, gy = _tile_pixels(T, num_tx, tile_h, tile_w, dev)
+    gx, gy = gx[:, None, :], gy[:, None, :]
+    n = torch.clamp(counts.long(), max=cap)
+    s0 = starts[:T].long()
+    maxn = int(n.max()) if T else 0
+    # list positions per vectorized step, bounding the (T, chunk, P) temps
+    chunk = max(1, min(64, (1 << 24) // max(T * P, 1)))
+    best = torch.full((T, P), _NEVER, dtype=torch.int64, device=dev)
+    last = max(lists.shape[0] - 1, 0)
+    for i0 in range(0, maxn, chunk):
+        pos = torch.arange(i0, min(i0 + chunk, maxn), device=dev)
+        live = pos[None, :] < n[:, None]                      # (T, C)
+        slot = lists[torch.clamp(s0[:, None] + pos[None, :], max=last)]
+        comp = (_slot_keys(coef[slot.long()], gx, gy) << 32) \
+            | pos[None, :, None]
+        comp = torch.where(live[..., None], comp, _NEVER)
+        best = torch.minimum(best, comp.min(dim=1).values)
+    win = best & 0xFFFFFFFF
+    slot = lists[torch.clamp(s0[:, None] + win, max=last)].long() \
+        if lists.numel() else torch.zeros_like(win)
+    return _resolve_winners(coef, best >> 32, slot, gx[:, 0], gy[:, 0])
+
+
+def _check_tiles(name, coef, ints, T, tile_h, tile_w):
+    if coef.dtype != torch.float32 or coef.dim() != 2 \
+            or coef.shape[1] != _NCOEF:
+        raise ValueError(f"{name}: coef must be (S, {_NCOEF}) float32, got "
+                         f"{tuple(coef.shape)} {coef.dtype}")
+    for arg, x in ints.items():
+        if x.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {x.dtype}")
+    if not 1 <= tile_h * tile_w <= 1024:
+        raise ValueError(f"{name}: a tile of {tile_h * tile_w} pixels "
+                         "exceeds one thread block")
+    tensors = (coef, *ints.values())
+    if all(x.device.type == "cpu" for x in tensors):
+        return True
+    if not all(x.is_cuda and x.device == coef.device for x in tensors):
+        raise ValueError(f"{name}: inputs must all be on one CUDA device "
+                         "(or all on the CPU)")
+    return False
+
+
+def _outputs(T, P, dev):
+    return (torch.empty((T, P), dtype=torch.float32, device=dev),
+            torch.empty((T, P), dtype=torch.int32, device=dev),
+            torch.empty((T, P), dtype=torch.float32, device=dev),
+            torch.empty((T, P), dtype=torch.float32, device=dev))
+
+
 def raster_tiles(coef: torch.Tensor, lists: torch.Tensor,
                  starts: torch.Tensor, counts: torch.Tensor, *, num_tx: int,
                  tile_h: int = 8, tile_w: int = 128, cap: int = 2048):
     """Kernel R wrapper (see :func:`raster_tiles_reference`): CUDA tensors
     launch ``csrc/raster_tiles.cu``; CPU tensors run the plain version.
-    ``coef`` (S, 24) f32 slot table (:func:`slot_coefficients`), ``lists`` (pairs,) i32 slot
-    ids in tile order, ``starts`` (T+1,) / ``counts`` (T,) i32."""
+    ``coef`` (S, 24) f32 slot table (:func:`slot_coefficients`), ``lists``
+    (pairs,) i32 slot ids in tile order, ascending within each tile,
+    ``starts`` (T+1,) / ``counts`` (T,) i32."""
     T = counts.shape[0]
-    P = tile_h * tile_w
-    if coef.dtype != torch.float32 or coef.dim() != 2 \
-            or coef.shape[1] != _NCOEF:
-        raise ValueError(f"coef must be (S, {_NCOEF}) float32, got "
-                         f"{tuple(coef.shape)} {coef.dtype}")
-    for name, x in (("lists", lists), ("starts", starts),
-                    ("counts", counts)):
-        if x.dtype != torch.int32 or x.dim() != 1:
-            raise ValueError(f"{name} must be 1-D int32, got "
-                             f"{tuple(x.shape)} {x.dtype}")
+    ints = dict(lists=lists, starts=starts, counts=counts)
+    if any(x.dim() != 1 for x in ints.values()):
+        raise ValueError("raster_tiles: lists, starts and counts must be "
+                         "1-D")
     if starts.shape[0] != T + 1:
         raise ValueError("starts must hold one more entry than counts")
-    if not 1 <= P <= 1024:
-        raise ValueError(f"tile of {P} pixels exceeds one thread block")
-    tensors = (coef, lists, starts, counts)
-    if all(x.device.type == "cpu" for x in tensors):
+    if _check_tiles("raster_tiles", coef, ints, T, tile_h, tile_w):
         return raster_tiles_reference(coef, lists, starts, counts,
                                       num_tx=num_tx, tile_h=tile_h,
                                       tile_w=tile_w, cap=cap)
-    if not all(x.is_cuda and x.device == coef.device for x in tensors):
-        raise ValueError("raster_tiles: inputs must all be on one CUDA "
-                         "device (or all on the CPU)")
-    coef, lists, starts, counts = (x.contiguous() for x in tensors)
-    dev = coef.device
-    z = torch.empty((T, P), dtype=torch.float32, device=dev)
-    slot = torch.empty((T, P), dtype=torch.int32, device=dev)
-    u = torch.empty((T, P), dtype=torch.float32, device=dev)
-    v = torch.empty((T, P), dtype=torch.float32, device=dev)
+    coef, lists, starts, counts = (
+        x.contiguous() for x in (coef, lists, starts, counts))
+    z, slot, u, v = _outputs(T, tile_h * tile_w, coef.device)
     code = _cuda.library().vri_raster_tiles(
         coef.data_ptr(), lists.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), T, num_tx, tile_h, tile_w, cap, z.data_ptr(),
@@ -314,6 +381,85 @@ def raster_tiles(coef: torch.Tensor, lists: torch.Tensor,
 
 
 raster_tiles.launches = 0
+
+
+def raster_ranged_reference(coef, order, ranges, words, *, n_global: int,
+                            num_tx: int, tile_h: int = 8, tile_w: int = 128):
+    """Plain PyTorch version of ``raster_ranged``.  Tile t walks chunks
+    0 .. n_global-1, then ranges[t, 0] .. ranges[t, 1]-1, each only when
+    its bit in words[t] is set; chunk c holds the slots order[128c ..
+    128c+127].  The winner is the minimum of (z with its 7 low mantissa
+    bits cleared, slot index) among slots whose pixel passes the edge and
+    depth tests.  The live (tile, chunk) pairs are evaluated in batches
+    and reduced per tile.  Returns (z, slot, u, v), each (T, P)."""
+    dev = coef.device
+    T = ranges.shape[0]
+    P = tile_h * tile_w
+    gx, gy = _tile_pixels(T, num_tx, tile_h, tile_w, dev)
+    lo = ranges[:, 0].long()
+    steps = n_global + torch.clamp(ranges[:, 1].long() - lo, min=0)
+    total = int(steps.sum())
+    tile_of = torch.repeat_interleave(torch.arange(T, device=dev), steps,
+                                      output_size=total)
+    k = torch.arange(total, device=dev) - (torch.cumsum(steps, 0)
+                                           - steps)[tile_of]
+    c = torch.where(k < n_global, k, lo[tile_of] + k - n_global)
+    word = words[tile_of, c >> 5].long() & 0xFFFFFFFF
+    live = ((word >> (c & 31)) & 1) != 0
+    tile_of, c = tile_of[live], c[live]
+    chunks = order.view(-1, _TC)
+    best = torch.full((T, P), _NEVER, dtype=torch.int64, device=dev)
+    batch = max(1, (1 << 22) // (_TC * P))
+    for b0 in range(0, tile_of.shape[0], batch):
+        tb = tile_of[b0:b0 + batch]
+        sid = chunks[c[b0:b0 + batch]].long()                 # (B, 128)
+        comp = (_slot_keys(coef[sid], gx[tb][:, None, :],
+                           gy[tb][:, None, :]) << 32) | sid[..., None]
+        best.scatter_reduce_(0, tb[:, None].expand(-1, P),
+                             comp.min(dim=1).values, "amin")
+    return _resolve_winners(coef, best >> 32, best & 0xFFFFFFFF, gx, gy)
+
+
+def raster_ranged(coef: torch.Tensor, order: torch.Tensor,
+                  ranges: torch.Tensor, words: torch.Tensor, *,
+                  n_global: int, num_tx: int, tile_h: int = 8,
+                  tile_w: int = 128):
+    """Ranged kernel wrapper (see :func:`raster_ranged_reference`): CUDA
+    tensors launch ``csrc/raster_ranged.cu``; CPU tensors run the plain
+    version.  ``coef`` (S, 24) f32 slot table in setup order, ``order``
+    (C * 128,) i32 slot ids in Morton order, ``ranges`` (T, 2) i32 local
+    chunk ranges, ``words`` (T, ceil(C / 32)) i32 overlap bits."""
+    T = ranges.shape[0]
+    ints = dict(order=order, ranges=ranges, words=words)
+    if order.dim() != 1 or order.shape[0] % _TC:
+        raise ValueError(f"raster_ranged: order must be 1-D with a multiple "
+                         f"of {_TC} entries, got {tuple(order.shape)}")
+    num_chunks = order.shape[0] // _TC
+    if ranges.shape != (T, 2) or words.dim() != 2 or words.shape[0] != T \
+            or words.shape[1] * 32 < num_chunks:
+        raise ValueError("raster_ranged: ranges must be (T, 2) and words "
+                         "(T, >= chunks / 32)")
+    if not 0 <= n_global <= num_chunks:
+        raise ValueError(f"raster_ranged: n_global {n_global} outside "
+                         f"[0, {num_chunks}]")
+    if _check_tiles("raster_ranged", coef, ints, T, tile_h, tile_w):
+        return raster_ranged_reference(coef, order, ranges, words,
+                                       n_global=n_global, num_tx=num_tx,
+                                       tile_h=tile_h, tile_w=tile_w)
+    coef, order, ranges, words = (
+        x.contiguous() for x in (coef, order, ranges, words))
+    z, slot, u, v = _outputs(T, tile_h * tile_w, coef.device)
+    code = _cuda.library().vri_raster_ranged(
+        coef.data_ptr(), order.data_ptr(), ranges.data_ptr(),
+        words.data_ptr(), T, n_global, words.shape[1], num_tx, tile_h,
+        tile_w, z.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
+        _cuda.stream_ptr(coef))
+    _cuda.check(code, "raster_ranged")
+    raster_ranged.launches += 1
+    return z, slot, u, v
+
+
+raster_ranged.launches = 0
 
 
 def slot_coefficients(tx, ty, tz, tw, b1, b2, valid):
@@ -388,17 +534,80 @@ def slot_coefficients(tx, ty, tz, tw, b1, b2, valid):
         dim=1).contiguous()
 
 
+def _screen_morton_order(tx, ty, valid, height: int, width: int,
+                         large_span: float = 160.0,
+                         partition_large: bool = True):
+    """Spatial-locality permutation of the slots (``vri_tpu``'s
+    ``_screen_morton_order``): a stable sort on the Morton code of each
+    slot's screen-bbox center, invalid slots last.  With
+    ``partition_large`` slots spanning more than ``large_span`` pixels sort
+    to a front block that every tile walks.  Returns (order (S,) int64,
+    number of large valid slots)."""
+    dev = tx.device
+    lox, hix = tx.min(dim=1).values, tx.max(dim=1).values
+    loy, hiy = ty.min(dim=1).values, ty.max(dim=1).values
+    sx = torch.tensor(1024.0 / width, dtype=torch.float32, device=dev)
+    sy = torch.tensor(1024.0 / height, dtype=torch.float32, device=dev)
+    cx = torch.clamp((lox + hix) * 0.5, 0, width - 1) * sx
+    cy = torch.clamp((loy + hiy) * 0.5, 0, height - 1) * sy
+
+    def spread(v):
+        v = v.to(torch.int64)
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+
+    code = (spread(cx) << 1) | spread(cy)
+    if partition_large:
+        large = ((hix - lox) > large_span) | ((hiy - loy) > large_span)
+        key = torch.where(large, 0, code + 1)
+        n_large = int((large & valid).sum())
+    else:
+        key = code
+        n_large = 0
+    key = torch.where(valid, key, 0xFFFFFFFF)
+    return torch.sort(key, stable=True).indices, n_large
+
+
+def _bboxes(tx, ty, valid, order, size: int):
+    """(N, 4) screen bboxes [x_lo, x_hi, y_lo, y_hi] of consecutive runs
+    of ``size`` slots in ``order``, over valid slots only (an all-invalid
+    run gets an empty box)."""
+    v = valid[order][:, None]
+    x, y = tx[order], ty[order]
+    n = order.shape[0] // size
+    return torch.stack(
+        [torch.where(v, x, _BIG).reshape(n, -1).min(dim=1).values,
+         torch.where(v, x, -_BIG).reshape(n, -1).max(dim=1).values,
+         torch.where(v, y, _BIG).reshape(n, -1).min(dim=1).values,
+         torch.where(v, y, -_BIG).reshape(n, -1).max(dim=1).values], dim=1)
+
+
+def _tile_overlap(box, rows, gx: int, tile_h: int, tile_w: int):
+    """(len(rows), gx, N) bool: box n overlaps tile (row, col), with the
+    reference's closed tests against the tile's edges."""
+    dev = box.device
+    tx0 = torch.arange(gx, device=dev).float() * tile_w
+    ty0 = rows.float() * tile_h
+    ov_x = (box[None, :, 0] <= tx0[:, None] + tile_w) \
+        & (box[None, :, 1] >= tx0[:, None])
+    ov_y = (box[None, :, 2] <= ty0[:, None] + tile_h) \
+        & (box[None, :, 3] >= ty0[:, None])
+    return ov_y[:, None, :] & ov_x[None, :, :]
+
+
 def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap: int = 2048,
                    pairs_cap: int | None = None, caps_scale: int = 1,
-                   cull_sign=None):
-    """Everything before the walk: setup, exact emission and the per-tile
-    lists.  Returns a dict with the kernel's inputs (coef, lists, starts,
-    counts, cap, num_tx), the slot-to-triangle map ``src`` and the
-    ``overflow`` flag (0-d int32)."""
-    tc = 128                           # slot padding quantum
-    cap = _round_up(cap * caps_scale, tc)
+                   cull_sign=None, src_map=None):
+    """Everything before the sorted tier's walk: setup, exact emission and
+    the per-tile lists.  Returns a dict with the kernel's inputs (coef,
+    lists, starts, counts, cap, num_tx), the slot-to-triangle map ``src``
+    and the ``overflow`` flag (0-d int32)."""
+    cap = _round_up(cap * caps_scale, _TC)
     if pairs_cap is not None:
         pairs_cap = pairs_cap * caps_scale
     hp = _round_up(height, tile_h)
@@ -408,19 +617,10 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
     dev = world_verts.device
 
     extra = max(tri_vertices.shape[0] // 16, 256) * caps_scale
-    tx, ty, tz, tw, b1, b2, src, valid, clip_over = triangle_setup_clipped(
-        world_verts, tri_vertices, num_faces, view_proj, height, width,
-        extra_cap=extra, cull_sign=cull_sign)
-    f2 = tx.shape[0]
-    fp = _round_up(f2 + 1, tc)         # >= 1 guaranteed-invalid pad slot
-    pad = fp - f2
-
-    def padf(a):
-        return torch.cat([a, torch.zeros((pad,) + a.shape[1:], dtype=a.dtype,
-                                         device=dev)])
-    tx, ty, tz, tw, b1, b2, valid, src = map(
-        padf, (tx, ty, tz, tw, b1, b2, valid, src))
-    tz = torch.where(valid[:, None], tz, 10.0)
+    tx, ty, tz, tw, b1, b2, src, valid, clip_over = _padded_setup(
+        world_verts, tri_vertices, num_faces, view_proj, height=height,
+        width=width, extra_cap=extra, cull_sign=cull_sign, src_map=src_map)
+    fp = tx.shape[0]
 
     # per-slot inclusive tile span from the screen bbox
     lox, hix = tx.min(dim=1).values, tx.max(dim=1).values
@@ -436,7 +636,7 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
         mult = 6 if cull_sign is None else 4
         pairs_cap = max(min(mult * fp, 2 * 1024 * 1024),
                         128 * 1024) * caps_scale
-    pairs_cap = _round_up(pairs_cap, tc)
+    pairs_cap = _round_up(pairs_cap, _TC)
 
     # exact emission: slot-major, row-major over each slot's tile window
     ry0 = torch.clamp(ty0, 0, gy - 1).long()
@@ -463,25 +663,114 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
                 num_tx=gx, grid=(gy, gx), src=src, overflow=overflow)
 
 
-def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
-                     num_faces, view_proj: torch.Tensor, *, height: int,
-                     width: int, tile_h: int = 8, tile_w: int = 128,
-                     cap: int = 2048, pairs_cap: int | None = None,
-                     caps_scale: int = 1, cull_sign=None
-                     ) -> Tuple[HitRecord, torch.Tensor]:
-    """Visibility raster with sort-built exact per-tile lists.  ``cap``
-    bounds one tile's list, ``pairs_cap`` the emitted pair stream (default
-    6x the slot count, 4x with culling); both scale with ``caps_scale``
-    (the renderer's overflow response).  Any capacity overflow sets
-    ``HitRecord.overflow``.  Returns (HitRecord, depth image)."""
-    prep = prepare_sorted(world_verts, tri_vertices, num_faces, view_proj,
-                          height=height, width=width, tile_h=tile_h,
-                          tile_w=tile_w, cap=cap, pairs_cap=pairs_cap,
-                          caps_scale=caps_scale, cull_sign=cull_sign)
-    z, slot, u, v = raster_tiles(prep["coef"], prep["lists"],
-                                 prep["starts"], prep["counts"],
-                                 num_tx=prep["num_tx"], tile_h=tile_h,
-                                 tile_w=tile_w, cap=prep["cap"])
+def _bin_groups(box, grid, tile_h: int, tile_w: int, cap_groups: int):
+    """Per-tile lists of Morton slot groups (``vri_tpu``'s
+    ``_bin_groups``): a group belongs to a tile when its bbox overlaps
+    it; a tile keeps its first ``cap_groups`` groups.  Returns (group ids
+    (T, k), in-list mask (T, k), overflowed (T,) bool) with k =
+    min(groups, cap_groups)."""
+    gy, gx = grid
+    overlap = _tile_overlap(box, torch.arange(gy, device=box.device), gx,
+                            tile_h, tile_w).reshape(gy * gx, -1)
+    overflowed = overlap.sum(dim=1) > cap_groups
+    # overlapping group ids first, in group order (stable sort)
+    first = torch.sort((~overlap).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :cap_groups]
+    return first, torch.gather(overlap, 1, first), overflowed
+
+
+def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
+                   height: int, width: int, tile_h: int = 8,
+                   tile_w: int = 128, cap_groups: int = 64,
+                   caps_scale: int = 1, cull_sign=None):
+    """Everything before the binned tier's walk: setup with one second
+    slot per face, the Morton order, 8-slot groups and per-tile group
+    lists.  Each tile's list holds the slot ids of its groups sorted to
+    ascending setup order, so kernel R's list-position tie rule is the
+    setup-order rule.  Returns the dict of :func:`prepare_sorted`; its
+    ``overflow`` counts the tiles with more than ``cap_groups *
+    caps_scale`` overlapping groups (0-d int32), as ``vri_tpu``'s binned
+    tier does."""
+    group = 8
+    cap_groups = cap_groups * caps_scale
+    hp = _round_up(height, tile_h)
+    wp = _round_up(width, tile_w)
+    gy, gx = hp // tile_h, wp // tile_w
+    tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
+        world_verts, tri_vertices, num_faces, view_proj, height=height,
+        width=width, extra_cap=None, cull_sign=cull_sign)
+    order, _ = _screen_morton_order(tx, ty, valid, height, width,
+                                    partition_large=False)
+    groups, in_list, overflowed = _bin_groups(
+        _bboxes(tx, ty, valid, order, group), (gy, gx), tile_h, tile_w,
+        cap_groups)
+    members = order.view(-1, group)[groups]              # (T, k, 8)
+    # the last pad slot (dead, the highest id) fills the rows' tails
+    dead = tx.shape[0] - 1
+    lists = torch.where(in_list[..., None], members, dead).reshape(
+        gy * gx, -1)
+    lists = torch.sort(lists, dim=1).values.to(torch.int32)
+    width_l = lists.shape[1]
+    starts = torch.arange(gy * gx + 1, dtype=torch.int32,
+                          device=tx.device) * width_l
+    counts = (in_list.sum(dim=1) * group).to(torch.int32)
+    return dict(coef=slot_coefficients(tx, ty, tz, tw, b1, b2, valid),
+                lists=lists.reshape(-1), starts=starts, counts=counts,
+                cap=_round_up(max(width_l, 1), _TC), num_tx=gx,
+                grid=(gy, gx), src=src,
+                overflow=overflowed.sum().to(torch.int32))
+
+
+def prepare_ranged(world_verts, tri_vertices, num_faces, view_proj, *,
+                   height: int, width: int, tile_h: int = 8,
+                   tile_w: int = 128, cull_sign=None):
+    """Everything before the ranged walk: setup with one second slot per
+    face (S = 2F, no clip overflow), the Morton order with screen-spanning
+    slots in front, and the per-tile metadata of ``vri_tpu``'s ranged
+    tier: ``n_global`` front chunks every tile walks, each tile's local
+    chunk range [lo, hi) and its chunk overlap bits packed in 32-bit
+    words.  Returns a dict with the kernel's inputs (coef, order, ranges,
+    words, n_global, num_tx), ``grid`` and ``src``."""
+    hp = _round_up(height, tile_h)
+    wp = _round_up(width, tile_w)
+    gy, gx = hp // tile_h, wp // tile_w
+    dev = world_verts.device
+    tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
+        world_verts, tri_vertices, num_faces, view_proj, height=height,
+        width=width, extra_cap=None, cull_sign=cull_sign)
+    order, n_large = _screen_morton_order(tx, ty, valid, height, width)
+    box = _bboxes(tx, ty, valid, order, _TC)
+    num_chunks = box.shape[0]
+    n_global = min(-(-n_large // _TC), num_chunks)
+    n_words = -(-num_chunks // 32)
+    cid = torch.arange(num_chunks, device=dev)
+    local = cid >= n_global
+    shifts = torch.arange(32, device=dev)
+    ranges, words = [], []
+    # tile rows per slab, bounding the (rows, gx, chunks) temporaries
+    slab = max(1, (1 << 22) // (gx * n_words * 32))
+    for r0 in range(0, gy, slab):
+        ov = _tile_overlap(box, torch.arange(r0, min(r0 + slab, gy),
+                                             device=dev), gx, tile_h, tile_w)
+        ov = ov.reshape(-1, num_chunks)
+        lo = torch.where(ov & local, cid, 1 << 30).min(dim=1).values
+        hi = torch.where(ov & local, cid + 1, 0).max(dim=1).values
+        ranges.append(torch.stack([torch.minimum(lo, hi), hi], dim=1))
+        bits = torch.nn.functional.pad(ov, (0, n_words * 32 - num_chunks))
+        w = (bits.view(-1, n_words, 32).long() << shifts).sum(dim=2)
+        words.append(torch.where(w >= 1 << 31, w - (1 << 32), w))
+    return dict(coef=slot_coefficients(tx, ty, tz, tw, b1, b2, valid),
+                order=order.to(torch.int32),
+                ranges=torch.cat(ranges).to(torch.int32).contiguous(),
+                words=torch.cat(words).to(torch.int32).contiguous(),
+                n_global=n_global, num_tx=gx, grid=(gy, gx), src=src)
+
+
+def _frame_hit(prep, out, *, height: int, width: int, tile_h: int,
+               tile_w: int, overflow) -> Tuple[HitRecord, torch.Tensor]:
+    """Per-tile kernel outputs (z, slot, u, v) -> (HitRecord over the
+    height x width frame with source triangle ids, depth image)."""
+    z, slot, u, v = out
     gy, gx = prep["grid"]
 
     def plane(a):
@@ -495,5 +784,76 @@ def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
     z = plane(z)
     hit = HitRecord(t=z.reshape(-1), tri=tri.reshape(-1),
                     u=plane(u).reshape(-1), v=plane(v).reshape(-1),
-                    overflow=prep["overflow"])
+                    overflow=overflow)
     return hit, z
+
+
+def _walk_lists(prep, *, height: int, width: int, tile_h: int, tile_w: int):
+    out = raster_tiles(prep["coef"], prep["lists"], prep["starts"],
+                       prep["counts"], num_tx=prep["num_tx"], tile_h=tile_h,
+                       tile_w=tile_w, cap=prep["cap"])
+    return _frame_hit(prep, out, height=height, width=width, tile_h=tile_h,
+                      tile_w=tile_w, overflow=prep["overflow"])
+
+
+def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
+                     num_faces, view_proj: torch.Tensor, *, height: int,
+                     width: int, tile_h: int = 8, tile_w: int = 128,
+                     cap: int = 2048, pairs_cap: int | None = None,
+                     caps_scale: int = 1, cull_sign=None,
+                     walker: str = "steps", src_map=None
+                     ) -> Tuple[HitRecord, torch.Tensor]:
+    """Visibility raster with sort-built exact per-tile lists.  ``cap``
+    bounds one tile's list, ``pairs_cap`` the emitted pair stream (default
+    6x the slot count, 4x with culling); both scale with ``caps_scale``
+    (the renderer's overflow response).  Any capacity overflow sets
+    ``HitRecord.overflow``.  ``src_map`` maps compacted face indices to
+    the scene's face ids.  ``walker`` names the JAX package's two list
+    walkers, K1 ("steps") and K7 ("tileloop", one grid step per tile);
+    both run kernel R, whose schedule is K7's.  Returns (HitRecord, depth
+    image)."""
+    if walker not in ("steps", "tileloop"):
+        raise ValueError(f"unknown walker {walker!r}")
+    prep = prepare_sorted(world_verts, tri_vertices, num_faces, view_proj,
+                          height=height, width=width, tile_h=tile_h,
+                          tile_w=tile_w, cap=cap, pairs_cap=pairs_cap,
+                          caps_scale=caps_scale, cull_sign=cull_sign,
+                          src_map=src_map)
+    return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
+                       tile_w=tile_w)
+
+
+def rasterize_binned(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
+                     num_faces, view_proj: torch.Tensor, *, height: int,
+                     width: int, tile_h: int = 8, tile_w: int = 128,
+                     cap_groups: int = 64, caps_scale: int = 1,
+                     cull_sign=None) -> Tuple[HitRecord, torch.Tensor]:
+    """Visibility raster with per-tile lists of 8-slot Morton groups
+    (``vri_tpu``'s ``rasterize_binned``), walked by kernel R.  A tile
+    holding more than ``cap_groups * caps_scale`` groups walks only the
+    first and is counted in ``HitRecord.overflow``.  Returns (HitRecord,
+    depth image)."""
+    prep = prepare_binned(world_verts, tri_vertices, num_faces, view_proj,
+                          height=height, width=width, tile_h=tile_h,
+                          tile_w=tile_w, cap_groups=cap_groups,
+                          caps_scale=caps_scale, cull_sign=cull_sign)
+    return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
+                       tile_w=tile_w)
+
+
+def rasterize(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
+              num_faces, view_proj: torch.Tensor, *, height: int,
+              width: int, tile_h: int = 8, tile_w: int = 128,
+              cull_sign=None) -> Tuple[HitRecord, torch.Tensor]:
+    """The capacity-free ranged raster (``vri_tpu``'s ``rasterize``,
+    kernel K6), walked by ``raster_ranged``.  It reports no overflow
+    (``HitRecord.overflow`` is None).  Returns (HitRecord, depth
+    image)."""
+    prep = prepare_ranged(world_verts, tri_vertices, num_faces, view_proj,
+                          height=height, width=width, tile_h=tile_h,
+                          tile_w=tile_w, cull_sign=cull_sign)
+    out = raster_ranged(prep["coef"], prep["order"], prep["ranges"],
+                        prep["words"], n_global=prep["n_global"],
+                        num_tx=prep["num_tx"], tile_h=tile_h, tile_w=tile_w)
+    return _frame_hit(prep, out, height=height, width=width, tile_h=tile_h,
+                      tile_w=tile_w, overflow=None)

@@ -1,15 +1,18 @@
 """One static-stage GI frame (counterpart of ``render_frame_gi`` in
 ``vri_tpu/passes/frame.py``): bake world vertices -> camera rays ->
-sorted-list raster -> G-buffer resolve -> SDF-shadowed direct light + one
+visibility -> G-buffer resolve -> SDF-shadowed direct light + one
 SDF-marched GI bounce.
 
-Ported: mode NONE at ``gi_scale=1`` with the sorted raster at every
-frame size (the JAX package's binned/sorted dispatch thresholds were
-tuned for the TPU).  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP.md item: the SDF debug
-modes (item 1), reduced-rate GI and the temporal frame (item 2), the
-binned and ranged raster tiers (item 4), LOD masks (item 6) and the
-frustum compaction of very large face pools.
+Ported: mode NONE at ``gi_scale=1``; visibility through every raster
+tier with the JAX package's dispatch (frustum compaction for face pools
+of 2^19 slots or more, the binned tier for small pools at small frames,
+the sorted tier otherwise, the ranged tier on request) and through the
+brute-force tracer.  The dispatch thresholds were tuned for the TPU; the
+port keeps them so that it takes the reference's tier at every shape.
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: the SDF debug modes (item 1), reduced-rate GI and the
+temporal frame (item 2), the BVH backend (item 4) and LOD masks (item
+6).
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from vri_tpu_torch.ops import rasterize as raster_mod
 from vri_tpu_torch.ops.geometry import norm3
 from vri_tpu_torch.registry import SceneBuffers, bake_world
 
-# face pools at or above this size take the JAX package's frustum
-# compaction before setup (frame.py:124), which is not ported yet
+# face pools at or above this size are frustum-culled and compacted
+# before setup (``vri_tpu/passes/frame.py:124``)
 _CULL_COMPACT_MIN_POOL = 1 << 19
 
 
@@ -88,27 +91,131 @@ def _cull_sign(scene: SceneBuffers):
     return None if inst is None else inst[scene.tri_instance.long()]
 
 
+def _instance_frustum_mask(scene: SceneBuffers, view_proj):
+    """Conservative per-instance frustum visibility from world AABBs: an
+    instance is culled only when all 8 AABB corners lie outside one clip
+    plane (homogeneous tests, sign-safe behind the camera; z in [0, w])."""
+    lo = scene.instance_aabb_lo
+    hi = scene.instance_aabb_hi
+    sel = torch.tensor([[x, y, z] for x in (0, 1) for y in (0, 1)
+                        for z in (0, 1)], dtype=torch.float32,
+                       device=lo.device)                         # (8, 3)
+    corners = lo[:, None, :] + sel[None, :, :] * (hi - lo)[:, None, :]
+    m = view_proj
+    # [corner, 1] @ view_proj.T written out as per-column products
+    clip = (corners[..., 0:1] * m[:, 0] + corners[..., 1:2] * m[:, 1]
+            + corners[..., 2:3] * m[:, 2] + m[:, 3])            # (I, 8, 4)
+    x, y, z, w = clip.unbind(-1)
+    outside = torch.stack([
+        (x + w < 0).all(-1), (w - x < 0).all(-1),
+        (y + w < 0).all(-1), (w - y < 0).all(-1),
+        (z < 0).all(-1), (w - z < 0).all(-1)], -1)
+    return ~outside.any(-1)                                      # (I,)
+
+
+def _compact_visible_faces(scene: SceneBuffers, view_proj, cap: int):
+    """Frustum-cull instances and compact the surviving face ranges into a
+    front-packed (cap,) face-id list, so setup and emission pay for live
+    faces and not for the padded pool.
+
+    Returns (face_ids, live_count, instance_of_entry, overflow_count);
+    overflow > 0 means ``cap`` could not hold every visible face (the
+    caller adds it to ``HitRecord.overflow`` and the renderer's ladder
+    widens the budget).  Every carry is int32: the scatter writes one
+    entry per live instance (their starts are distinct), so the result
+    does not depend on the order of the writes."""
+    dev = view_proj.device
+    i32 = torch.int32
+    vis = _instance_frustum_mask(scene, view_proj)
+    num_i = scene.instance_transform.shape[0]
+    inst_live = torch.arange(num_i, device=dev) < scene.num_instances
+    counts = torch.where(vis & inst_live, scene.instance_face_count,
+                         0).to(i32)
+    cum = torch.cumsum(counts, 0, dtype=i32)
+    total = cum[-1]
+    j = torch.arange(cap, dtype=i32, device=dev)
+    # per-entry instance / segment start / face offset as monotone
+    # segment carries (scatter + cumsum); each field ascends over the live
+    # instances (packing order)
+    starts = cum - counts
+    live_i = counts > 0
+    at = live_i & (starts < cap)
+
+    def carry(field):
+        masked = torch.where(live_i, field, -1)
+        prev = torch.cat([torch.full((1,), -1, dtype=i32, device=dev),
+                          torch.cummax(masked, 0).values[:-1]])
+        diff = torch.where(live_i, field - torch.clamp(prev, min=0), 0)
+        buf = torch.zeros((cap,), dtype=i32, device=dev)
+        buf[starts[at].long()] = diff[at].to(i32)
+        return torch.cumsum(buf, 0, dtype=i32)
+
+    sid = carry(torch.arange(num_i, dtype=i32, device=dev))
+    seg_start = carry(starts)
+    base_off = carry(scene.instance_face_offset.to(i32))
+    face_ids = torch.where(j < total, base_off + (j - seg_start), 0)
+    overflow = torch.clamp(total - cap, min=0)
+    return face_ids, torch.clamp(total, max=cap), sid, overflow
+
+
 def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
                        height: int, width: int, variant: str = "auto",
-                       caps_scale: int = 1, lod_tau: float = 0.75):
-    """The sorted-list raster at every frame size."""
+                       caps_scale: int = 1, lod_tau: float = 0.75,
+                       cull_instances: bool | None = None,
+                       compact_cap: int | None = None):
+    """Raster dispatch, as ``vri_tpu``'s: with ``cull_instances`` (None =
+    pools of 2^19 slots or more) the frustum-visible faces are compacted
+    into a budget of ``compact_cap`` (default a quarter of the pool) and
+    rasterized by the sorted tier, the compaction overflow added to
+    ``HitRecord.overflow``; ``variant="ranged"`` takes the capacity-free
+    ranged tier; pools of at most 2^14 faces at frames at most 512 rows
+    high take the binned tier; everything else the sorted tier.
+    ``caps_scale`` multiplies the list capacities and the compaction
+    budget (the renderer's overflow response)."""
     if scene.tri_lod is not None and lod_tau > 0:
         raise NotImplementedError(
             "LOD face masks are not ported; see ROADMAP.md 'What comes "
             "next', item 6")
-    if scene.tri_vertices.shape[0] >= _CULL_COMPACT_MIN_POOL:
-        raise NotImplementedError(
-            "frustum compaction of face pools >= 2^19 slots is not ported; "
-            "see ROADMAP.md 'What comes next', item 4")
+    f = scene.tri_vertices.shape[0]
+    if cull_instances is None:
+        cull_instances = f >= _CULL_COMPACT_MIN_POOL
+    if cull_instances and variant != "ranged":
+        ccap = compact_cap if compact_cap is not None \
+            else max(f // 4, 1 << 10)
+        ccap = min(raster_mod._round_up(ccap, 128) * caps_scale, f)
+        face_ids, live, pair_inst, c_over = _compact_visible_faces(
+            scene, frame.view_proj, ccap)
+        inst_sign = _cull_sign_instance(scene)
+        # cap=4096 and a pair budget from the compacted pool, as the
+        # reference's compacted path (frame.py:244-253)
+        hit, _ = raster_mod.rasterize_sorted(
+            world_verts, scene.tri_vertices[face_ids.long()], live,
+            frame.view_proj, height=height, width=width,
+            cull_sign=(None if inst_sign is None
+                       else inst_sign[pair_inst.long()]),
+            cap=4096, pairs_cap=max(raster_mod._round_up(ccap, 1024),
+                                    1 << 18),
+            caps_scale=caps_scale, src_map=face_ids)
+        hit.overflow = hit.overflow + (c_over > 0).to(torch.int32)
+        return hit
+    kw = dict(height=height, width=width, cull_sign=_cull_sign(scene))
     if variant == "ranged":
-        raise NotImplementedError(
-            "the ranged raster kernel (K6) is not ported; see ROADMAP.md "
-            "'What comes next', item 4")
-    hit, _ = raster_mod.rasterize_sorted(
-        world_verts, scene.tri_vertices, scene.num_faces, frame.view_proj,
-        height=height, width=width, caps_scale=caps_scale,
-        cull_sign=_cull_sign(scene))
+        fn = raster_mod.rasterize
+    elif f <= (1 << 14) and height <= 512:
+        fn = raster_mod.rasterize_binned
+        kw["caps_scale"] = caps_scale
+    else:
+        fn = raster_mod.rasterize_sorted
+        kw["caps_scale"] = caps_scale
+    hit, _ = fn(world_verts, scene.tri_vertices, scene.num_faces,
+                frame.view_proj, **kw)
     return hit
+
+
+def _visibility_brute(scene: SceneBuffers, world_verts, origins, dirs):
+    v0, e1, e2 = intersect.gather_triangles(world_verts, scene.tri_vertices)
+    return intersect.trace_brute(origins, dirs, v0, e1, e2, scene.num_faces,
+                                 cull_sign=_cull_sign(scene))
 
 
 def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
@@ -130,22 +237,27 @@ def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
         raise NotImplementedError(
             "reduced-rate GI (gi_scale > 1) is not ported; see ROADMAP.md "
             "'What comes next', item 2")
-    if not backend.startswith("raster"):
+    if backend == "bvh":
         raise NotImplementedError(
-            f"backend {backend!r} is not ported; see ROADMAP.md 'What comes "
-            "next', item 7")
+            "the BVH backend is not ported; see ROADMAP.md 'What comes "
+            "next', item 4")
+    if not (backend == "brute" or backend.startswith("raster")):
+        raise ValueError(f"unknown backend {backend!r}")
     world_verts = bake_world(scene)
     origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
                                        height, width)
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
-    variant, caps_scale = _raster_variant(backend)
-    hit = _visibility_raster(scene, world_verts, frame, height, width,
-                             variant=variant, caps_scale=caps_scale,
-                             lod_tau=lod_tau)
+    if backend == "brute":
+        hit = _visibility_brute(scene, world_verts, o, d)
+    else:
+        variant, caps_scale = _raster_variant(backend)
+        hit = _visibility_raster(scene, world_verts, frame, height, width,
+                                 variant=variant, caps_scale=caps_scale,
+                                 lod_tau=lod_tau)
     gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
                                  pixel_spread=frame.pixel_spread)
-    # raster depth is NDC: report the world-space ray distance instead
+    # report the world-space ray distance (raster depth is NDC)
     t = norm3(gb.position - frame.eye[None, :])
     gb = gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
 

@@ -5,10 +5,10 @@ changes (full cell-binned build with demand-scaled list caps, then the
 radiance bake), and renders GI frames on an explicit ``device``.  GI
 samples come from a ``torch.Generator`` seeded with the frame index.
 
-The raster overflow ladder is kept: an overflowed frame makes later
-frames use 2x, then 4x list capacities.  Its last rung, the
-capacity-free ranged kernel (K6), is not ported, so a frame that would
-need it raises ``NotImplementedError``.
+The raster overflow ladder is the reference's: an overflowed frame makes
+later frames use 2x, then 4x list capacities, and after an overflow at
+4x the capacity-free ranged tier (``raster_ranged``), where the ladder
+stops.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ class Renderer:
         #: wall milliseconds of the last cascade (re)build + bake
         self.last_build_ms: float | None = None
         # list-raster overflow escalation: 1 -> 2x -> 4x list capacities
+        # -> the ranged tier (any scale above 4)
         self._raster_caps_scale = 1
 
     # -- scene ----------------------------------------------------------------
@@ -156,12 +157,8 @@ class Renderer:
         if cam is None:
             raise RuntimeError("no camera")
         if backend == "raster" and self._raster_caps_scale > 1:
-            if self._raster_caps_scale > 4:
-                raise NotImplementedError(
-                    "the raster overflowed at 4x list capacities and the "
-                    "next rung, the ranged kernel (K6), is not ported; see "
-                    "ROADMAP.md 'What comes next', item 4")
-            backend = f"raster{self._raster_caps_scale}x"
+            backend = ("raster_ranged" if self._raster_caps_scale > 4
+                       else f"raster{self._raster_caps_scale}x")
         h, w = self.config.height, self.config.width
         fp = frame_mod.FrameParams.from_camera(cam, h, device=self.device)
         cascades = self.ensure_cascades(eye=cam.eye)
@@ -177,11 +174,15 @@ class Renderer:
             uniforms=uniforms)
         self.frame_index += 1
         over = aovs.get("raster_overflow_tiles")
-        if over is not None and to_numpy and int(over) > 0:
+        if over is not None and to_numpy and self._raster_caps_scale <= 4 \
+                and int(over) > 0:
             self._raster_caps_scale *= 2
+            nxt = ("the capacity-free ranged tier"
+                   if self._raster_caps_scale > 4
+                   else f"{self._raster_caps_scale}x list capacities")
             log.warning("list raster overflowed (%d; geometry may be "
-                        "missing there); subsequent frames escalate to %dx "
-                        "list capacities", int(over), self._raster_caps_scale)
+                        "missing there); subsequent frames escalate to %s",
+                        int(over), nxt)
         if to_numpy:
             return {k: v.cpu().numpy() for k, v in aovs.items()}
         return aovs
