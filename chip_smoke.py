@@ -5,8 +5,11 @@
 Drives the port's main path -- one static-stage GI frame as
 ``vri_tpu_torch.renderer.Renderer.render(gi=True)`` runs it -- at the size
 a user runs: the 49k-triangle kitchen stage, 1920x1080, the "room" SDF
-preset; then the other visibility paths: the ranged tier, the app's
-default frame and a city-scale stage.  Phases, each fatal on failure:
+preset; then the other paths: the ranged tier, the BVH backend, the app's
+default frame, a city-scale stage and the direct-only frame.  The JAX
+package and JAX itself are blocked before the port is imported, so any
+import of either is fatal.  Phases (run in the order 1-8, 12, 13, 9-11,
+14), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -42,7 +45,30 @@ default frame and a city-scale stage.  Phases, each fatal on failure:
     reports no overflow; then three frames at that scale (zero overflow,
     ``raster_tiles`` counted), the compacted ``HitRecord`` equal to an
     uncompacted sorted raster of the frame; the live face count, the
-    longest tile list, the ladder, frame times and peak memory.
+    longest tile list, the ladder, frame times and peak memory;
+12. kernel ``bvh_traverse`` against its plain version on the main path's
+    stage (LBVH of 8,192 leaves): the 1920x1080 camera rays and 2^18
+    random rays with per-ray t_max; t, slot, u, v and the per-ray visit
+    counts bit-equal; kernel and plain times, ``build_bvh`` time, node
+    pops and triangle tests per ray and the bound;
+13. the BVH GI frame: ``render(gi=True, backend="bvh")`` on phase 7's
+    renderer (no second SDF build) with phase 8's GI uniforms, counters
+    reset first: exactly one ``bvh_traverse`` launch, two ``march_rays``
+    and no raster launch; finite colour, > 50% coverage, the share of
+    pixels whose ``instance_id`` equals the sorted-tier frame's (the BVH
+    does no backface culling, so it is printed, not held to equality) and
+    the frame time with and without the host copy;
+14. the direct-only frame: the Cornell box at 512x512 through
+    ``render(gi=False)`` with ``backend="raster"`` and ``"bvh"``: finite
+    colour, zero raster overflow, ``instance_id`` equal on >= 99% of the
+    pixels.
+
+Each kernel's entry in the JSON line carries its time, its plain
+version's, its launches on the main path and its bound: the larger of the
+bytes it must move (inputs read once, outputs written once) over the
+H100's 3.35 TB/s and the FP32 operations this run's data needs over its
+67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
+single PyTorch call computes any of the four, so ``library_ms`` is null.
 
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -59,6 +85,14 @@ import sys
 import time
 
 import numpy as np
+
+# the port must run without the JAX package and without JAX
+sys.modules["vri_tpu"] = None
+sys.modules["jax"] = None
+
+#: published H100 SXM peaks (FP32 outside the tensor cores, HBM3)
+H100_FP32_FLOPS = 67e12
+H100_BYTES_PER_S = 3.35e12
 
 
 def _fail(msg: str) -> None:
@@ -98,19 +132,105 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _counts() -> dict:
-    from vri_tpu_torch.ops import march_kernel, rasterize
+    from vri_tpu_torch.ops import bvh, march_kernel, rasterize
 
     return {"raster_tiles": rasterize.raster_tiles.launches,
             "raster_ranged": rasterize.raster_ranged.launches,
-            "march_rays": march_kernel.march_rays.launches}
+            "march_rays": march_kernel.march_rays.launches,
+            "bvh_traverse": bvh.bvh_traverse.launches}
 
 
 def _reset_counts() -> None:
-    from vri_tpu_torch.ops import march_kernel, rasterize
+    from vri_tpu_torch.ops import bvh, march_kernel, rasterize
 
     rasterize.raster_tiles.launches = 0
     rasterize.raster_ranged.launches = 0
     march_kernel.march_rays.launches = 0
+    bvh.bvh_traverse.launches = 0
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the FP32 operations over the FP32 peak."""
+    t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+    t_ops = 1e3 * ops / H100_FP32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(nbytes), ops=int(ops))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+# FP32 operations per unit of work, counted from the kernels' sources:
+# a (pixel, slot) test of raster_common.cuh:slot_key (frame offset 2,
+# depth field 4, three edge functions 21, their sign tests 6, depth range
+# 2); the winner's (u, v) per covered pixel (three fields 12, offsets 2,
+# guard and reciprocal 2, two products); one march step of march_rays.cu
+# (position 6, cascade search 12 per cascade, six axis exits 36, minima 8,
+# advance 10); one node pop of bvh_traverse.cu (slab test 25) and one
+# triangle test (Moller-Trumbore 54).  Push-time child tests are not
+# counted, so the bvh count is a lower bound.
+OPS_SLOT_TEST = 35
+OPS_UV = 18
+OPS_MARCH_STEP = 60
+OPS_MARCH_CASCADE = 12
+OPS_NODE_POP = 25
+OPS_TRI_TEST = 54
+
+
+def _bound_raster_tiles(coef, starts, counts, cap, out) -> dict:
+    used = counts.clamp(max=cap)
+    tile_px = out[0].numel() // counts.numel()
+    tests = float(used.double().sum()) * tile_px
+    covered = float((out[1] >= 0).sum())
+    nbytes = (_nbytes(coef, starts, counts) + 4 * float(used.double().sum())
+              + _nbytes(*out))
+    return _bound(nbytes, OPS_SLOT_TEST * tests + OPS_UV * covered)
+
+
+def _chunk_slots(prep) -> float:
+    """(tile, slot) pairs K6 walks: every slot of the global chunks and of
+    the chunks in a tile's range whose bit is set."""
+    import torch
+
+    words, ranges = prep["words"], prep["ranges"]
+    n_words = words.shape[1]
+    bit = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = ((words[:, :, None] >> bit) & 1).reshape(words.shape[0],
+                                                   32 * n_words) > 0
+    c = torch.arange(32 * n_words, device=words.device)[None, :]
+    walked = (c < prep["n_global"]) | ((c >= ranges[:, :1])
+                                       & (c < ranges[:, 1:2]))
+    return 128 * float((bits & walked).double().sum())
+
+
+def _bound_raster_ranged(rprep, pair_counts, out) -> dict:
+    """K6 computes the sorted raster's function (phase 5 holds the tiers'
+    hits equal), so the work it needs is R's on the same frame: the
+    (tile, triangle) pairs that overlap, ``pair_counts`` of the sorted
+    prep, not the 128-slot chunks that K6 walks.  Its bytes are its own
+    inputs and outputs."""
+    tile_px = out[0].numel() // pair_counts.numel()
+    tests = float(pair_counts.double().sum()) * tile_px
+    covered = float((out[1] >= 0).sum())
+    nbytes = (_nbytes(rprep["coef"], rprep["order"], rprep["ranges"],
+                      rprep["words"]) + _nbytes(*out))
+    return _bound(nbytes, OPS_SLOT_TEST * tests + OPS_UV * covered)
+
+
+def _bound_march(args, out, n_cas: int) -> dict:
+    steps = float(out[2].double().sum())
+    return _bound(_nbytes(*args) + _nbytes(*out),
+                  (OPS_MARCH_STEP + OPS_MARCH_CASCADE * n_cas) * steps)
+
+
+def _bound_bvh(args, out) -> dict:
+    visits = out[4].double().sum(0)
+    return _bound(_nbytes(*args) + _nbytes(*out[:4]),
+                  OPS_NODE_POP * float(visits[0])
+                  + OPS_TRI_TEST * float(visits[1]))
 
 
 def _tagged(fn, tag: str, log: list):
@@ -215,6 +335,82 @@ def _city(dev, card: str) -> None:
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
 
 
+def _bvh_kernel(r, h: int, w: int, card: str) -> dict:
+    """Kernel ``bvh_traverse`` against its plain version on the LBVH of
+    renderer ``r``'s stage: the camera rays of the main path's frame and
+    2^18 random rays with per-ray t_max."""
+    import torch
+
+    from vri_tpu_torch.ops import bvh, raygen
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    dev = r.device
+    scene = r.scene
+    world = bake_world(scene)
+    accel = bvh.build_bvh(world, scene.tri_vertices, scene.num_faces)
+    build_ms = _time_ms(lambda: bvh.build_bvh(world, scene.tri_vertices,
+                                              scene.num_faces), 5)
+    nodes, tris = accel.nodes, accel.tris
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
+    o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
+    ni = max(int(scene.num_instances), 1)
+    lo = scene.instance_aabb_lo[:ni].min(0).values.cpu().numpy()
+    hi = scene.instance_aabb_hi[:ni].max(0).values.cpu().numpy()
+    rng = np.random.default_rng(12)
+    m = 1 << 18
+    dv = rng.normal(size=(m, 3))
+    ray_sets = {
+        "camera": (o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+                   torch.full((h * w,), 3.0e38, device=dev)),
+        "random": tuple(torch.as_tensor(a.astype(np.float32), device=dev)
+                        for a in (
+            rng.uniform(lo, hi, (m, 3)),
+            dv / np.linalg.norm(dv, axis=-1, keepdims=True),
+            rng.uniform(0.05, float(np.abs(hi - lo).max()), m)))}
+    kw = dict(num_leaves=accel.num_leaves, leaf_size=accel.leaf_size)
+    entry = None
+    for label, rays in ray_sets.items():
+        args = (nodes, tris) + rays
+        got = bvh.bvh_traverse(*args, visits=True, **kw)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = bvh.bvh_traverse_reference(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        for name, g, wv in zip(("t", "slot", "u", "v", "visits"), got, want):
+            _check(torch.equal(g, wv), f"bvh_traverse {name} differs from "
+                   f"the plain version on the {label} rays")
+        err = max(float((g.double() - wv.double()).abs().max())
+                  for g, wv in zip(got[:4], want[:4]))
+        ms = _time_ms(lambda: bvh.bvh_traverse(*args, **kw), 10)
+        b = _bound_bvh(args, got)
+        vis = got[4].double().mean(0)
+        print(f"bvh_traverse ({label}): {rays[0].shape[0]} rays, "
+              f"{float((got[1] >= 0).double().mean()):.3f} hit, mean "
+              f"{float(vis[0]):.1f} node pops and {float(vis[1]):.1f} "
+              f"triangle tests per ray, t/slot/u/v/visits equal to the plain "
+              f"version; {ms:.3f} ms vs plain {plain_ms:.1f} ms (CUDA "
+              f"events, kernel mean of 10), bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} [{card}]")
+        if entry is None:
+            # the main path's shape: the frame's camera rays
+            entry = dict(route="cuda", source="vri_tpu_torch/csrc/bvh_traverse.cu",
+                         replaces="vri_tpu/ops/bvh_kernel.py:71",
+                         also_replaces="vri_tpu/ops/bvh.py:160 (traverse)",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, **b)
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    print(f"build_bvh: {int(scene.num_faces)} triangles, "
+          f"{accel.num_leaves} leaves, {build_ms:.3f} ms (CUDA events, mean "
+          f"of 5) [{card}]")
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -289,12 +485,17 @@ def main() -> int:
         max_abs_err=r_err,
         ms=_time_ms(lambda: rasterize.raster_tiles(*rargs, **rkw), 20),
         plain_ms=_time_ms(lambda: rasterize.raster_tiles_reference(
-            *rargs, **rkw), 2))
+            *rargs, **rkw), 2),
+        library_ms=None,
+        **_bound_raster_tiles(prep["coef"], prep["starts"], prep["counts"],
+                              prep["cap"], got))
     print(f"raster_tiles: {int(prep['lists'].shape[0])} pairs over "
           f"{int(prep['counts'].shape[0])} tiles (longest list "
           f"{int(prep['counts'].max())}), equal to the plain version; "
           f"{kernels['raster_tiles']['ms']:.3f} ms vs plain "
-          f"{kernels['raster_tiles']['plain_ms']:.1f} ms [{card}]")
+          f"{kernels['raster_tiles']['plain_ms']:.1f} ms, bound "
+          f"{kernels['raster_tiles']['bound_ms']:.4f} ms by "
+          f"{kernels['raster_tiles']['bound_by']} [{card}]")
 
     # -- 4. kernel K6 on the frame's chunks -----------------------------------
     cull = frame_mod._cull_sign(r.scene)
@@ -316,14 +517,21 @@ def main() -> int:
                         for g, wv in zip(got, want)),
         ms=_time_ms(lambda: rasterize.raster_ranged(*kargs, **kkw), 10),
         plain_ms=_time_ms(lambda: rasterize.raster_ranged_reference(
-            *kargs, **kkw), 1))
+            *kargs, **kkw), 1),
+        library_ms=None,
+        **_bound_raster_ranged(rprep, prep["counts"], got))
     spans = (rprep["ranges"][:, 1] - rprep["ranges"][:, 0]).clamp(min=0)
+    walked = _chunk_slots(rprep)
+    needed = float(prep["counts"].double().sum())
     print(f"raster_ranged: {int(rprep['order'].shape[0]) // 128} chunks, "
           f"{rprep['n_global']} global, local ranges up to "
           f"{int(spans.max())} chunks (mean {float(spans.float().mean()):.1f})"
-          f", equal to the plain version; "
+          f"; walks {walked:.0f} (tile, slot) pairs where {needed:.0f} "
+          f"overlap ({walked / needed:.1f}x); equal to the plain version; "
           f"{kernels['raster_ranged']['ms']:.3f} ms vs plain "
-          f"{kernels['raster_ranged']['plain_ms']:.1f} ms [{card}]")
+          f"{kernels['raster_ranged']['plain_ms']:.1f} ms, bound "
+          f"{kernels['raster_ranged']['bound_ms']:.4f} ms by "
+          f"{kernels['raster_ranged']['bound_by']} [{card}]")
     del rprep, kargs, got, want
 
     # -- 5. the tiers agree on the card; each tier's whole raster time ---------
@@ -400,6 +608,7 @@ def main() -> int:
     meta = march_kernel.pack_meta(cas, sdf_cfg)
     m_times = {}
     m_err = 0.0
+    m_work = {"bytes": 0, "ops": 0}
     for label, (ro, rd, rt), steps in (
             ("shadow", gi.shadow_rays(gb.position, gb.normal, r.scene, cas,
                                       sdf_cfg), sdf_cfg.shadow_steps),
@@ -416,6 +625,9 @@ def main() -> int:
                    f"plain version on the {label} rays")
         m_err = max([m_err] + [float((g.double() - wv.double()).abs().max())
                                for g, wv in zip(got, want)])
+        b = _bound_march(margs, got, int(meta.shape[1]))
+        m_work["bytes"] += b["bytes"]
+        m_work["ops"] += b["ops"]
         m_times[label] = (
             _time_ms(lambda: march_kernel.march_rays(*margs, **mkw), 10),
             _time_ms(lambda: march_kernel.march_rays_reference(
@@ -431,7 +643,10 @@ def main() -> int:
         also_replaces="vri_tpu/ops/march_kernel.py:221",
         max_abs_err=m_err,
         ms=sum(v[0] for v in m_times.values()),
-        plain_ms=sum(v[1] for v in m_times.values()))
+        plain_ms=sum(v[1] for v in m_times.values()),
+        library_ms=None, **_bound(m_work["bytes"], m_work["ops"]))
+    print(f"march_rays: bound {kernels['march_rays']['bound_ms']:.4f} ms by "
+          f"{kernels['march_rays']['bound_by']} for both ray sets [{card}]")
     del r, cas, gb, hit, o, d, u, prep, rargs, margs, got, want
     torch.cuda.empty_cache()
 
@@ -470,7 +685,8 @@ def main() -> int:
     want_launch = {"raster_tiles": 3, "raster_ranged": 0,
                    # bake: one shadow march; per frame one shadow march
                    # (all lights in one ray set) and one GI march
-                   "march_rays": (1 if n_lights else 0) + 3 * 2}
+                   "march_rays": (1 if n_lights else 0) + 3 * 2,
+                   "bvh_traverse": 0}
     _check(launches == want_launch,
            f"launch counts {launches}, expected {want_launch}")
     print(f"main path: SDF build + bake {r2.last_build_ms:.1f} ms (host "
@@ -501,7 +717,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ranged_ms = start.elapsed_time(stop)
     launches = _counts()
-    want_launch = {"raster_tiles": 0, "raster_ranged": 1, "march_rays": 2}
+    want_launch = {"raster_tiles": 0, "raster_ranged": 1, "march_rays": 2,
+                   "bvh_traverse": 0}
     _check(launches == want_launch,
            f"ranged frame: launch counts {launches}, expected {want_launch}")
     kernels["raster_ranged"]["launches"] = launches["raster_ranged"]
@@ -515,7 +732,40 @@ def main() -> int:
           f"{ranged_ms:.2f} ms (CUDA events, with the host copy), launches "
           f"{launches}, instance_id and color equal to the sorted-tier "
           f"frame's [{card}]")
-    del r2, ranged, plain, uni
+
+    # -- 12. kernel bvh_traverse against its plain version -------------------
+    kernels["bvh_traverse"] = _bvh_kernel(r2, h, w, card)
+
+    # -- 13. the BVH GI frame on the main path's renderer -------------------
+    _reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    bvh_frame = r2.render(gi=True, backend="bvh", uniforms=uni)
+    stop.record()
+    torch.cuda.synchronize()
+    bvh_ms = start.elapsed_time(stop)
+    launches = _counts()
+    want_launch = {"raster_tiles": 0, "raster_ranged": 0, "march_rays": 2,
+                   "bvh_traverse": 1}
+    _check(launches == want_launch,
+           f"BVH frame: launch counts {launches}, expected {want_launch}")
+    kernels["bvh_traverse"]["launches"] = launches["bvh_traverse"]
+    _check(np.isfinite(bvh_frame["color"]).all(), "BVH frame: colour not "
+           "finite")
+    cov = float((bvh_frame["instance_id"] >= 0).mean())
+    _check(cov > 0.5, f"BVH frame: coverage {cov:.3f}")
+    _check("raster_overflow_tiles" not in bvh_frame,
+           "the BVH frame reported a raster overflow count")
+    agree = float((bvh_frame["instance_id"] == plain["instance_id"]).mean())
+    bvh_dev_ms = _time_ms(lambda: r2.render(gi=True, backend="bvh",
+                                            uniforms=uni, to_numpy=False), 3)
+    print(f"BVH GI frame (render(gi=True, backend='bvh')): launches "
+          f"{launches}, coverage {cov:.4f}, instance_id equal to the "
+          f"sorted-tier frame's on {agree:.4f} of pixels (no backface "
+          f"culling on the BVH); {bvh_ms:.2f} ms with the host copy, "
+          f"{bvh_dev_ms:.2f} ms without (CUDA events, mean of 3) [{card}]")
+    del r2, ranged, plain, uni, bvh_frame
     torch.cuda.empty_cache()
 
     # -- 9. the app's default frame: Cornell at 512x512, room preset ----------
@@ -535,7 +785,8 @@ def main() -> int:
         rasterize.rasterize_sorted = real_sorted
     launches = _counts()
     want_launch = {"raster_tiles": 1, "raster_ranged": 0,
-                   "march_rays": (1 if int(ra.scene.num_lights) else 0) + 2}
+                   "march_rays": (1 if int(ra.scene.num_lights) else 0) + 2,
+                   "bvh_traverse": 0}
     _check(tiers_run == ["binned"], f"app frame ran the tiers {tiers_run}")
     _check(launches == want_launch,
            f"app frame: launch counts {launches}, expected {want_launch}")
@@ -573,6 +824,42 @@ def main() -> int:
     # -- 11. city: frustum compaction at 1.35M faces ---------------------------
     _city(dev, card)
 
+    # -- 14. the direct-only frame: Cornell 512x512, raster and BVH -----------
+    rd = Renderer(RenderConfig(width=512, height=512, sdf=sdf_cfg),
+                  device=dev)
+    rd.load_stage(scenes.cornell_box())
+    direct = {}
+    for be in ("raster", "bvh"):
+        _reset_counts()
+        direct[be] = rd.render(gi=False, backend=be)
+        launches = _counts()
+        kernel = "raster_tiles" if be == "raster" else "bvh_traverse"
+        _check(launches[kernel] == 1 and launches["march_rays"] == 0
+               and sum(launches.values()) == 1,
+               f"direct {be} frame: launch counts {launches}")
+        _check(np.isfinite(direct[be]["color"]).all(),
+               f"direct {be} frame: colour not finite")
+        _check(int(direct[be].get("raster_overflow_tiles", 0)) == 0,
+               f"direct {be} frame: raster overflow")
+        d_ms = _time_ms(lambda be=be: rd.render(gi=False, backend=be,
+                                                to_numpy=False), 3)
+        print(f"direct-only frame (render(gi=False, backend={be!r}), "
+              f"Cornell 512x512): launches {launches}, coverage "
+              f"{float((direct[be]['instance_id'] >= 0).mean()):.4f}; "
+              f"{d_ms:.2f} ms without the host copy (CUDA events, mean of "
+              f"3) [{card}]")
+    same = float((direct["raster"]["instance_id"]
+                  == direct["bvh"]["instance_id"]).mean())
+    print(f"  direct-only frames: instance_id equal on {same:.4f} of pixels")
+    _check(same >= 0.99, f"direct-only frames: raster and BVH ids agree on "
+           f"{same:.4f} of pixels")
+    del rd, direct
+
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, k in kernels.items():
+        _check(all(key in k for key in keys),
+               f"{name}: kernel entry lacks {set(keys) - set(k)}")
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in kernels.items()]}))
     print(card)

@@ -4,9 +4,9 @@ machine without JAX run them without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
-Each builds the stage with the port itself, runs one kernel on CUDA
-tensors and its plain version on the same tensors, and requires exact
-equality: the kernels are built with -fmad=false and follow their plain
+Each builds the stage with the port itself, runs one kernel (raster_tiles,
+raster_ranged, march_rays, bvh_traverse) on CUDA tensors and its plain
+version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
 versions' operation order, so every output agrees bit for bit.  On a host
 without a card every test skips.
 """
@@ -122,3 +122,49 @@ def test_tiers_bit_equal_on_card(frame):
     for hit in (binned_hit, ranged_hit):
         for key in ("tri", "t", "u", "v"):
             assert torch.equal(getattr(hit, key), getattr(sorted_hit, key))
+
+
+@pytest.mark.parametrize("rays", ["camera", "random"])
+def test_bvh_traverse_matches_plain_version(rays):
+    """Kernel ``bvh_traverse`` on the Cornell box's LBVH: camera rays, or
+    random rays with per-ray t_max; t, slot, u, v and the visit counts
+    bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import bvh, raygen
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    d = RenderDelegate(RenderConfig(width=128, height=96), device="cuda")
+    d.populate(scenes.cornell_box())
+    scene = d.sync()
+    accel = bvh.build_bvh(bake_world(scene), scene.tri_vertices,
+                          scene.num_faces)
+    nodes, tris = accel.nodes, accel.tris
+    if rays == "camera":
+        fp = frame_mod.FrameParams.from_camera(d.camera, 96, device="cuda")
+        o, dirs = raygen.camera_rays(fp.inv_view_proj, fp.eye, 96, 128)
+        o, dirs = o.reshape(-1, 3), dirs.reshape(-1, 3)
+        t_max = torch.full((o.shape[0],), 3.0e38, device="cuda")
+    else:
+        rng = np.random.default_rng(0)
+        m = 20000
+        o = torch.as_tensor(rng.uniform(-2, 2, (m, 3)).astype(np.float32),
+                            device="cuda")
+        dv = rng.normal(size=(m, 3))
+        dirs = torch.as_tensor((dv / np.linalg.norm(dv, axis=-1,
+                                                    keepdims=True)
+                                ).astype(np.float32), device="cuda")
+        t_max = torch.as_tensor(rng.uniform(0.05, 4.0, m).astype(np.float32),
+                                device="cuda")
+    args = (nodes, tris, o.contiguous(), dirs.contiguous(), t_max)
+    kw = dict(num_leaves=accel.num_leaves, leaf_size=accel.leaf_size,
+              visits=True)
+    got = bvh.bvh_traverse(*args, **kw)
+    torch.cuda.synchronize()
+    want = bvh.bvh_traverse_reference(*args[:5], num_leaves=kw["num_leaves"],
+                                      leaf_size=kw["leaf_size"])
+    assert (got[1] >= 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -1,6 +1,10 @@
 """The whole slice: ``vri_tpu_torch.renderer.Renderer.render(gi=True)``
 against ``vri_tpu.renderer.Renderer.render(gi=True)`` on the Cornell box at
-64^2 with a room-like two-cascade r=64 configuration.
+64^2 with a room-like two-cascade r=64 configuration, through the raster
+and through the LBVH (``backend="bvh"``); and the direct-only frame
+(``render(gi=False)``) through the brute-force tracer, the LBVH and the
+raster on the Cornell box at 48^2.  Each side renders with its own
+package's stage and configuration classes.
 
 On the CPU the JAX package marches SDF rays with its XLA loop, because
 ``sdf_trace`` dispatches to the march kernel only on a TPU
@@ -39,6 +43,22 @@ Tolerances, and why:
 * ``color`` within 2e-3 on every pixel where the ids agree
   (``voxel_shade`` is bf16 on both sides).
 * ``raster_overflow_tiles`` 0 on both sides.
+* The BVH GI frame (the reference's second frame, so its GI uniforms are
+  those of frame index 1): ``instance_id`` equal on at least 99.5% of the
+  pixels, every differing pixel a tie (both hit at depths within rtol
+  1e-5), counted; ``color`` within 2e-3 where the ids agree.  Without
+  contraction the two BVH walks are bit-equal (``tests/test_torch_bvh.py``),
+  so no tie is expected.
+* The direct-only frames (the reference's in the same interpreter without
+  fused multiply-adds): the hit triangle (``instance_id`` and
+  ``prim_id``) equal on at least 99% of the pixels, and all but 0.1% of
+  the differing pixels ties as above (the two triangles of a quad meet on
+  its diagonal), counted.  The world vertices differ by float32 ulps
+  (``bake_world``, ``tests/test_torch_scene.py``), which moves such ties
+  and can turn a ray grazing a silhouette edge from a hit into a miss
+  (one pixel on the brute-force and BVH frames).  ``depth`` within rtol
+  1e-5, ``normal`` within 1e-5 and ``color`` within 2e-3 where the
+  triangle agrees.
 """
 
 import os
@@ -55,6 +75,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import vri_tpu_torch  # noqa: E402
 from vri_tpu import renderer as jrenderer  # noqa: E402
 from vri_tpu.config import RenderConfig, SDFConfig  # noqa: E402
 from vri_tpu.ops import march_kernel as jmarch  # noqa: E402
@@ -63,10 +84,22 @@ from vri_tpu.usd import scenes  # noqa: E402
 from vri_tpu_torch.renderer import Renderer  # noqa: E402
 
 RES = 64
-CFG = SDFConfig(num_cascades=2, cascade_resolution=64, brick_size=8,
+DIRECT_RES = 48
+DIRECT_BACKENDS = ("brute", "bvh", "raster")
+SDF_ARGS = dict(num_cascades=2, cascade_resolution=64, brick_size=8,
                 max_bricks=16384, base_voxel_size=0.075,
                 truncation_voxels=3.0, max_triangles_per_brick=16,
                 approx_occlusion=True)
+CFG = SDFConfig(**SDF_ARGS)
+#: the same configuration in the port's own classes
+TCFG = vri_tpu_torch.SDFConfig(**SDF_ARGS)
+
+
+def _port_renderer(res: int) -> Renderer:
+    tr = Renderer(vri_tpu_torch.RenderConfig(width=res, height=res,
+                                             sdf=TCFG), device="cpu")
+    tr.load_stage(vri_tpu_torch.scenes.cornell_box())
+    return tr
 
 
 def _tpu_march(sdf, origins, dirs, t_max, *, config, max_steps=None,
@@ -86,17 +119,33 @@ def _tpu_occlusion(sdf, origins, dirs, t_max, *, config, max_steps=None):
     return 1.0 - rec.hit.astype(jnp.float32)
 
 
+def _uniforms(frame_index: int):
+    """The GI sample draws of the reference renderer's frame."""
+    key = jax.random.fold_in(jax.random.PRNGKey(0), frame_index)
+    return np.asarray(
+        jax.random.uniform(jax.random.fold_in(key, 0), (RES * RES, 2)))
+
+
 def _reference_frame():
-    """The JAX frame's AOVs and its GI uniforms, as numpy."""
+    """The JAX frames' AOVs and their GI uniforms, as numpy: the raster
+    frame, then the BVH frame (keys prefixed ``bvh/``), and the
+    direct-only frames at 48^2 (``direct/<backend>/``)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtrace, "march", _tpu_march)
         mp.setattr(jtrace, "occlusion", _tpu_occlusion)
         jr = jrenderer.Renderer(RenderConfig(width=RES, height=RES, sdf=CFG))
         jr.load_stage(scenes.cornell_box())
         ref = {k: np.asarray(v) for k, v in jr.render(gi=True).items()}
-    key = jax.random.fold_in(jax.random.PRNGKey(0), 0)
-    ref["uniforms"] = np.asarray(
-        jax.random.uniform(jax.random.fold_in(key, 0), (RES * RES, 2)))
+        ref.update({f"bvh/{k}": np.asarray(v) for k, v in
+                    jr.render(gi=True, backend="bvh").items()})
+    jd = jrenderer.Renderer(RenderConfig(width=DIRECT_RES, height=DIRECT_RES,
+                                         sdf=CFG))
+    jd.load_stage(scenes.cornell_box())
+    for be in DIRECT_BACKENDS:
+        ref.update({f"direct/{be}/{k}": np.asarray(v) for k, v in
+                    jd.render(gi=False, backend=be).items()})
+    ref["uniforms"] = _uniforms(0)
+    ref["bvh/uniforms"] = _uniforms(1)
     return ref
 
 
@@ -125,9 +174,11 @@ def frames(tmp_path_factory):
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ref = dict(np.load(path))
-    tr = Renderer(RenderConfig(width=RES, height=RES, sdf=CFG), device="cpu")
-    tr.load_stage(scenes.cornell_box())
+    tr = _port_renderer(RES)
     got = tr.render(gi=True, uniforms=torch.as_tensor(ref["uniforms"])[None])
+    got.update({f"bvh/{k}": v for k, v in tr.render(
+        gi=True, backend="bvh",
+        uniforms=torch.as_tensor(ref["bvh/uniforms"])[None]).items()})
     return ref, got, tr
 
 
@@ -208,8 +259,79 @@ def test_render_progressive_accumulates(frames):
     assert img.shape == (RES, RES, 3) and np.isfinite(img).all()
 
 
-@pytest.mark.parametrize("argv", [["--no-gi"], ["--mode", "sdf_distance"],
-                                  ["--backend", "bvh"], ["--multichip"],
+def test_bvh_gi_frame_matches(frames):
+    ref, got, _ = frames
+    a = ref["bvh/instance_id"].reshape(-1)
+    b = got["bvh/instance_id"].reshape(-1)
+    same = a == b
+    tie = ~same & (a >= 0) & (b >= 0) & np.isclose(
+        got["bvh/depth"].reshape(-1), ref["bvh/depth"].reshape(-1),
+        rtol=1e-5, atol=0)
+    err = np.abs(got["bvh/color"].reshape(-1, 3)
+                 - ref["bvh/color"].reshape(-1, 3)).max(-1)[same]
+    print(f"BVH frame: instance_id differs on {int((~same).sum())} of "
+          f"{a.size} pixels ({int(tie.sum())} ties); colour max "
+          f"{err.max():.2e} where they agree")
+    assert same.mean() >= 0.995 and (same | tie).all()
+    assert "bvh/raster_overflow_tiles" not in got
+    assert np.isfinite(got["bvh/color"]).all()
+    np.testing.assert_array_less(err, 2e-3)
+
+
+@pytest.fixture(scope="module")
+def direct_frames(frames):
+    """The direct-only frame through each backend, the reference's and
+    the port's."""
+    ref = frames[0]
+    tr = _port_renderer(DIRECT_RES)
+    out = {}
+    for be in DIRECT_BACKENDS:
+        pre = f"direct/{be}/"
+        out[be] = ({k[len(pre):]: v for k, v in ref.items()
+                    if k.startswith(pre)}, tr.render(gi=False, backend=be))
+    return out
+
+
+@pytest.mark.parametrize("backend", DIRECT_BACKENDS)
+def test_direct_frame_matches(direct_frames, backend):
+    ref, got = direct_frames[backend]
+    assert set(got) == set(ref)
+    same = ((ref["instance_id"] == got["instance_id"])
+            & (ref["prim_id"] == got["prim_id"]))
+    tie = ~same & (ref["instance_id"] >= 0) & (got["instance_id"] >= 0) \
+        & np.isclose(got["depth"], ref["depth"], rtol=1e-5, atol=0)
+    print(f"{backend}: the hit triangle differs on {int((~same).sum())} of "
+          f"{same.size} pixels ({int(tie.sum())} ties)")
+    assert same.mean() >= 0.99
+    assert (~(same | tie)).mean() <= 1e-3
+    np.testing.assert_allclose(got["depth"][same], ref["depth"][same],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["normal"][same], ref["normal"][same],
+                               atol=1e-5)
+    np.testing.assert_allclose(got["color"][same], ref["color"][same],
+                               atol=2e-3)
+    assert np.isfinite(got["color"]).all()
+    if backend == "raster":
+        assert int(got["raster_overflow_tiles"]) == 0
+
+
+def test_direct_frame_shadows_darken(direct_frames):
+    """The brute-force shadow rays remove light: the shadowed frame is
+    nowhere brighter than the frame without shadows, and darker
+    somewhere."""
+    from vri_tpu_torch.passes import frame as tframe
+
+    tr = _port_renderer(DIRECT_RES)
+    fp = tframe.FrameParams.from_camera(tr.camera, DIRECT_RES, device="cpu")
+    lit = tframe.render_frame(tr.scene, fp, height=DIRECT_RES,
+                              width=DIRECT_RES, shadows=False)["color"]
+    shadowed = torch.as_tensor(direct_frames["brute"][1]["color"])
+    assert bool((shadowed <= lit + 1e-6).all())
+    assert bool((shadowed < lit - 1e-3).any())
+
+
+@pytest.mark.parametrize("argv", [["--lod", "2"], ["--mode", "sdf_distance"],
+                                  ["--cache", "scene.cache"], ["--multichip"],
                                   ["--builtin", "animated"]])
 def test_app_refuses_unported_flags(argv):
     """``python -m vri_tpu_torch.app`` exits with 2 on a flag whose path is
@@ -217,3 +339,15 @@ def test_app_refuses_unported_flags(argv):
     from vri_tpu_torch import app
 
     assert app.main(argv) == 2
+
+
+@pytest.mark.parametrize("argv", [["--no-gi"], ["--backend", "bvh"],
+                                  ["--no-gi", "--backend", "bvh"]])
+def test_app_takes_ported_flags(argv):
+    """The direct-only frame and the BVH backend parse and are ported."""
+    from vri_tpu_torch import app
+
+    args = app.parse_args(argv)
+    assert app._unported(args) == []
+    assert args.no_gi == ("--no-gi" in argv)
+    assert args.backend == ("bvh" if "bvh" in argv else "raster")

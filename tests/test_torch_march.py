@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+import vri_tpu_torch  # noqa: E402
 from vri_tpu.config import RenderConfig, SDFConfig  # noqa: E402
 from vri_tpu.hydra import RenderDelegate  # noqa: E402
 from vri_tpu.ops import march_kernel as jmarch  # noqa: E402
@@ -58,6 +59,12 @@ CONFIGS = {
 }
 M = 4096          # rays; 2 queue blocks of K3 at queue=2
 STEPS = 96
+
+
+def _port_cfg(cfg):
+    """The same SDF configuration in the port's own class."""
+    return vri_tpu_torch.SDFConfig(**{f.name: getattr(cfg, f.name)
+                                      for f in dataclasses.fields(cfg)})
 
 
 def _to_port(cas):
@@ -106,9 +113,10 @@ def marches():
         cas, o, d, ref = _reference(name)
         tcas = _to_port(cas)
         to, td = torch.as_tensor(o), torch.as_tensor(d)
-        got = {"full": tmarch.march(tcas, to, td, 10.0, config=cfg,
+        tcfg = _port_cfg(cfg)
+        got = {"full": tmarch.march(tcas, to, td, 10.0, config=tcfg,
                                     max_steps=STEPS),
-               "occl": tmarch.march(tcas, to, td, 10.0, config=cfg,
+               "occl": tmarch.march(tcas, to, td, 10.0, config=tcfg,
                                     max_steps=STEPS, payload=False)}
         out[name] = (cfg, tcas, ref, got, o, d)
     return out
@@ -154,6 +162,7 @@ def test_trace_dispatch_budget(marches, name):
     """sdf_trace.occlusion marches with the TPU branch's budget
     max_steps * 2 + 16 and payload=False."""
     cfg, tcas, _, _, o, d = marches[name]
+    cfg = _port_cfg(cfg)
     to, td = torch.as_tensor(o[:256]), torch.as_tensor(d[:256])
     occ = ttrace.occlusion(tcas, to, td, 10.0, config=cfg, max_steps=20)
     direct = tmarch.march(tcas, to, td, 10.0, config=cfg, max_steps=56,
@@ -218,7 +227,7 @@ def test_march_bit_equal_without_contraction(no_fma_reference, name, kernel):
          if k.startswith(f"{name}/cas/")}, "cpu")
     got = tmarch.march(tcas, torch.as_tensor(ref[f"{name}/o"]),
                        torch.as_tensor(ref[f"{name}/d"]), 10.0,
-                       config=CONFIGS[name], max_steps=STEPS)
+                       config=_port_cfg(CONFIGS[name]), max_steps=STEPS)
     for key in ("t", "voxel", "iterations"):
         np.testing.assert_array_equal(getattr(got, key).numpy(),
                                       ref[f"{name}/{kernel}/{key}"])

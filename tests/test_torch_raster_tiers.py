@@ -38,6 +38,8 @@ Tolerances, and why:
   ``tri``, ``t``, ``u`` and ``v`` bit-equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -49,6 +51,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_raster import (CASES, _barycentrics,  # noqa: E402
                                _classify, _stage_case)
+import vri_tpu_torch  # noqa: E402
 from vri_tpu.config import RenderConfig, SDFConfig  # noqa: E402
 from vri_tpu.hydra import RenderDelegate  # noqa: E402
 from vri_tpu.hydra.camera import make_camera  # noqa: E402
@@ -289,9 +292,11 @@ def test_overflow_ladder_reaches_ranged(monkeypatch):
     res = 64
     u = torch.as_tensor(np.random.default_rng(0).random(
         (1, res * res, 2), dtype=np.float32))
-    r = renderer_mod.Renderer(RenderConfig(width=res, height=res,
-                                           sdf=LADDER_SDF), device="cpu")
-    r.load_stage(scenes.cornell_box())
+    sdf = vri_tpu_torch.SDFConfig(**{f.name: getattr(LADDER_SDF, f.name)
+                                     for f in dataclasses.fields(LADDER_SDF)})
+    r = renderer_mod.Renderer(vri_tpu_torch.RenderConfig(
+        width=res, height=res, sdf=sdf), device="cpu")
+    r.load_stage(vri_tpu_torch.scenes.cornell_box())
     clean = r.render(gi=True, uniforms=u)
 
     used = []

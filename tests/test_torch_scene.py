@@ -9,8 +9,12 @@ package's and the port's; this file keeps them equal.  Tolerances:
 * ``bake_world`` within rtol 1e-6: the reference contracts the transform
   with XLA, the port with explicit products (a few float32 ulps).
 
-The last test proves that the port never imports JAX: a fresh interpreter
-where ``import jax`` fails renders the Cornell box on the CPU.
+``test_port_never_imports_jax`` proves that the port imports neither JAX
+nor ``vri_tpu``: a fresh interpreter where both imports fail renders the
+Cornell box on the CPU.  The port's host modules are copies of
+``vri_tpu``'s (``config``, ``usd``, ``hydra.{camera,material,meshutil}``,
+``utils``); the builtin stages of both copies export identical ``.usda``
+text and read back, from ``.usda`` and ``.usdc``, to equal prims.
 """
 
 import dataclasses
@@ -25,27 +29,38 @@ torch = pytest.importorskip("torch")
 # one intra-op thread: the suite runs several worker processes at once
 torch.set_num_threads(1)
 
+import vri_tpu_torch  # noqa: E402
 from vri_tpu.config import RenderConfig  # noqa: E402
 from vri_tpu.hydra import RenderDelegate as JaxDelegate  # noqa: E402
 from vri_tpu.registry import bake_world as jbake_world  # noqa: E402
-from vri_tpu.usd import scenes  # noqa: E402
+from vri_tpu.usd import Stage, scenes  # noqa: E402
 from vri_tpu_torch.hydra.delegate import RenderDelegate  # noqa: E402
 from vri_tpu_torch.registry import (TENSOR_FIELDS, bake_world,  # noqa: E402
                                     scene_from_numpy)
 
-STAGES = {"cornell": scenes.cornell_box,
-          "kitchen16": lambda: scenes.kitchen_stress(num_objects=16)}
+#: name -> (builder arguments); each package builds with its own scenes
+STAGES = {"cornell": ("cornell_box", {}),
+          "kitchen16": ("kitchen_stress", {"num_objects": 16})}
+#: the builtin stages of the copy-parity tests
+BUILTINS = dict(STAGES, city_small=("city_stress", {"num_buildings": 16,
+                                                    "tess": 2,
+                                                    "num_protos": 4}))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _stage(pkg_scenes, name: str, table=STAGES):
+    builder, kw = table[name]
+    return getattr(pkg_scenes, builder)(**kw)
 
 
 @pytest.fixture(scope="module", params=list(STAGES))
 def scenes_pair(request):
-    cfg = RenderConfig(width=32, height=32)
-    jd = JaxDelegate(cfg)
-    jd.populate(STAGES[request.param]())
+    jd = JaxDelegate(RenderConfig(width=32, height=32))
+    jd.populate(_stage(scenes, request.param))
     js = jd.sync()
-    td = RenderDelegate(cfg, device="cpu")
-    td.populate(STAGES[request.param]())
+    td = RenderDelegate(vri_tpu_torch.RenderConfig(width=32, height=32),
+                        device="cpu")
+    td.populate(_stage(vri_tpu_torch.scenes, request.param))
     return js, td.sync()
 
 
@@ -88,27 +103,81 @@ def test_port_never_imports_jax():
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["vri_tpu"] = None
 import numpy as np
-from vri_tpu.config import RenderConfig, SDFConfig
-from vri_tpu.usd import scenes
+from vri_tpu_torch import RenderConfig, SDFConfig, scenes
 from vri_tpu_torch.renderer import Renderer
 cfg = SDFConfig(num_cascades=2, cascade_resolution=16, max_bricks=4096,
                 base_voxel_size=0.15, truncation_voxels=1.0,
                 max_triangles_per_brick=16, approx_occlusion=True)
 r = Renderer(RenderConfig(width=32, height=32, sdf=cfg), device="cpu")
 r.load_stage(scenes.cornell_box())
-out = r.render(gi=True)
-assert np.isfinite(out["color"]).all()
-assert (out["instance_id"] >= 0).mean() > 0.9
+for kw in ({"gi": True}, {"gi": True, "backend": "bvh"}, {"gi": False}):
+    out = r.render(**kw)
+    assert np.isfinite(out["color"]).all()
+    assert (out["instance_id"] >= 0).mean() > 0.9
+loaded = [m for m, v in sys.modules.items() if v is not None]
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
-               for m, v in sys.modules.items() if v is not None)
-print("rendered without jax")
+               for m in loaded)
+assert not any(m == "vri_tpu" or m.startswith("vri_tpu.") for m in loaded)
+print("rendered without jax and vri_tpu")
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "rendered without jax" in out.stdout
+    assert "rendered without jax and vri_tpu" in out.stdout
+
+
+def _canon(v):
+    """A comparable form of an attribute value or metadata entry: arrays
+    as (dtype, shape, bytes), values of the copies' own classes (asset
+    paths, path references) as their class name and fields."""
+    if isinstance(v, np.ndarray):
+        return ("array", v.dtype.str, v.shape, v.tobytes())
+    if isinstance(v, dict):
+        return ("dict", tuple(sorted((str(k), _canon(x))
+                                     for k, x in v.items())))
+    if isinstance(v, (list, tuple)):
+        return (type(v).__name__, tuple(_canon(x) for x in v))
+    if dataclasses.is_dataclass(v):
+        return (type(v).__name__, tuple(_canon(getattr(v, f.name))
+                                        for f in dataclasses.fields(v)))
+    return v
+
+
+def _prims(stage):
+    """Every prim of a stage in traversal order, canonicalized."""
+    return [(p.path, p.type_name, p.specifier, _canon(p.metadata),
+             tuple((n, a.type_name, a.uniform, a.custom, a.connect,
+                    _canon(a.value), _canon(a.metadata))
+                   for n, a in sorted(p.attributes.items())))
+            for p in stage.root.traverse()]
+
+
+@pytest.mark.parametrize("name", list(BUILTINS))
+def test_host_copies_agree(name, tmp_path):
+    """Each builtin stage from both copies exports identical ``.usda``
+    text; the file read back by both parsers gives equal prims; a
+    ``.usdc`` written by the port's crate writer is byte-equal to the
+    reference's and reads back, through both readers, to equal prims."""
+    from vri_tpu_torch.usd import Stage as TStage
+
+    js = _stage(scenes, name, BUILTINS)
+    ts = _stage(vri_tpu_torch.scenes, name, BUILTINS)
+    text = ts.export()
+    assert text == js.export()
+    path = tmp_path / f"{name}.usda"
+    path.write_text(text)
+    jr, tr = Stage.open(str(path)), TStage.open(str(path))
+    assert _prims(tr) == _prims(jr)
+    jc, tc = tmp_path / "ref.usdc", tmp_path / "port.usdc"
+    js.save(str(jc))
+    ts.save(str(tc))
+    assert tc.read_bytes() == jc.read_bytes()
+    back = TStage.open(str(tc))
+    assert _prims(back) == _prims(Stage.open(str(tc)))
+    assert back.export() == Stage.open(str(jc)).export()
 
 
 def test_texture_sampling_matches_reference():

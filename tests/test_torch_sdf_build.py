@@ -46,6 +46,7 @@ torch = pytest.importorskip("torch")
 # one intra-op thread: the suite runs several worker processes at once
 torch.set_num_threads(1)
 
+import vri_tpu_torch  # noqa: E402
 from vri_tpu.config import RenderConfig, SDFConfig  # noqa: E402
 from vri_tpu.hydra import RenderDelegate  # noqa: E402
 from vri_tpu.ops import sdf as jsdf  # noqa: E402
@@ -157,7 +158,14 @@ def _no_fma_reference(tmp_path_factory):
                    if k.startswith(name + "/")} for name in CROWDED}
 
 
+def _port_cfg(cfg):
+    """The same SDF configuration in the port's own class."""
+    return vri_tpu_torch.SDFConfig(**{f.name: getattr(cfg, f.name)
+                                      for f in dataclasses.fields(cfg)})
+
+
 def _port_build(ts, cfg, demand_caps):
+    cfg = _port_cfg(cfg)
     tc = tsdf.default_centers(cfg, np.zeros(3, np.float32), device="cpu")
     tw = bake_world(ts)
     if demand_caps:
@@ -227,7 +235,7 @@ def test_march_tables_exact(builds, name):
     jcfg, ref, _, tcas, _, _, _ = builds[name]
     packed = tsdf.build_march_tables(
         torch.as_tensor(np.array(ref["brick_map"])),
-        torch.as_tensor(np.array(ref["atlas"])), config=jcfg)
+        torch.as_tensor(np.array(ref["atlas"])), config=_port_cfg(jcfg))
     for key, got in zip(("march_coarse", "march_fine0", "march_fine1"),
                         packed):
         np.testing.assert_array_equal(got.numpy(), ref[key])
@@ -238,4 +246,4 @@ def test_supports_matches_reference():
     for cfg in (*CONFIGS.values(), SDFConfig.preset("room"),
                 SDFConfig(cascade_resolution=48),
                 SDFConfig(cascade_resolution=16, truncation_voxels=3.0)):
-        assert tbuild.supports(cfg) == jbuild.supports(cfg)
+        assert tbuild.supports(_port_cfg(cfg)) == jbuild.supports(cfg)

@@ -1,19 +1,21 @@
 """vri_tpu_torch — the PyTorch / CUDA port of ``vri_tpu`` for one NVIDIA
 H100.
 
-It renders the static-stage GI frame of ``vri_tpu`` with torch tensors on
-an explicit device: USD stage -> packed scene tensors
-(``registry``) -> sorted-list raster (CUDA kernel ``raster_tiles``) ->
-G-buffer -> cell-binned SDF cascades -> SDF-shadowed direct light and one
-GI bounce marched through the cascades (CUDA kernel ``march_rays``).  The
-kernels live in ``csrc/`` and are built with ``nvcc`` at first use; on CPU
-tensors every kernel wrapper runs its plain PyTorch version instead.
+It renders the static-stage frames of ``vri_tpu`` with torch tensors on
+an explicit device: USD stage -> packed scene tensors (``registry``) ->
+visibility through the raster tiers (CUDA kernels ``raster_tiles`` and
+``raster_ranged``), the LBVH (CUDA kernel ``bvh_traverse``) or the
+brute-force tracer -> G-buffer -> direct light, and for the GI frame
+cell-binned SDF cascades with SDF-shadowed direct light and one GI bounce
+marched through them (CUDA kernel ``march_rays``).  The kernels live in
+``csrc/`` and are built with ``nvcc`` at first use; on CPU tensors every
+kernel wrapper runs its plain PyTorch version instead.
 
-The package imports ``torch`` and never ``jax``: it reuses only the
-jax-free host modules of ``vri_tpu`` (``config``, ``usd``,
-``hydra.{camera,material,meshutil}``, ``utils``, ``runtime.native``).
-The configuration classes and the procedural stages a caller needs are
-re-exported here::
+The package imports ``torch`` and never ``jax``, and nothing of
+``vri_tpu``: the host modules it needs (``config``, ``usd``,
+``hydra.{camera,material,meshutil}``, ``utils``, the native library's
+bindings in ``_native``) are its own copies.  The configuration classes
+and the procedural stages a caller needs are re-exported here::
 
     from vri_tpu_torch import RenderConfig, SDFConfig, scenes
     from vri_tpu_torch.renderer import Renderer
@@ -21,6 +23,6 @@ re-exported here::
 
 __version__ = "0.1.0"
 
-from vri_tpu.config import (DebugMode, RenderConfig, SceneLimits,  # noqa: F401
-                             SDFConfig)
-from vri_tpu.usd import Stage, scenes  # noqa: F401
+from vri_tpu_torch.config import (DebugMode, RenderConfig,  # noqa: F401
+                                  SceneLimits, SDFConfig)
+from vri_tpu_torch.usd import Stage, scenes  # noqa: F401

@@ -24,7 +24,8 @@ import types
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "march_rays.cu")
+SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "march_rays.cu",
+           "bvh_traverse.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,6 +41,9 @@ _ENTRIES = {
     "vri_march_rays": ("march_rays.cu",
                        [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P]),
+    "vri_bvh_traverse": ("bvh_traverse.cu",
+                         [_P, _P, _P, _I, _P, _P, _I, _I,
+                          _P, _P, _P, _P, _P, _P]),
 }
 
 _lib = None

@@ -2,12 +2,13 @@
 vri_tpu_torch.app``.
 
 Takes the flags of ``python -m vri_tpu.app`` and runs the paths the port
-has: GI frames (``--mode none``) or G-buffer debug views through the
-raster tiers (``--backend raster``) or the brute-force tracer
-(``--backend brute``), written as PNGs.  Flags whose paths are not
-ported yet (``--no-gi``, the SDF debug modes, ``--backend bvh``,
-``--multichip``, ``--lod``, ``--cache``, ``--trace``, the ``animated``
-builtin) exit with an error naming them.  It renders on the CUDA card.
+has: GI frames (``--mode none``), direct-only frames (``--no-gi``) or
+G-buffer debug views through the raster tiers (``--backend raster``),
+the LBVH (``--backend bvh``) or the brute-force tracer (``--backend
+brute``), written as PNGs.  Flags whose paths are not ported yet (the SDF
+debug modes, ``--multichip``, ``--lod``, ``--cache``, ``--trace``, the
+``animated`` builtin) exit with an error naming them.  It renders on the
+CUDA card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def parse_args(argv=None):
                    help="debug mode: none|mesh_id|prim_id|barycentric|depth|"
                         "albedo|normal (the sdf_* modes are not ported)")
     p.add_argument("--no-gi", action="store_true",
-                   help="direct lighting only (not ported)")
+                   help="direct lighting only")
     p.add_argument("--sdf", default="room",
                    choices=["reference", "room", "tiny"],
                    help="SDF cascade preset (scale of the GI structure)")
@@ -60,12 +61,8 @@ def parse_args(argv=None):
 
 def _unported(args) -> list:
     bad = []
-    if args.no_gi:
-        bad.append("--no-gi")
     if args.mode.lower().startswith("sdf"):
         bad.append(f"--mode {args.mode}")
-    if args.backend == "bvh":
-        bad.append("--backend bvh")
     for flag, on in (("--multichip", args.multichip), ("--lod", args.lod),
                      ("--cache", args.cache), ("--trace", args.trace)):
         if on:
@@ -86,10 +83,10 @@ def main(argv=None) -> int:
         log.error("not ported yet: %s (see ROADMAP.md)", ", ".join(bad))
         return 2
 
-    from vri_tpu.config import DebugMode, RenderConfig, SDFConfig
-    from vri_tpu.hydra.camera import FreeCamera
-    from vri_tpu.usd import scenes
-    from vri_tpu.utils.image import write_png
+    from vri_tpu_torch.config import DebugMode, RenderConfig, SDFConfig
+    from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.usd import scenes
+    from vri_tpu_torch.utils.image import write_png
     from vri_tpu_torch.renderer import Renderer
 
     mode = getattr(DebugMode, args.mode.upper())
@@ -111,7 +108,8 @@ def main(argv=None) -> int:
         else None
     aspect = args.width / args.height
     if args.progressive:
-        img = renderer.render_progressive(args.frames, samples=args.samples)
+        img = renderer.render_progressive(args.frames, samples=args.samples,
+                                          backend=args.backend)
         path = os.path.join(args.out, "progressive.png")
         write_png(path, img)
         log.info("wrote %s", path)
@@ -120,7 +118,7 @@ def main(argv=None) -> int:
         cam = (free_cam.at_time(i / 30.0, aspect)
                if free_cam is not None else None)
         t0 = time.perf_counter()
-        aovs = renderer.render(camera=cam, mode=mode, gi=True,
+        aovs = renderer.render(camera=cam, mode=mode, gi=not args.no_gi,
                                samples=args.samples, backend=args.backend)
         path = os.path.join(args.out, f"frame_{i:04d}.png")
         write_png(path, aovs["color"], tonemapped=mode != DebugMode.NONE)

@@ -4,9 +4,9 @@
 The delegate owns an explicit :class:`ChangeTracker`, and ``sync()``
 re-extracts only dirty prims into the port's
 :class:`~vri_tpu_torch.registry.ResourceRegistry`, which packs them into
-tensors on the renderer's device.  It shares the jax-free host modules of
-``vri_tpu`` (USD stage, camera, material, mesh utilities, the native
-triangulator).
+tensors on the renderer's device.  The USD stage, camera, material and
+mesh utilities and the native triangulator are the port's own copies of
+``vri_tpu``'s host modules.
 """
 
 from __future__ import annotations
@@ -19,14 +19,14 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from vri_tpu.config import RenderConfig
-from vri_tpu.hydra import camera as camera_mod
-from vri_tpu.hydra import material as material_mod
-from vri_tpu.hydra import meshutil
+from vri_tpu_torch.config import RenderConfig
+from vri_tpu_torch.hydra import camera as camera_mod
+from vri_tpu_torch.hydra import material as material_mod
+from vri_tpu_torch.hydra import meshutil
 from vri_tpu_torch.registry import (LightRecord, MeshRecord,
                                     ResourceRegistry, SceneBuffers)
-from vri_tpu.usd.stage import Stage
-from vri_tpu.usd.usda import Prim
+from vri_tpu_torch.usd.stage import Stage
+from vri_tpu_torch.usd.usda import Prim
 
 log = logging.getLogger("vri_tpu_torch")
 
@@ -209,9 +209,7 @@ class RenderDelegate:
         from vri_tpu_torch import _native
 
         # load (building it if absent) the native library on this thread,
-        # under the cross-process lock: its build-on-first-use is not safe
-        # from several threads or processes at once (one can load the
-        # half-written .so and fall back to numpy)
+        # under the cross-process lock, before the pool's threads need it
         _native.ensure_native()
         res = self.config.limits.texture_res
         prepared: dict = {}
@@ -261,7 +259,7 @@ class RenderDelegate:
         counts = np.asarray(prim.get("faceVertexCounts", ()), np.int64).reshape(-1)
         indices = np.asarray(prim.get("faceVertexIndices", ()), np.int64).reshape(-1)
         # native fast path (falls back to hydra.meshutil when the .so is absent)
-        from vri_tpu.runtime import native
+        from vri_tpu_torch import _native as native
 
         tris, tri_face, tri_corners = native.triangulate(counts, indices)
         if self.config.dedup_vertices and len(points):
@@ -322,7 +320,7 @@ class RenderDelegate:
         """Flatten a PointInstancer into per-instance draw items —
         UsdImagingDelegate does the same flattening for render delegates
         (like the reference) that don't implement native instancing."""
-        from vri_tpu.utils import math3d
+        from vri_tpu_torch.utils import math3d
 
         stage = self.stage
         protos = self._instancer_prototypes(prim)
@@ -340,7 +338,7 @@ class RenderDelegate:
 
         # extract prototype geometry once
         proto_data = []
-        from vri_tpu.runtime import native
+        from vri_tpu_torch import _native as native
 
         for proto in protos:
             points = np.asarray(proto.get("points", ()),

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from vri_tpu.config import SDFConfig
+from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch.ops import sdf_trace
 from vri_tpu_torch.ops.geometry import dot3, norm3
 from vri_tpu_torch.ops.sdf import SDFCascades

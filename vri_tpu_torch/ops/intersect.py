@@ -99,3 +99,12 @@ def trace_brute(origins: torch.Tensor, dirs: torch.Tensor,
         best_u = torch.where(closer, u[rows, k], best_u)
         best_v = torch.where(closer, v[rows, k], best_v)
     return HitRecord(t=best_t, tri=best_tri, u=best_u, v=best_v)
+
+
+def any_hit_brute(origins: torch.Tensor, dirs: torch.Tensor, v0, e1, e2,
+                  num_faces, t_max, chunk: int = 512) -> torch.Tensor:
+    """Shadow-ray occlusion test: True where any triangle blocks within
+    ``t_max``."""
+    rec = trace_brute(origins, dirs, v0, e1, e2, num_faces, chunk=chunk,
+                      t_max=t_max)
+    return rec.tri >= 0

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from vri_tpu.config import SDFConfig
+from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch import _cuda
 from vri_tpu_torch.ops.sdf import SDFCascades, cascade_origin
 from vri_tpu_torch.ops.sdf_trace import BIG, SDFHit

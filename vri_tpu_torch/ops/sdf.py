@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vri_tpu.config import SDFConfig
+from vri_tpu_torch.config import SDFConfig
 
 BIG = 3.0e38
 

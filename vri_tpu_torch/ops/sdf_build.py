@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from vri_tpu.config import SDFConfig
+from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch.ops import geometry
 from vri_tpu_torch.ops.geometry import cross, dot3, norm3
 from vri_tpu_torch.ops.sdf import (BIG, SDFCascades, _min_pool_iter,

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from vri_tpu.config import SDFConfig
+from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch.ops.sdf import SDFCascades
 
 BIG = 3.0e38

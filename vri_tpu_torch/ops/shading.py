@@ -3,7 +3,8 @@ from a visibility sample (triangle id + barycentrics) fetch the triangle's
 corners, uvs and material from the packed pools and interpolate.  The
 JAX package packs a per-triangle table and row-gathers it for TPU layout
 reasons (``ops/rowgather.py``); on the GPU the same table is plainly
-indexed.  Also the debug false-color modes."""
+indexed.  Also the direct-light loop of the direct-only frame and the
+debug false-color modes."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import dataclasses
 
 import torch
 
-from vri_tpu.config import DebugMode
+from vri_tpu_torch.config import DebugMode
 from vri_tpu_torch.ops.geometry import cross, dot3, norm3
 from vri_tpu_torch.ops.intersect import HitRecord
 
@@ -127,6 +128,29 @@ def resolve_gbuffer(scene, world_verts: torch.Tensor, hit: HitRecord,
         prim=torch.where(valid, prim, neg1),
         material=torch.where(valid, mat, neg1),
         valid=valid)
+
+
+def shade_direct(gb: GBuffer, scene, shadow: torch.Tensor | None = None,
+                 ambient: float = 0.08) -> torch.Tensor:
+    """Lambertian direct lighting over the (padded) light array.
+    ``shadow``: optional (N, L) occlusion factors in [0, 1] (1 = lit)."""
+    is_distant = (scene.light_type == 1)[None, :, None]
+    lpos = scene.light_position[None, :, :]
+    to_l = torch.where(is_distant, lpos, lpos - gb.position[:, None, :])
+    dist2 = (to_l * to_l).sum(-1)                                # (N, L)
+    wi = to_l / torch.sqrt(torch.clamp(dist2, min=1e-12))[..., None]
+    ndotl = torch.clamp((gb.normal[:, None, :] * wi).sum(-1), min=0.0)
+    nlights = scene.light_position.shape[0]
+    live = (torch.arange(nlights, device=dist2.device)
+            < scene.num_lights).to(torch.float32)
+    falloff = torch.where(is_distant[..., 0], 1.0,
+                          1.0 / torch.clamp(dist2, min=1e-6))
+    irr = scene.light_intensity[None, :] * ndotl * falloff * live[None, :]
+    if shadow is not None:
+        irr = irr * shadow
+    radiance = (irr[..., None] * scene.light_color[None, :, :]).sum(1)
+    color = gb.albedo * (radiance + ambient) + gb.emissive
+    return torch.where(gb.valid[:, None], color, 0.0)
 
 
 def _id_color(i: torch.Tensor) -> torch.Tensor:

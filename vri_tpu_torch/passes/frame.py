@@ -1,18 +1,21 @@
-"""One static-stage GI frame (counterpart of ``render_frame_gi`` in
-``vri_tpu/passes/frame.py``): bake world vertices -> camera rays ->
-visibility -> G-buffer resolve -> SDF-shadowed direct light + one
-SDF-marched GI bounce.
+"""The static-stage frames (counterpart of ``vri_tpu/passes/frame.py``):
+``render_frame_gi`` bakes world vertices -> camera rays -> visibility ->
+G-buffer resolve -> SDF-shadowed direct light + one SDF-marched GI
+bounce; ``render_frame`` is the direct-only frame: visibility ->
+G-buffer -> Lambertian direct light with brute-force hard shadows.
 
-Ported: mode NONE at ``gi_scale=1``; visibility through every raster
-tier with the JAX package's dispatch (frustum compaction for face pools
-of 2^19 slots or more, the binned tier for small pools at small frames,
-the sorted tier otherwise, the ranged tier on request) and through the
-brute-force tracer.  The dispatch thresholds were tuned for the TPU; the
-port keeps them so that it takes the reference's tier at every shape.
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the SDF debug modes (item 1), reduced-rate GI and the
-temporal frame (item 2), the BVH backend (item 4) and LOD masks (item
-6).
+Ported: mode NONE at ``gi_scale=1`` and the G-buffer debug modes;
+visibility through every raster tier with the JAX package's dispatch
+(frustum compaction for face pools of 2^19 slots or more, the binned tier
+for small pools at small frames, the sorted tier otherwise, the ranged
+tier on request), through the LBVH (``backend="bvh"``, one
+``bvh_traverse`` launch; like the reference's, it does no backface
+culling) and through the brute-force tracer.  The dispatch thresholds
+were tuned for the TPU; the port keeps them so that it takes the
+reference's tier at every shape.  Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP.md item: the SDF debug
+modes (item 1), reduced-rate GI and the temporal frame (item 2) and LOD
+masks (item 6).
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ from typing import Dict
 
 import torch
 
-from vri_tpu.config import DebugMode
+from vri_tpu_torch.config import DebugMode
 from vri_tpu_torch.ops import gi as gi_mod
 from vri_tpu_torch.ops import intersect, raygen, shading
+from vri_tpu_torch.ops import trace as trace_mod
 from vri_tpu_torch.ops import rasterize as raster_mod
 from vri_tpu_torch.ops.geometry import norm3
 from vri_tpu_torch.registry import SceneBuffers, bake_world
@@ -218,6 +222,82 @@ def _visibility_brute(scene: SceneBuffers, world_verts, origins, dirs):
                                  cull_sign=_cull_sign(scene))
 
 
+def _visibility(scene: SceneBuffers, world_verts, frame: FrameParams, o, d,
+                height: int, width: int, backend: str, lod_tau: float):
+    """Nearest hit of every camera ray through ``backend``: a raster tier
+    (``raster``, ``raster2x``, ``raster4x``, ``raster_ranged``), the LBVH
+    (``bvh``) or the brute-force tracer (``brute``)."""
+    if backend.startswith("raster"):
+        variant, caps_scale = _raster_variant(backend)
+        return _visibility_raster(scene, world_verts, frame, height, width,
+                                  variant=variant, caps_scale=caps_scale,
+                                  lod_tau=lod_tau)
+    if backend == "bvh":
+        return trace_mod.trace_scene(scene, world_verts, o, d)
+    if backend == "brute":
+        return _visibility_brute(scene, world_verts, o, d)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def render_frame(scene: SceneBuffers, frame: FrameParams, *, height: int,
+                 width: int, mode: int = DebugMode.NONE,
+                 shadows: bool = True, backend: str = "brute",
+                 lod_tau: float = 0.75) -> Dict[str, torch.Tensor]:
+    """The direct-only frame: visibility -> G-buffer -> Lambertian direct
+    light with brute-force hard shadows (or a G-buffer debug view).  AOVs
+    are reshaped to (H, W, ...)."""
+    world_verts = bake_world(scene)
+    origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
+                                       height, width)
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    hit = _visibility(scene, world_verts, frame, o, d, height, width,
+                      backend, lod_tau)
+    gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
+                                 pixel_spread=frame.pixel_spread)
+    if backend.startswith("raster"):
+        # raster depth is NDC; report the world-space ray distance
+        t = norm3(gb.position - frame.eye[None, :])
+        gb = gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
+
+    if mode == DebugMode.NONE:
+        shadow = _shadow_factors(scene, world_verts, gb) if shadows else None
+        color = shading.shade_direct(gb, scene, shadow=shadow)
+    else:
+        color = shading.debug_color(mode, gb)
+    out = {
+        "color": color.reshape(height, width, color.shape[-1]),
+        "depth": gb.depth.reshape(height, width),
+        "instance_id": gb.instance.reshape(height, width),
+        "prim_id": gb.prim.reshape(height, width),
+        "normal": gb.normal.reshape(height, width, 3),
+        "albedo": gb.albedo.reshape(height, width, 3),
+    }
+    if hit.overflow is not None:
+        out["raster_overflow_tiles"] = hit.overflow
+    return out
+
+
+def _shadow_factors(scene: SceneBuffers, world_verts,
+                    gb: shading.GBuffer) -> torch.Tensor:
+    """Hard shadow test per (pixel, light) with brute-force occlusion, as
+    the reference's direct-only frame does: (N, L), 1 = lit."""
+    v0, e1, e2 = intersect.gather_triangles(world_verts, scene.tri_vertices)
+    n, L = gb.position.shape[0], scene.light_position.shape[0]
+    is_distant = (scene.light_type == 1)[None, :, None]
+    lpos = scene.light_position[None, :, :]
+    to_l = torch.where(is_distant, lpos, lpos - gb.position[:, None, :])
+    dist = norm3(to_l)
+    dist = torch.where(is_distant[..., 0], 1e4, dist)
+    wi = to_l / torch.clamp(norm3(to_l), min=1e-12)[..., None]
+    o = (gb.position[:, None, :] + gb.normal[:, None, :] * 1e-3).expand(
+        n, L, 3)
+    blocked = intersect.any_hit_brute(
+        o.reshape(n * L, 3), wi.reshape(n * L, 3), v0, e1, e2,
+        scene.num_faces, t_max=dist.reshape(n * L) - 2e-3)
+    return 1.0 - blocked.reshape(n, L).to(torch.float32)
+
+
 def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
                     cascades, *, height: int, width: int, config,
                     mode: int = DebugMode.NONE, backend: str = "raster",
@@ -237,24 +317,13 @@ def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
         raise NotImplementedError(
             "reduced-rate GI (gi_scale > 1) is not ported; see ROADMAP.md "
             "'What comes next', item 2")
-    if backend == "bvh":
-        raise NotImplementedError(
-            "the BVH backend is not ported; see ROADMAP.md 'What comes "
-            "next', item 4")
-    if not (backend == "brute" or backend.startswith("raster")):
-        raise ValueError(f"unknown backend {backend!r}")
     world_verts = bake_world(scene)
     origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
                                        height, width)
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
-    if backend == "brute":
-        hit = _visibility_brute(scene, world_verts, o, d)
-    else:
-        variant, caps_scale = _raster_variant(backend)
-        hit = _visibility_raster(scene, world_verts, frame, height, width,
-                                 variant=variant, caps_scale=caps_scale,
-                                 lod_tau=lod_tau)
+    hit = _visibility(scene, world_verts, frame, o, d, height, width,
+                      backend, lod_tau)
     gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
                                  pixel_spread=frame.pixel_spread)
     # report the world-space ray distance (raster depth is NDC)

@@ -21,8 +21,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from vri_tpu.config import RenderConfig, SceneLimits
-from vri_tpu.hydra.material import MaterialDesc, default_material
+from vri_tpu_torch.config import RenderConfig, SceneLimits
+from vri_tpu_torch.hydra.material import MaterialDesc, default_material
 from vri_tpu_torch.ops import texture as texture_mod
 
 log = logging.getLogger("vri_tpu_torch")
@@ -342,7 +342,7 @@ class ResourceRegistry:
         (the native QEM simplifier; cached by geometry content hash)."""
         import hashlib
 
-        from vri_tpu.runtime import native as native_rt
+        from vri_tpu_torch import _native as native_rt
 
         cfg = self.config
         nt = len(rec.tris)

@@ -2,8 +2,9 @@
 
 Owns the delegate, builds the SDF cascades when the scene or the focus
 changes (full cell-binned build with demand-scaled list caps, then the
-radiance bake), and renders GI frames on an explicit ``device``.  GI
-samples come from a ``torch.Generator`` seeded with the frame index.
+radiance bake), and renders GI frames, or direct-only frames with
+``gi=False``, on an explicit ``device``.  GI samples come from a
+``torch.Generator`` seeded with the frame index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
 later frames use 2x, then 4x list capacities, and after an overflow at
@@ -20,9 +21,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vri_tpu.config import DebugMode, RenderConfig
-from vri_tpu.hydra.camera import CameraState
-from vri_tpu.usd.stage import Stage
+from vri_tpu_torch.config import DebugMode, RenderConfig
+from vri_tpu_torch.hydra.camera import CameraState
+from vri_tpu_torch.usd.stage import Stage
 from vri_tpu_torch.hydra.delegate import RenderDelegate
 from vri_tpu_torch.ops import sdf as sdf_mod
 from vri_tpu_torch.ops import sdf_build
@@ -145,14 +146,12 @@ class Renderer:
                gi_scale: int = 1, to_numpy: bool = True,
                uniforms: torch.Tensor | None = None
                ) -> Dict[str, np.ndarray]:
-        """One GI frame.  ``uniforms`` (samples, H*W, 2) replaces the
-        generator draws (parity tests hand in the reference's samples)."""
+        """One frame: the GI frame, or with ``gi=False`` the direct-only
+        frame (brute-force hard shadows, no SDF cascades).  ``uniforms``
+        (samples, H*W, 2) replaces the generator draws of the GI frame
+        (parity tests hand in the reference's samples)."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
-        if not gi and mode < DebugMode.SDF_DISTANCE:
-            raise NotImplementedError(
-                "the direct-only frame (render_frame) is not ported; "
-                "render with gi=True")
         cam = camera or self.camera
         if cam is None:
             raise RuntimeError("no camera")
@@ -161,17 +160,22 @@ class Renderer:
                        else f"raster{self._raster_caps_scale}x")
         h, w = self.config.height, self.config.width
         fp = frame_mod.FrameParams.from_camera(cam, h, device=self.device)
-        cascades = self.ensure_cascades(eye=cam.eye)
-        gen = None
-        if uniforms is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.frame_index)
-        aovs = frame_mod.render_frame_gi(
-            self.scene, fp, cascades, height=h, width=w,
-            config=self.config.sdf, mode=mode,
-            backend=backend, samples=samples, use_cache=True,
-            gi_scale=gi_scale, lod_tau=self.config.lod_tau, generator=gen,
-            uniforms=uniforms)
+        if gi or mode >= DebugMode.SDF_DISTANCE:
+            cascades = self.ensure_cascades(eye=cam.eye)
+            gen = None
+            if uniforms is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self.frame_index)
+            aovs = frame_mod.render_frame_gi(
+                self.scene, fp, cascades, height=h, width=w,
+                config=self.config.sdf, mode=mode,
+                backend=backend, samples=samples, use_cache=True,
+                gi_scale=gi_scale, lod_tau=self.config.lod_tau,
+                generator=gen, uniforms=uniforms)
+        else:
+            aovs = frame_mod.render_frame(
+                self.scene, fp, height=h, width=w, mode=mode, shadows=True,
+                backend=backend, lod_tau=self.config.lod_tau)
         self.frame_index += 1
         over = aovs.get("raster_overflow_tiles")
         if over is not None and to_numpy and self._raster_caps_scale <= 4 \
