@@ -6,10 +6,11 @@ Drives the port's main path -- one static-stage GI frame as
 ``vri_tpu_torch.renderer.Renderer.render(gi=True)`` runs it -- at the size
 a user runs: the 49k-triangle kitchen stage, 1920x1080, the "room" SDF
 preset; then the other paths: the ranged tier, the BVH backend, the app's
-default frame, a city-scale stage and the direct-only frame.  The JAX
-package and JAX itself are blocked before the port is imported, so any
-import of either is fatal.  Phases (run in the order 1-8, 12, 13, 9-11,
-14), each fatal on failure:
+default frame, a city-scale stage and the direct-only frame; then the
+work-list micro-benchmarks' kernels, each through its tool's own row at
+the tool's full shape.  The JAX package and JAX itself are blocked
+before the port is imported, so any import of either is fatal.  Phases
+(run in the order 1-8, 12, 13, 9-11, 14-17), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -23,7 +24,8 @@ import of either is fatal.  Phases (run in the order 1-8, 12, 13, 9-11,
    tess=1)`` at 512x512 (the binned tier's shape) the sorted, binned and
    ranged tiers do; each tier's whole raster time (setup to HitRecord) at
    both shapes; kernel R on the binned tier's lists at 512x512 (K5's walk)
-   bit-equal to its plain version, both times;
+   bit-equal to its plain version, both times, and its bound on the
+   (tile, slot) pairs that overlap;
 6. kernel M (``march_rays``) against its plain version on the frame's real
    shadow and GI rays: t, hit voxel, iterations and activity exactly equal;
 7. main path: build the SDF cascades and render three frames with every
@@ -61,14 +63,24 @@ import of either is fatal.  Phases (run in the order 1-8, 12, 13, 9-11,
 14. the direct-only frame: the Cornell box at 512x512 through
     ``render(gi=False)`` with ``backend="raster"`` and ``"bvh"``: finite
     colour, zero raster overflow, ``instance_id`` equal on >= 99% of the
-    pixels.
+    pixels;
+15. kernel ``template_walk``: the rows of ``vri_tpu_torch.tools.
+    micro_steps`` (packed, P 1024, TC 128, 4096 steps) and
+    ``micro_attrib`` (s5, s6), each with the counters reset first (only
+    ``template_walk`` launched), then held bit for bit against its plain
+    version on the row's inputs;
+16. kernel ``setup_walk``: ``micro_pass1``'s v3 row (5,313 steps), the
+    same way;
+17. kernel ``grouped_step``: ``micro_grouped``'s W = 8 and 32 rows (2,048
+    steps), the same way.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over the
 H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
-single PyTorch call computes any of the four, so ``library_ms`` is null.
+single PyTorch call computes any of the seven, so ``library_ms`` is
+null.
 
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -131,22 +143,30 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _counts() -> dict:
-    from vri_tpu_torch.ops import bvh, march_kernel, rasterize
+def _wrappers() -> dict:
+    from vri_tpu_torch.ops import bvh, march_kernel, rasterize, worklist
 
-    return {"raster_tiles": rasterize.raster_tiles.launches,
-            "raster_ranged": rasterize.raster_ranged.launches,
-            "march_rays": march_kernel.march_rays.launches,
-            "bvh_traverse": bvh.bvh_traverse.launches}
+    return {"raster_tiles": rasterize.raster_tiles,
+            "raster_ranged": rasterize.raster_ranged,
+            "march_rays": march_kernel.march_rays,
+            "bvh_traverse": bvh.bvh_traverse,
+            "template_walk": worklist.template_walk,
+            "setup_walk": worklist.setup_walk,
+            "grouped_step": worklist.grouped_step}
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_counts() -> None:
-    from vri_tpu_torch.ops import bvh, march_kernel, rasterize
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    rasterize.raster_tiles.launches = 0
-    rasterize.raster_ranged.launches = 0
-    march_kernel.march_rays.launches = 0
-    bvh.bvh_traverse.launches = 0
+
+def _launches(**nonzero) -> dict:
+    """Expected counts: ``nonzero`` for the named kernels, 0 for all."""
+    return {name: nonzero.get(name, 0) for name in _wrappers()}
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -233,6 +253,224 @@ def _bound_bvh(args, out) -> dict:
                   + OPS_TRI_TEST * float(visits[1]))
 
 
+# FP32 operations of one (pixel, lane) test of the work-list walks in
+# the FP32 affine form (worklist_common.cuh; the bf16 split emulation is
+# not counted): three fields of two products and two sums (12), the
+# coverage chain (two minima, a sum, three compares: 6), the select and
+# the update compare (2); one lane's triangle setup in the setup walk
+# (worklist.cu:setup_lane): 44.
+OPS_WORKLIST_TEST = 20
+OPS_SETUP_LANE = 44
+
+
+def _worklist_tests(fl, p: int, tc: int) -> float:
+    """(pixel, lane) tests of a work list: its live steps inside tile runs
+    times P times TC."""
+    from vri_tpu_torch.ops import worklist
+
+    starts, ends = worklist.work_runs(fl)
+    return float(worklist.walk_steps(starts, ends, fl).numel()) * p * tc
+
+
+def _held(name: str, got, plain) -> tuple:
+    """Hold kernel outputs ``got`` against ``plain()`` bit for bit; returns
+    (the plain version's ms, CUDA events, one run; max abs error)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    stop.record()
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        _check(torch.equal(g, w), f"{name}: output {k} differs from the "
+               "plain version")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    return start.elapsed_time(stop), err
+
+
+def _drive(name: str, fn):
+    """Run one tool's row with every counter reset first; returns the
+    row and its launches of ``name`` (and of no other kernel)."""
+    _reset_counts()
+    row = fn()
+    launches = _counts()
+    _check(launches[name] > 0 and sum(launches.values()) == launches[name],
+           f"{name}: launch counts {launches}")
+    return row, launches[name]
+
+
+def _covering_chunks(tiles, *, p: int, tc: int, setup: bool = False,
+                     seed: int = 7):
+    """One chunk of TC screen triangles around each of ``tiles`` (the
+    tools' grid: 15 tiles of 128 x P/128 pixels a row; ``setup``: the
+    setup walk's frame, x offset by tile % 15, TC pixels wide), depths
+    at a slant, integer slot ids: most pixels covered, many overlaps.
+    The tools' own templates are uniform in [0, 1) and cover almost no
+    pixel, so these hold the kernels' winner selection as well."""
+    from vri_tpu_torch.ops import worklist
+
+    rng = np.random.default_rng(seed)
+    t = np.repeat(np.asarray(tiles), tc)
+    if setup:
+        return worklist.setup_rows_from_triangles(
+            worklist.triangles_near(rng, t % 15, 0.0, tc, p // tc), tc)
+    tri = worklist.triangles_near(rng, (t % 15) * 128,
+                                  (t // 15) * (p // 128), 128, p // 128)
+    return worklist.templates_from_triangles(
+        tri, rng.integers(0, 1 << 20, t.shape[0]), tc)
+
+
+def _hold_covered(name: str, call, plain, card: str) -> None:
+    got = call()
+    _held(name, got, plain)
+    print(f"{name} on covering triangle templates: "
+          f"{float((got[1] >= 0).double().mean()):.4f} of the outputs hit, "
+          f"equal to the plain version [{card}]")
+
+
+def _worklist(dev, card: str, kernels: dict) -> None:
+    """The work-list kernels at their tools' full shapes (phases 15-17):
+    each tool's row drives its kernel with the counters reset, then the
+    kernel is held bit for bit against its plain version on the row's
+    inputs."""
+    import torch
+
+    from vri_tpu_torch.ops import worklist
+    from vri_tpu_torch.tools import (micro_attrib, micro_grouped,
+                                     micro_pass1, micro_steps)
+
+    # -- 15. template walk: micro_steps packed, micro_attrib s5 and s6 ----
+    entry, total = None, 0
+    rows = (("micro_steps packed P=1024 TC=128 n_work=4096", "bf16x2",
+             lambda: micro_steps.run(1024, 128, 4096, dev, variant="packed")),
+            ("micro_attrib s5", "bf16x3", lambda: micro_attrib.run(5, dev)),
+            ("micro_attrib s6", "k6", lambda: micro_attrib.run(6, dev)))
+    for label, evaluation, fn in rows:
+        row, n = _drive("template_walk", fn)
+        total += n
+        args, k6 = row["args"], row["kw"].get("chunks_k6")
+        kw = dict(num_tiles=micro_steps.NUM_TILES, p=1024,
+                  evaluation=evaluation, translate=True, packed=True,
+                  chunks_k6=k6)
+        got = worklist.template_walk(*args, **kw)
+        plain_ms, err = _held("template_walk", got,
+                              lambda: worklist.template_walk_reference(
+                                  *args, **kw))
+        b = _bound(_nbytes(*args, *([] if k6 is None else [k6]))
+                   + _nbytes(*got),
+                   OPS_WORKLIST_TEST * _worklist_tests(args[2], 1024, 128))
+        print(f"template_walk ({label}): {n} launches, equal to the plain "
+              f"version; {row['ms']:.3f} ms vs plain {plain_ms:.1f} ms, "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['ops'] / 1e9:.2f} GFLOP, {b['bytes'] / 1e6:.1f} MB); "
+              f"{float((got[1] >= 0).double().mean()):.5f} of pixels hit "
+              f"[{card}]")
+        if entry is None:
+            entry = dict(route="cuda", source="vri_tpu_torch/csrc/worklist.cu",
+                         replaces="tools/micro_steps.py:255",
+                         also_replaces="tools/micro_steps.py:23, :136; "
+                                       "tools/micro_worklist.py:22; "
+                                       "tools/micro_attrib.py:44",
+                         max_abs_err=err, ms=row["ms"], plain_ms=plain_ms,
+                         library_ms=None, **b)
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry.setdefault("rows", {})[label] = dict(
+                ms=row["ms"], plain_ms=plain_ms, bound_ms=b["bound_ms"])
+    entry["launches"] = total
+    kernels["template_walk"] = entry
+    # the same work list over chunks that cover its tiles
+    wt, _, fl, _ = micro_steps.inputs(128, 4096, dev)
+    covered = (wt, wt, fl, torch.as_tensor(
+        _covering_chunks(range(2025), p=1024, tc=128), device=dev))
+    for evaluation, packed in (("bf16x2", False), ("bf16x2", True),
+                               ("bf16x3", True), ("k6", True)):
+        kw = dict(num_tiles=2025, p=1024, evaluation=evaluation,
+                  translate=True, packed=packed,
+                  chunks_k6=worklist.k6_operand(covered[3])
+                  if evaluation == "k6" else None)
+        _hold_covered(
+            f"template_walk ({evaluation}, "
+            f"{'packed' if packed else 'per-lane'})",
+            lambda: worklist.template_walk(*covered, **kw),
+            lambda: worklist.template_walk_reference(*covered, **kw), card)
+
+    # -- 16. setup walk: micro_pass1 v3 ------------------------------------
+    row, n = _drive("setup_walk", lambda: micro_pass1.run(3, dev))
+    args = row["args"]
+    got = micro_pass1.call(args, 3, **row["kw"])
+    plain_ms, err = _held("setup_walk", got,
+                          lambda: worklist.setup_walk_reference(
+                              *args, num_tiles=row["kw"]["nt"], variant=3))
+    steps = _worklist_tests(args[2], 1024, 128) / (1024 * 128)
+    b = _bound(_nbytes(*args) + _nbytes(*got),
+               OPS_WORKLIST_TEST * steps * 1024 * 128
+               + OPS_SETUP_LANE * steps * 128)
+    print(f"setup_walk (micro_pass1 v3, {int(steps)} live steps): {n} "
+          f"launches, equal to the plain version; {row['ms']:.3f} ms vs "
+          f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}; {float((got[1] >= 0).double().mean()):.5f} of "
+          f"pixels hit [{card}]")
+    wt, _, fl, _ = args
+    covered = (wt, wt, fl, torch.as_tensor(
+        _covering_chunks(range(2025), p=1024, tc=128, setup=True),
+        device=dev))
+    _hold_covered("setup_walk",
+                  lambda: worklist.setup_walk(*covered, num_tiles=2025),
+                  lambda: worklist.setup_walk_reference(*covered,
+                                                        num_tiles=2025),
+                  card)
+    kernels["setup_walk"] = dict(
+        route="cuda", source="vri_tpu_torch/csrc/worklist.cu",
+        replaces="tools/micro_pass1.py:33", launches=n, max_abs_err=err,
+        ms=row["ms"], plain_ms=plain_ms, library_ms=None, **b)
+
+    # -- 17. grouped step: micro_grouped W = 8 and 32 -----------------------
+    entry, total = None, 0
+    for w in (8, 32):
+        row, n = _drive("grouped_step",
+                        lambda w=w: micro_grouped.bench(w, 2048, dev))
+        total += n
+        args, kw = row["args"], row["kw"]
+        got = worklist.grouped_step(*args, **kw)
+        plain_ms, err = _held("grouped_step", got,
+                              lambda: worklist.grouped_step_reference(
+                                  *args, **kw))
+        b = _bound(_nbytes(*args) + _nbytes(*got),
+                   OPS_WORKLIST_TEST * float(args[0].numel()) * 1024 * 128)
+        print(f"grouped_step (W={w}, 2048 steps): {n} launches, equal to "
+              f"the plain version; {row['ms']:.3f} ms vs plain "
+              f"{plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['ops'] / 1e9:.2f} GFLOP, "
+              f"{b['bytes'] / 1e6:.1f} MB); "
+              f"{float((got[1] >= 0).double().mean()):.5f} hit [{card}]")
+        if entry is None:
+            entry = dict(route="cuda",
+                         source="vri_tpu_torch/csrc/worklist_grouped.cu",
+                         replaces="tools/micro_grouped.py:32",
+                         max_abs_err=err, ms=row["ms"], plain_ms=plain_ms,
+                         library_ms=None, **b)
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["rows"] = {f"W={w}": dict(ms=row["ms"], plain_ms=plain_ms,
+                                            bound_ms=b["bound_ms"])}
+    entry["launches"] = total
+    kernels["grouped_step"] = entry
+    # chunks around tile 0, the constant baked at its origin (0, 0)
+    ch = _covering_chunks([0] * 2048, p=1024, tc=128)
+    ch[:, 2] = ch[:, 2] - ch[:, 0] * ch[:, 3] - ch[:, 1] * ch[:, 4]
+    covered = (torch.arange(2048, dtype=torch.int32, device=dev),
+               torch.as_tensor(ch, device=dev))
+    _hold_covered("grouped_step (W=8)",
+                  lambda: worklist.grouped_step(*covered, w=8),
+                  lambda: worklist.grouped_step_reference(*covered, w=8),
+                  card)
+
+
 def _tagged(fn, tag: str, log: list):
     """``fn`` that appends ``tag`` to ``log`` on every call."""
     def run(*args, **kw):
@@ -312,7 +550,7 @@ def _city(dev, card: str) -> None:
                f"overflow {int(hit.overflow)}")
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
-    _check(launches["raster_tiles"] == 3 and launches["raster_ranged"] == 0,
+    _check(launches == _launches(raster_tiles=3),
            f"city: launch counts {launches}")
     full, _ = rasterize.rasterize_sorted(
         world, scene.tri_vertices, scene.num_faces, fp.view_proj, height=h,
@@ -481,7 +719,7 @@ def main() -> int:
         route="cuda", source="vri_tpu_torch/csrc/raster_tiles.cu",
         replaces="vri_tpu/ops/rasterize.py:1550",
         also_replaces="vri_tpu/ops/rasterize.py:1879 (K2), :1712 (K7), "
-                      ":658 (K5)",
+                      ":658 (K5); tools/prof_worklist.py:111, :141 (T6)",
         max_abs_err=r_err,
         ms=_time_ms(lambda: rasterize.raster_tiles(*rargs, **rkw), 20),
         plain_ms=_time_ms(lambda: rasterize.raster_tiles_reference(
@@ -587,12 +825,22 @@ def main() -> int:
         k_ms = _time_ms(lambda: rasterize.raster_tiles(*bargs, **bkw), 20)
         p_ms = _time_ms(lambda: rasterize.raster_tiles_reference(
             *bargs, **bkw), 2)
+        # K5's bound: the (tile, slot) pairs that overlap (the sorted
+        # prep's lists at this shape), not the 8-slot groups walked
+        sprep = rasterize.prepare_sorted(*args, **kw)
+        k5 = _bound_raster_tiles(sprep["coef"], sprep["starts"],
+                                 sprep["counts"], sprep["cap"], got)
+        kernels["raster_tiles"]["binned"] = dict(ms=k_ms, plain_ms=p_ms, **k5)
         print(f"raster_tiles on the binned lists, {label}: "
               f"{int(bprep['counts'].sum())} slots over "
               f"{int(bprep['counts'].shape[0])} tiles (longest list "
               f"{int(bprep['counts'].max())}), equal to the plain version; "
-              f"{k_ms:.3f} ms vs plain {p_ms:.1f} ms [{card}]")
-    del small_stage, s_scene, shapes, hits, bprep, bargs, got, want
+              f"{k_ms:.3f} ms vs plain {p_ms:.1f} ms; bound "
+              f"{k5['bound_ms']:.4f} ms by {k5['bound_by']} "
+              f"({int(sprep['counts'].sum())} overlapping pairs, "
+              f"{k5['ops'] / 1e9:.3f} GFLOP, {k5['bytes'] / 1e6:.1f} MB) "
+              f"[{card}]")
+    del small_stage, s_scene, shapes, hits, bprep, sprep, bargs, got, want
 
     # -- 6. kernel M on the frame's real shadow and GI rays ------------------------
     cas = r.ensure_cascades(eye=cam.eye)
@@ -682,11 +930,10 @@ def main() -> int:
     _check(r2.list_overflow == 0,
            f"SDF list drops: {r2.list_overflow}")
     n_lights = int(r2.scene.num_lights)
-    want_launch = {"raster_tiles": 3, "raster_ranged": 0,
-                   # bake: one shadow march; per frame one shadow march
-                   # (all lights in one ray set) and one GI march
-                   "march_rays": (1 if n_lights else 0) + 3 * 2,
-                   "bvh_traverse": 0}
+    # bake: one shadow march; per frame one shadow march (all lights in
+    # one ray set) and one GI march
+    want_launch = _launches(raster_tiles=3,
+                            march_rays=(1 if n_lights else 0) + 3 * 2)
     _check(launches == want_launch,
            f"launch counts {launches}, expected {want_launch}")
     print(f"main path: SDF build + bake {r2.last_build_ms:.1f} ms (host "
@@ -717,8 +964,7 @@ def main() -> int:
     torch.cuda.synchronize()
     ranged_ms = start.elapsed_time(stop)
     launches = _counts()
-    want_launch = {"raster_tiles": 0, "raster_ranged": 1, "march_rays": 2,
-                   "bvh_traverse": 0}
+    want_launch = _launches(raster_ranged=1, march_rays=2)
     _check(launches == want_launch,
            f"ranged frame: launch counts {launches}, expected {want_launch}")
     kernels["raster_ranged"]["launches"] = launches["raster_ranged"]
@@ -746,8 +992,7 @@ def main() -> int:
     torch.cuda.synchronize()
     bvh_ms = start.elapsed_time(stop)
     launches = _counts()
-    want_launch = {"raster_tiles": 0, "raster_ranged": 0, "march_rays": 2,
-                   "bvh_traverse": 1}
+    want_launch = _launches(march_rays=2, bvh_traverse=1)
     _check(launches == want_launch,
            f"BVH frame: launch counts {launches}, expected {want_launch}")
     kernels["bvh_traverse"]["launches"] = launches["bvh_traverse"]
@@ -784,9 +1029,9 @@ def main() -> int:
         rasterize.rasterize_binned = real_binned
         rasterize.rasterize_sorted = real_sorted
     launches = _counts()
-    want_launch = {"raster_tiles": 1, "raster_ranged": 0,
-                   "march_rays": (1 if int(ra.scene.num_lights) else 0) + 2,
-                   "bvh_traverse": 0}
+    want_launch = _launches(
+        raster_tiles=1,
+        march_rays=(1 if int(ra.scene.num_lights) else 0) + 2)
     _check(tiers_run == ["binned"], f"app frame ran the tiers {tiers_run}")
     _check(launches == want_launch,
            f"app frame: launch counts {launches}, expected {want_launch}")
@@ -854,6 +1099,9 @@ def main() -> int:
     _check(same >= 0.99, f"direct-only frames: raster and BVH ids agree on "
            f"{same:.4f} of pixels")
     del rd, direct
+
+    # -- 15-17. the work-list kernels at their tools' shapes --------------
+    _worklist(dev, card, kernels)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

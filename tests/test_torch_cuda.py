@@ -4,9 +4,10 @@ machine without JAX run them without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
-Each builds the stage with the port itself, runs one kernel (raster_tiles,
-raster_ranged, march_rays, bvh_traverse) on CUDA tensors and its plain
-version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
+Each builds the stage (or the work list) with the port itself, runs one
+kernel (raster_tiles, raster_ranged, march_rays, bvh_traverse, and the
+work-list kernels template_walk, setup_walk, grouped_step) on CUDA tensors
+and its plain version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
 versions' operation order, so every output agrees bit for bit.  On a host
 without a card every test skips.
 """
@@ -168,3 +169,152 @@ def test_bvh_traverse_matches_plain_version(rays):
     assert (got[1] >= 0).any()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _cuda_tensors(*xs):
+    return tuple(torch.as_tensor(np.array(x), device="cuda") for x in xs)
+
+
+def _triangle_templates(rng, n_chunks, tc, rows, tiles=30):
+    """Chunks of screen triangles around the first ``tiles`` tiles of the
+    tools' grid (15 a row, 128 x ``rows`` pixels), integer slot ids: most
+    pixels covered, many overlaps."""
+    from vri_tpu_torch.ops import worklist
+
+    n = n_chunks * tc
+    t = rng.integers(0, tiles, n)
+    tri = worklist.triangles_near(rng, (t % 15) * 128, (t // 15) * rows,
+                                  128, rows)
+    return worklist.templates_from_triangles(
+        tri, rng.integers(0, 1 << 20, n), tc)
+
+
+@pytest.mark.parametrize("mode", [
+    ("f32", True, False, 1024, 128), ("f32", False, False, 1024, 128),
+    ("bf16x2", True, False, 1024, 128), ("bf16x2", True, False, 2048, 256),
+    ("bf16x2", True, False, 4096, 128), ("bf16x2", True, True, 1024, 128),
+    ("bf16x2", True, True, 2048, 256), ("bf16x3", True, True, 1024, 128),
+    ("k6", True, True, 1024, 128)])
+@pytest.mark.parametrize("kind", ["draws", "triangles"])
+def test_template_walk_matches_plain_version(mode, kind):
+    """Kernel ``template_walk`` in each of the tools' modes, on the tools'
+    draws and on triangle templates over 30 tiles."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    evaluation, translate, packed, p, tc = mode
+    wt, wc, fl, chunks = worklist.steps_inputs(400, tc=tc, num_tiles=30,
+                                               num_chunks=64, seed=2)
+    if kind == "triangles":
+        chunks = _triangle_templates(np.random.default_rng(3), 64, tc,
+                                     p // 128)
+    args = _cuda_tensors(wt, wc, fl, chunks)
+    kw = dict(num_tiles=32, p=p, evaluation=evaluation, translate=translate,
+              packed=packed,
+              chunks_k6=worklist.k6_operand(args[3])
+              if evaluation == "k6" else None)
+    got = worklist.template_walk(*args, **kw)
+    torch.cuda.synchronize()
+    want = worklist.template_walk_reference(*args, **kw)
+    if kind == "triangles":
+        assert (got[1][:30] >= 0).float().mean() > 0.5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", [0, 3])
+def test_setup_walk_matches_plain_version(variant):
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    args = _cuda_tensors(*worklist.pass1_inputs(nt=60, wcap=160,
+                                                nchunks=100))
+    got = worklist.setup_walk(*args, num_tiles=60, variant=variant)
+    torch.cuda.synchronize()
+    want = worklist.setup_walk_reference(*args, num_tiles=60,
+                                         variant=variant)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_walks_skip_broken_runs_on_card():
+    """A run that a first flag breaks before its last flag, or that never
+    closes, is never written: kernels and plain versions agree."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    wt, wc, fl, _ = worklist.steps_inputs(400, num_tiles=30, num_chunks=64,
+                                          seed=6)
+    chunks = _triangle_templates(np.random.default_rng(7), 64, 128, 8)
+    fl = fl.copy()
+    lasts = np.flatnonzero(fl & worklist.LAST)
+    fl[lasts[::3]] &= ~worklist.LAST
+    inner = np.flatnonzero((fl & (worklist.FIRST | worklist.LAST)) == 0)
+    fl[inner[::4]] |= worklist.FIRST
+    args = _cuda_tensors(wt, wc, fl, chunks)
+    starts, _ = worklist.work_runs(args[2])
+    assert 0 < starts.numel() < int((args[2] & worklist.FIRST).ne(0).sum())
+    for packed in (False, True):
+        kw = dict(num_tiles=30, evaluation="bf16x2", packed=packed)
+        got = worklist.template_walk(*args, **kw)
+        torch.cuda.synchronize()
+        want = worklist.template_walk_reference(*args, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    swt, swc, sfl, sch = worklist.pass1_inputs(nt=60, wcap=160, nchunks=100)
+    sfl = sfl.copy()
+    sfl[np.flatnonzero(sfl & worklist.LAST)[::3]] &= ~worklist.LAST
+    sargs = _cuda_tensors(swt, swc, sfl, sch)
+    got = worklist.setup_walk(*sargs, num_tiles=60)
+    torch.cuda.synchronize()
+    want = worklist.setup_walk_reference(*sargs, num_tiles=60)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_timing_only_variants_launch():
+    """The ladders' timing-only rungs build, launch and leave the
+    unwritten rows at the miss values."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    args = _cuda_tensors(*worklist.steps_inputs(200, num_tiles=30,
+                                                num_chunks=16))
+    for stage in range(5):
+        z, _ = worklist.template_walk(*args, num_tiles=30,
+                                      evaluation="bf16x3", packed=True,
+                                      stage=stage)
+        assert z.shape == (30, 1024)
+    sargs = _cuda_tensors(*worklist.pass1_inputs(nt=30, wcap=80,
+                                                 nchunks=64))
+    for v in (1, 2):
+        z, pos = worklist.setup_walk(*sargs, num_tiles=30, variant=v)
+        torch.cuda.synchronize()
+        assert (z == worklist.MISS_Z).all() and (pos == -1).all()
+
+
+@pytest.mark.parametrize("w", [8, 16, 32, 64])
+@pytest.mark.parametrize("kind", ["draws", "triangles"])
+def test_grouped_step_matches_plain_version(w, kind):
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    wc, chunks = worklist.grouped_inputs(96, num_chunks=64, seed=4)
+    if kind == "triangles":
+        chunks = _triangle_templates(np.random.default_rng(5), 64, 128, 8,
+                                     tiles=1)
+        # the constant at the tile origin (0, 0), as the grouped prep bakes
+        chunks[:, 2] = chunks[:, 2] - chunks[:, 0] * chunks[:, 3] \
+            - chunks[:, 1] * chunks[:, 4]
+    args = _cuda_tensors(wc, chunks)
+    got = worklist.grouped_step(*args, w=w)
+    torch.cuda.synchronize()
+    want = worklist.grouped_step_reference(*args, w=w)
+    for g, wv in zip(got, want):
+        assert torch.equal(g, wv)

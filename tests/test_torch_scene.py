@@ -107,6 +107,9 @@ sys.modules["vri_tpu"] = None
 import numpy as np
 from vri_tpu_torch import RenderConfig, SDFConfig, scenes
 from vri_tpu_torch.renderer import Renderer
+from vri_tpu_torch.ops import worklist
+from vri_tpu_torch.tools import (micro_attrib, micro_grouped, micro_pass1,
+                                 micro_steps, micro_worklist, prof_worklist)
 cfg = SDFConfig(num_cascades=2, cascade_resolution=16, max_bricks=4096,
                 base_voxel_size=0.15, truncation_voxels=1.0,
                 max_triangles_per_brick=16, approx_occlusion=True)
@@ -116,6 +119,11 @@ for kw in ({"gi": True}, {"gi": True, "backend": "bvh"}, {"gi": False}):
     out = r.render(**kw)
     assert np.isfinite(out["color"]).all()
     assert (out["instance_id"] >= 0).mean() > 0.9
+import torch
+wl = [torch.as_tensor(x) for x in worklist.steps_inputs(8, num_tiles=4,
+                                                       num_chunks=2)]
+z, slot = worklist.template_walk(*wl, num_tiles=4, packed=True)
+assert z.shape == (4, 1024) and slot.dtype == torch.int32
 loaded = [m for m, v in sys.modules.items() if v is not None]
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
                for m in loaded)

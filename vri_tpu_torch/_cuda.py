@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "march_rays.cu",
-           "bvh_traverse.cu")
+           "bvh_traverse.cu", "worklist.cu", "worklist_grouped.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,6 +44,13 @@ _ENTRIES = {
     "vri_bvh_traverse": ("bvh_traverse.cu",
                          [_P, _P, _P, _I, _P, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P]),
+    "vri_worklist_walk": ("worklist.cu",
+                          [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                           _P, _P, _P]),
+    "vri_worklist_setup": ("worklist.cu",
+                           [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P]),
+    "vri_worklist_grouped": ("worklist_grouped.cu",
+                             [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
 }
 
 _lib = None
