@@ -16,7 +16,9 @@ before the port is imported, so any import of either is fatal.  Phases
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
    process per source, all at once;
 3. kernel R (``raster_tiles``) against its plain PyTorch version on the
-   frame's real tile lists: slots, z, u and v bit-equal;
+   frame's real tile lists: slots, z, u and v bit-equal; the lists'
+   length distribution (mean, p50, p99, longest, the pairs' share in the
+   longest 1% of tiles);
 4. kernel K6 (``raster_ranged``) against its plain version on the same
    frame's chunks: slots, z, u and v bit-equal; both times;
 5. tiers on the card: on the kitchen at 1080p the sorted and ranged tiers
@@ -28,6 +30,9 @@ before the port is imported, so any import of either is fatal.  Phases
    (tile, slot) pairs that overlap;
 6. kernel M (``march_rays``) against its plain version on the frame's real
    shadow and GI rays: t, hit voxel, iterations and activity exactly equal;
+   per ray set the steps' mean and maximum, the warp step efficiency of
+   one ray a lane in launch order (``march_kernel.warp_step_efficiency``)
+   and the persistent lanes and refills of the launch;
 7. main path: build the SDF cascades and render three frames with every
    launch counter reset first; checks zero raster overflow, zero SDF list
    drops, finite colour, >50% coverage, and that the counters account for
@@ -727,9 +732,12 @@ def main() -> int:
         library_ms=None,
         **_bound_raster_tiles(prep["coef"], prep["starts"], prep["counts"],
                               prep["cap"], got))
+    ls = rasterize.list_length_stats(prep["counts"], prep["cap"])
     print(f"raster_tiles: {int(prep['lists'].shape[0])} pairs over "
-          f"{int(prep['counts'].shape[0])} tiles (longest list "
-          f"{int(prep['counts'].max())}), equal to the plain version; "
+          f"{ls['tiles']} tiles; list lengths mean {ls['mean']:.2f}, p50 "
+          f"{ls['p50']:.1f}, p99 {ls['p99']:.1f}, longest {ls['max']}; the "
+          f"longest 1% of tiles hold {ls['top1_share']:.4f} of the pairs; "
+          f"equal to the plain version; "
           f"{kernels['raster_tiles']['ms']:.3f} ms vs plain "
           f"{kernels['raster_tiles']['plain_ms']:.1f} ms, bound "
           f"{kernels['raster_tiles']['bound_ms']:.4f} ms by "
@@ -880,9 +888,14 @@ def main() -> int:
             _time_ms(lambda: march_kernel.march_rays(*margs, **mkw), 10),
             _time_ms(lambda: march_kernel.march_rays_reference(
                 *margs, **mkw), 2))
-        print(f"march_rays ({label}): {margs[0].shape[1]} rays, "
-              f"{float((got[1] >= 0).float().mean()):.3f} hit, mean "
-              f"{float(got[2].float().mean()):.1f} steps, equal to the plain "
+        m = margs[0].shape[1]
+        eff, mean_it, max_it = march_kernel.warp_step_efficiency(got[2])
+        launched = march_kernel.persistent_lanes(int(meta.shape[1]), m)
+        print(f"march_rays ({label}): {m} rays, "
+              f"{float((got[1] >= 0).float().mean()):.3f} hit, steps mean "
+              f"{mean_it:.2f}, max {max_it}; warp step efficiency in launch "
+              f"order {eff:.4f}; {launched} persistent lanes, "
+              f"{max(m - launched, 0)} refills; equal to the plain "
               f"version; {m_times[label][0]:.3f} ms vs plain "
               f"{m_times[label][1]:.1f} ms [{card}]")
     kernels["march_rays"] = dict(

@@ -4,9 +4,10 @@ machine without JAX run them without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
-Each builds the stage (or the work list) with the port itself, runs one
-kernel (raster_tiles, raster_ranged, march_rays, bvh_traverse, and the
-work-list kernels template_walk, setup_walk, grouped_step) on CUDA tensors
+Each builds the stage (or the work list, or synthetic march tables) with
+the port itself, runs one kernel (raster_tiles, raster_ranged, march_rays,
+bvh_traverse, and the work-list kernels template_walk, setup_walk,
+grouped_step) on CUDA tensors
 and its plain version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
 versions' operation order, so every output agrees bit for bit.  On a host
 without a card every test skips.
@@ -123,6 +124,187 @@ def test_tiers_bit_equal_on_card(frame):
     for hit in (binned_hit, ranged_hit):
         for key in ("tri", "t", "u", "v"):
             assert torch.equal(getattr(hit, key), getattr(sorted_hit, key))
+
+
+def _synthetic_march(n_cas: int, r: int, m: int, seed: int, *,
+                     tmax=None):
+    """Kernel M's inputs without an SDF build: ``n_cas`` nested cascades
+    of r^3 voxels around the origin (voxel size 0.05 x 2^c), coarse
+    tables of random Chebyshev distances (one cell in ten on a surface,
+    the rest 1-3 cells away), fine words with a quarter of their bits
+    set, and ``m`` rays
+    in random directions from a box inside the coarsest cascade (at most
+    [-2, 2]^3), with ``tmax`` per ray or uniform in [0.1, 8]."""
+    rng = np.random.default_rng(seed)
+    vs = 0.05 * 2.0 ** np.arange(n_cas)
+    org = -0.5 * r * vs
+    meta = np.stack([vs, org, org, org]).astype(np.float32)
+    cd = np.where(rng.random((n_cas, 4096)) < 0.1, 0,
+                  rng.integers(1, 4, (n_cas, 4096)))
+    coarse = (cd.reshape(n_cas, 512, 8)
+              << (4 * np.arange(8))).sum(-1).astype(np.uint32)
+    coarse = coarse.view(np.int32).reshape(n_cas * 4, 128)
+
+    def words():
+        a, b = rng.integers(0, 1 << 32, (2, n_cas * 32, 128),
+                            dtype=np.uint64).astype(np.uint32)
+        return (a & b).view(np.int32)
+
+    fine0, fine1 = words(), words()
+    box = min(2.0, 0.4 * r * vs[-1])
+    o = rng.uniform(-box, box, (m, 3))
+    d = rng.normal(size=(m, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if tmax is None:
+        tmax = rng.uniform(0.1, 8.0, m)
+    rays = np.concatenate([o.T, d.T, np.stack([
+        np.full(m, 1e-3), tmax, np.zeros(m), np.full(m, 0.02)])])
+    return _cuda_tensors(rays.astype(np.float32), meta, coarse, fine0, fine1)
+
+
+def _march_equal(args, r: int, max_steps: int):
+    from vri_tpu_torch.ops import march_kernel
+
+    got = march_kernel.march_rays(*args, r=r, max_steps=max_steps)
+    torch.cuda.synchronize()
+    want = march_kernel.march_rays_reference(*args, r=r, max_steps=max_steps)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 31, 33, 257])
+def test_march_rays_ragged_counts(m):
+    """Fewer rays than a warp, a warp and one, a block and one, on six
+    cascades at r = 64: bit-equal, every ray written."""
+    _card()
+    got = _march_equal(_synthetic_march(6, 64, m, seed=m), 64, 40)
+    assert (got[2] > 0).all()
+
+
+def test_march_rays_rays_that_never_start():
+    """Rays with t0 >= tmax (every other one) end at once: t = t0, no hit,
+    no step, inactive."""
+    _card()
+    m = 1000
+    tmax = np.where(np.arange(m) % 2 == 0, 1e-3, 5.0)
+    args = _synthetic_march(6, 64, m, seed=11, tmax=tmax)
+    args[0][6, 1::4] = args[0][7, 1::4] + 1.0
+    got = _march_equal(args, 64, 40)
+    dead = (args[0][6] >= args[0][7])
+    assert dead.sum() > m // 2
+    assert (got[2][dead] == 0).all() and (got[3][dead] == 0).all()
+    assert torch.equal(got[0][dead], args[0][6][dead])
+
+
+@pytest.mark.parametrize("cascades", [(6, 64), (2, 32), (1, 16)])
+def test_march_rays_refills_mixed_lengths(cascades):
+    """More rays than the launch has lanes, very long and very short rays
+    alternating in every warp, so that lanes refill many times; six
+    cascades at r = 64 exercise the finest-first cascade search."""
+    from vri_tpu_torch.ops import march_kernel
+
+    _card()
+    n_cas, r = cascades
+    lanes = march_kernel.persistent_lanes(n_cas, 1 << 30)
+    m = 2 * lanes + 77
+    tmax = np.where(np.arange(m) % 2 == 0, 0.08, 12.0)
+    got = _march_equal(_synthetic_march(n_cas, r, m, seed=r, tmax=tmax), r,
+                       96)
+    assert march_kernel.persistent_lanes(n_cas, m) == lanes < m
+    it = got[2].reshape(-1)[: m - m % 32].reshape(-1, 32)
+    assert (it.max(1).values > it.min(1).values).float().mean() > 0.5
+
+
+def test_march_rays_one_step():
+    _card()
+    got = _march_equal(_synthetic_march(6, 64, 5000, seed=3), 64, 1)
+    assert (got[2] <= 1).all() and got[3].any()
+
+
+def test_raster_tiles_long_capped_and_empty_lists(frame):
+    """Kernel R on hand-made lists: each tile's own list plus random
+    slots (many lists longer than a 128-slot chunk), every seventh tile
+    empty, with no cap and with cap 150 (count > cap walks cap slots)."""
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    prep = rasterize.prepare_sorted(
+        world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
+        height=192, width=256, cull_sign=frame_mod._cull_sign(r.scene))
+    rng = np.random.default_rng(9)
+    lists = prep["lists"].cpu().numpy()
+    starts = prep["starts"].cpu().numpy()
+    counts = prep["counts"].cpu().numpy()
+    n_slots = prep["coef"].shape[0]
+    own, new_counts = [], []
+    for t in range(counts.shape[0]):
+        extra = rng.integers(0, n_slots, rng.choice([0, 60, 250, 700]))
+        ids = np.unique(np.concatenate(
+            [lists[starts[t]:starts[t] + counts[t]], extra]))
+        own.append(ids)
+        new_counts.append(0 if t % 7 == 3 else ids.shape[0])
+    sizes = np.array([x.shape[0] for x in own])
+    new_starts = np.concatenate([[0], np.cumsum(sizes)])
+    args = (prep["coef"],) + _cuda_tensors(
+        np.concatenate(own).astype(np.int32),
+        new_starts.astype(np.int32), np.array(new_counts, np.int32))
+    assert max(new_counts) > 2 * 128
+    for cap, covered in ((1 << 20, 0.5), (150, 0.1)):
+        kw = dict(num_tx=prep["num_tx"], cap=cap)
+        got = rasterize.raster_tiles(*args, **kw)
+        torch.cuda.synchronize()
+        want = rasterize.raster_tiles_reference(*args, **kw)
+        assert (got[1] >= 0).float().mean() > covered
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_raster_tiles_binned_lists(frame):
+    """Kernel R on the binned tier's lists (K5's walk)."""
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    prep = rasterize.prepare_binned(
+        world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
+        height=192, width=256, caps_scale=4,
+        cull_sign=frame_mod._cull_sign(r.scene))
+    args = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
+    kw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
+    got = rasterize.raster_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    want = rasterize.raster_tiles_reference(*args, **kw)
+    assert (got[1] >= 0).float().mean() > 0.5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (16, 64), (4, 256), (32, 32),
+                                   (2, 512)])
+def test_raster_tiles_other_tile_shapes(frame, shape):
+    """Tiles other than 8 x 128: a thread's pixels share a column when
+    the tile width divides the 256-thread block (1 x 128, 16 x 64,
+    4 x 256, 32 x 32), else each pixel has its own (2 x 512)."""
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    tile_h, tile_w = shape
+    prep = rasterize.prepare_sorted(
+        world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
+        height=192, width=256, tile_h=tile_h, tile_w=tile_w,
+        cull_sign=frame_mod._cull_sign(r.scene))
+    args = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
+    kw = dict(num_tx=prep["num_tx"], cap=prep["cap"], tile_h=tile_h,
+              tile_w=tile_w)
+    got = rasterize.raster_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    want = rasterize.raster_tiles_reference(*args, **kw)
+    assert (got[1] >= 0).float().mean() > 0.5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("rays", ["camera", "random"])

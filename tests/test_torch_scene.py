@@ -108,8 +108,9 @@ import numpy as np
 from vri_tpu_torch import RenderConfig, SDFConfig, scenes
 from vri_tpu_torch.renderer import Renderer
 from vri_tpu_torch.ops import worklist
-from vri_tpu_torch.tools import (micro_attrib, micro_grouped, micro_pass1,
-                                 micro_steps, micro_worklist, prof_worklist)
+from vri_tpu_torch.tools import (kernel_turns, micro_attrib, micro_grouped,
+                                 micro_pass1, micro_steps, micro_worklist,
+                                 prof_worklist)
 cfg = SDFConfig(num_cascades=2, cascade_resolution=16, max_bricks=4096,
                 base_voxel_size=0.15, truncation_voxels=1.0,
                 max_triangles_per_brick=16, approx_occlusion=True)

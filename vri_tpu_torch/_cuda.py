@@ -40,7 +40,8 @@ _ENTRIES = {
                            _P, _P, _P, _P, _P]),
     "vri_march_rays": ("march_rays.cu",
                        [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I,
-                        _P, _P, _P, _P, _P]),
+                        _P, _P, _P, _P, _P, _P]),
+    "vri_march_lanes": ("march_rays.cu", [_I, _I]),
     "vri_bvh_traverse": ("bvh_traverse.cu",
                          [_P, _P, _P, _I, _P, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P]),

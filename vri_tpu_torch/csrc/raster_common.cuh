@@ -1,6 +1,6 @@
-// Per-(pixel, slot) math shared by the raster kernels (raster_tiles.cu,
-// raster_ranged.cu).  Every tier evaluates a pixel against a slot with
-// these functions, so a pixel sees bit-identical depth keys and (u, v)
+// Per-slot terms and per-(pixel, slot) math shared by the raster kernels
+// (raster_tiles.cu, raster_ranged.cu).  Every tier evaluates a pixel
+// against a slot with these functions, so a pixel sees bit-identical depth keys and (u, v)
 // whichever tier walks it; the plain PyTorch versions in
 // vri_tpu_torch/ops/rasterize.py (_edge, _covers, _field) follow the same
 // operation order.  The library is built with -fmad=false, so every
@@ -18,56 +18,71 @@ namespace vri {
 constexpr int kCoef = 24;
 constexpr int kMissKey = 0x40000000;  // bit pattern of 2.0f
 
-// Loads from the read-only data cache (device-memory slot tables).
-struct GlobalLoad {
-  __device__ __forceinline__ static float at(const float* p, int i) {
-    return __ldg(p + i);
-  }
+// A slot's pixel-independent terms.  Per edge, its endpoints in
+// canonical (x, then y) order -- bit-identical for both triangles of an
+// edge, so a pixel center on a shared edge is never lost to rounding --
+// as (x0, y0, x1 - x0, y1 - y0), and the area sign, negated where the
+// endpoints were swapped; the slot frame's origin and its depth field.
+struct Slot {
+  float4 e0, e1, e2;  // per edge: x0, y0, x1 - x0, y1 - y0
+  float4 sg;          // per edge: signed area sign; w: frame origin x
+  float4 depth;       // x: frame origin y; y, z, w: depth a, b, c
 };
 
-// Plain loads (slot rows staged in shared memory).
-struct PlainLoad {
-  __device__ __forceinline__ static float at(const float* p, int i) {
-    return p[i];
-  }
-};
-
-// cross(B - A, P - A) with the endpoints in canonical (x, then y) order
-// and the sign restored: bit-identical for both triangles of an edge, so
-// a pixel center on a shared edge is never lost to rounding.
-__device__ __forceinline__ float edge(float ax, float ay, float bx, float by,
-                                      float px, float py) {
+__device__ __forceinline__ float4 canonical_edge(float ax, float ay,
+                                                 float bx, float by,
+                                                 float sign, float* sg) {
   const bool swap = bx < ax || (bx == ax && by < ay);
   const float x0 = swap ? bx : ax, y0 = swap ? by : ay;
   const float x1 = swap ? ax : bx, y1 = swap ? ay : by;
-  const float e = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0);
-  return swap ? -e : e;
+  *sg = swap ? -sign : sign;
+  return make_float4(x0, y0, x1 - x0, y1 - y0);
+}
+
+// The pixel-independent terms of slot record c (read through the
+// read-only data cache).
+__device__ __forceinline__ Slot make_slot(const float* c) {
+  const float x0 = __ldg(c), y0 = __ldg(c + 1), x1 = __ldg(c + 2),
+              y1 = __ldg(c + 3), x2 = __ldg(c + 4), y2 = __ldg(c + 5);
+  const float sign = __ldg(c + 6);
+  Slot s;
+  s.e0 = canonical_edge(x0, y0, x1, y1, sign, &s.sg.x);
+  s.e1 = canonical_edge(x1, y1, x2, y2, sign, &s.sg.y);
+  s.e2 = canonical_edge(x2, y2, x0, y0, sign, &s.sg.z);
+  s.sg.w = __ldg(c + 20);
+  s.depth = make_float4(__ldg(c + 21), __ldg(c + 8), __ldg(c + 9),
+                        __ldg(c + 10));
+  return s;
+}
+
+// The edge test at global pixel center (gx, gy): the edge function
+// (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0) times the area sign is
+// >= 0.  Negating the sign where the endpoints were swapped, instead of
+// the edge function, rounds alike: (-e) * s and e * (-s) are one value.
+__device__ __forceinline__ bool edge_in(const float4& e, float sg, float gx,
+                                        float gy) {
+  return (e.z * (gy - e.y) - e.w * (gx - e.x)) * sg >= 0.0f;
+}
+
+// Depth key of slot s at global pixel center (gx, gy): z (the depth field
+// at the center's offset from the slot frame's origin) with its 7 low
+// mantissa bits cleared where the center passes the three edge tests and
+// 0 <= z <= 1, kMissKey elsewhere.
+__device__ __forceinline__ int slot_key(const Slot& s, float gx, float gy) {
+  const float lx = gx - s.sg.w;
+  const float ly = gy - s.depth.x;
+  const float z = (s.depth.y * lx + s.depth.z * ly) + s.depth.w;
+  const bool ok = edge_in(s.e0, s.sg.x, gx, gy) &&
+                  edge_in(s.e1, s.sg.y, gx, gy) &&
+                  edge_in(s.e2, s.sg.z, gx, gy) && z >= 0.0f && z <= 1.0f;
+  return __float_as_int(ok ? z : 2.0f) & ~127;
 }
 
 // Affine field (a*lx + b*ly) + c of the triple at column k, at the pixel
 // center's offset (lx, ly) from the slot frame's origin.
-template <class L>
 __device__ __forceinline__ float field(const float* c, int k, float lx,
                                        float ly) {
-  return (L::at(c, k) * lx + L::at(c, k + 1) * ly) + L::at(c, k + 2);
-}
-
-// Depth key of slot record c at global pixel center (gx, gy): z with its
-// 7 low mantissa bits cleared where the center passes the three edge
-// tests and 0 <= z <= 1, kMissKey elsewhere.
-template <class L>
-__device__ __forceinline__ int slot_key(const float* c, float gx, float gy) {
-  const float lx = gx - L::at(c, 20);
-  const float ly = gy - L::at(c, 21);
-  const float z = field<L>(c, 8, lx, ly);
-  const float x0 = L::at(c, 0), y0 = L::at(c, 1), x1 = L::at(c, 2),
-              y1 = L::at(c, 3), x2 = L::at(c, 4), y2 = L::at(c, 5);
-  const float sg = L::at(c, 6);
-  const bool ok = edge(x0, y0, x1, y1, gx, gy) * sg >= 0.0f &&
-                  edge(x1, y1, x2, y2, gx, gy) * sg >= 0.0f &&
-                  edge(x2, y2, x0, y0, gx, gy) * sg >= 0.0f && z >= 0.0f &&
-                  z <= 1.0f;
-  return __float_as_int(ok ? z : 2.0f) & ~127;
+  return (__ldg(c + k) * lx + __ldg(c + k + 1) * ly) + __ldg(c + k + 2);
 }
 
 // The winner's perspective-correct source barycentrics at (gx, gy) from
@@ -76,9 +91,9 @@ __device__ __forceinline__ void slot_uv(const float* c, float gx, float gy,
                                         float* u, float* v) {
   const float lx = gx - __ldg(c + 20);
   const float ly = gy - __ldg(c + 21);
-  const float un = field<GlobalLoad>(c, 11, lx, ly);
-  const float vn = field<GlobalLoad>(c, 14, lx, ly);
-  const float dn = field<GlobalLoad>(c, 17, lx, ly);
+  const float un = field(c, 11, lx, ly);
+  const float vn = field(c, 14, lx, ly);
+  const float dn = field(c, 17, lx, ly);
   const float rcp = 1.0f / (fabsf(dn) > 1e-20f ? dn : 1.0f);
   *u = un * rcp;
   *v = vn * rcp;

@@ -13,13 +13,13 @@
 // Layout: one thread block per tile_h x tile_w tile, one thread per
 // pixel.  The block walks the global chunks, then the tile's local
 // range, and skips a chunk whose overlap bit is clear (the test is
-// uniform over the block).  Each live chunk's 128 slot records are
-// staged in shared memory (128 x 24 floats, 12 KB), one cooperative load,
-// then every thread tests its pixel against the 128 slots with the same
-// device functions as kernel R (raster_common.cuh): canonical edge
-// functions and the depth field at the pixel's offset from the slot's
-// on-screen origin.  A pixel therefore sees bit-identical keys in every
-// tier.
+// uniform over the block).  For each live chunk, 128 threads stage one
+// slot's pixel-independent terms each in shared memory (10 KB; kernel R's
+// raster_common.cuh:make_slot: canonical edges, frame origin, depth
+// field), then every thread tests its pixel against the 128 slots with
+// kernel R's slot_key: canonical edge functions and the depth field at
+// the pixel's offset from the slot's on-screen origin.  A pixel therefore
+// sees bit-identical keys in every tier.
 //
 // Winner rule: minimum of (z with its 7 low mantissa bits cleared, slot
 // index in setup order) -- kernel R's rule, keyed on the setup index
@@ -30,8 +30,8 @@
 // lowest Morton index, so its winner among coplanar slots depends on the
 // sort; the port's does not, and equals the sorted and binned tiers'.
 //
-// Bound on the H100: per live (tile, chunk) pair the block loads 12 KB
-// (coalesced rows through the read-only cache) and runs 128 x 1024
+// Bound on the H100: per live (tile, chunk) pair the block reads 128 slot
+// records (through the read-only cache) and runs 128 x 1024
 // (pixel, slot) tests of ~30 FP32 operations from shared-memory
 // broadcasts, so the walk is compute-bound on the tests of overlapping
 // chunks; the overlap bits keep it from walking the rest.  Every step is
@@ -42,10 +42,9 @@
 
 namespace {
 
-using vri::GlobalLoad;
 using vri::kCoef;
 using vri::kMissKey;
-using vri::PlainLoad;
+using vri::Slot;
 
 constexpr int kChunk = 128;
 
@@ -60,7 +59,8 @@ __global__ void __launch_bounds__(1024)
                          int* __restrict__ slot_out,
                          float* __restrict__ u_out,
                          float* __restrict__ v_out) {
-  __shared__ float s_coef[kChunk * kCoef];
+  __shared__ float4 s_e0[kChunk], s_e1[kChunk], s_e2[kChunk], s_sg[kChunk],
+      s_depth[kChunk];
   __shared__ int s_sid[kChunk];
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -79,17 +79,22 @@ __global__ void __launch_bounds__(1024)
   for (int k = 0; k < steps; ++k) {
     const int c = k < n_global ? k : lo + (k - n_global);
     if (!((__ldg(tile_words + (c >> 5)) >> (c & 31)) & 1u)) continue;
-    __syncthreads();  // the previous chunk's rows are read
+    __syncthreads();  // the previous chunk's slots are read
     const int* chunk = order + (size_t)c * kChunk;
-    for (int e = p; e < kChunk * kCoef; e += nthreads) {
-      const int j = e / kCoef;
+    for (int j = p; j < kChunk; j += nthreads) {
       const int sid = __ldg(chunk + j);
-      s_coef[e] = __ldg(coef + (size_t)sid * kCoef + (e - j * kCoef));
+      const Slot s = vri::make_slot(coef + (size_t)sid * kCoef);
+      s_e0[j] = s.e0;
+      s_e1[j] = s.e1;
+      s_e2[j] = s.e2;
+      s_sg[j] = s.sg;
+      s_depth[j] = s.depth;
+      s_sid[j] = sid;
     }
-    for (int j = p; j < kChunk; j += nthreads) s_sid[j] = __ldg(chunk + j);
     __syncthreads();
     for (int j = 0; j < kChunk; ++j) {
-      const int key = vri::slot_key<PlainLoad>(s_coef + j * kCoef, gx, gy);
+      const int key = vri::slot_key(
+          Slot{s_e0[j], s_e1[j], s_e2[j], s_sg[j], s_depth[j]}, gx, gy);
       const int sid = s_sid[j];
       if (key < best || (key == best && key != kMissKey && sid < best_sid)) {
         best = key;

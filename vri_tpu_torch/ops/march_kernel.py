@@ -5,9 +5,10 @@ Rays march through the per-cascade 16^3 coarse cell grid (4-bit
 Chebyshev distances in cell units) and, inside surface cells, test
 per-voxel surface bits -- the tables ``sdf.build_march_tables`` packs.
 One march serves the contracts of both ``march`` and ``march_stream`` of
-the JAX package: their kernels give the same result per ray, and on the
-GPU one thread marches one ray (``csrc/march_rays.cu``), so neither the
-lock-step blocks nor the persistent-lane queues carry over.
+the JAX package: their kernels give the same result per ray.  On the GPU
+(``csrc/march_rays.cu``) persistent warps march one ray a lane and
+refill a lane from a global ray counter when its ray ends -- K3's
+persistent-lane queues, written for a warp.
 
 ``march_rays`` is the kernel's wrapper: it launches the CUDA kernel for
 CUDA tensors and runs ``march_rays_reference``, the plain PyTorch version
@@ -177,18 +178,49 @@ def march_rays(rays: torch.Tensor, meta: torch.Tensor, coarse: torch.Tensor,
     hv = torch.empty((m,), dtype=torch.int32, device=rays.device)
     it = torch.empty((m,), dtype=torch.int32, device=rays.device)
     act = torch.empty((m,), dtype=torch.int32, device=rays.device)
+    # the persistent lanes' next-ray counter
+    counter = torch.zeros((1,), dtype=torch.int32, device=rays.device)
     lib = _cuda.library()
     code = lib.vri_march_rays(
         rays.data_ptr(), m, meta.data_ptr(), n_cas, r, _log2s(r),
         coarse.data_ptr(), fine0.data_ptr(), fine1.data_ptr(), max_steps,
         t.data_ptr(), hv.data_ptr(), it.data_ptr(), act.data_ptr(),
-        _cuda.stream_ptr(rays))
+        counter.data_ptr(), _cuda.stream_ptr(rays))
     _cuda.check(code, "march_rays")
     march_rays.launches += 1
     return t, hv, it, act
 
 
 march_rays.launches = 0
+
+
+def persistent_lanes(n_cas: int, m: int) -> int:
+    """Lanes of a ``march_rays`` launch over ``m`` rays at ``n_cas``
+    cascades on the current card: as many 256-lane blocks as fit the card
+    at once, or fewer when ``m`` rays need fewer.  Every ray past them is
+    taken by a refill."""
+    lanes = _cuda.library().vri_march_lanes(n_cas, m)
+    if lanes < 0:
+        raise RuntimeError("march_rays: the occupancy query failed")
+    return lanes
+
+
+def warp_step_efficiency(it: torch.Tensor, warp: int = 32):
+    """Divergence of a march with one ray a lane: the iteration counts
+    ``it`` grouped in launch order, ``warp`` rays a warp (the last warp's
+    idle lanes count as idle slots).  Returns (sum of it / sum over warps
+    of warp x max it, mean it, max it): the share of warp-steps that did
+    work, which a march that refills finished lanes can recover."""
+    it = it.reshape(-1).to(torch.int64)
+    m = it.shape[0]
+    if m == 0:
+        return 1.0, 0.0, 0
+    pad = torch.zeros(((m + warp - 1) // warp * warp - m,),
+                      dtype=torch.int64, device=it.device)
+    per_warp = torch.cat([it, pad]).reshape(-1, warp).max(dim=1).values
+    slots = float(per_warp.sum()) * warp
+    total = float(it.sum())
+    return (total / slots if slots else 1.0, total / m, int(it.max()))
 
 
 def finest_voxel_size(sdf: SDFCascades, points: torch.Tensor,

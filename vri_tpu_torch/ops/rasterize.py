@@ -322,6 +322,26 @@ def raster_tiles_reference(coef, lists, starts, counts, *, num_tx: int,
     return _resolve_winners(coef, best >> 32, slot, gx[:, 0], gy[:, 0])
 
 
+def list_length_stats(counts: torch.Tensor, cap: int) -> dict:
+    """Distribution of the tile lists a ``raster_tiles`` launch walks,
+    min(count, cap) slots a tile: mean, median (``p50``), 99th percentile
+    (``p99``, linear interpolation, as ``numpy.percentile``) and longest
+    length, and ``top1_share``, the share of the walked (tile, slot)
+    pairs that lie in the longest 1% of tiles (at least one tile)."""
+    n = torch.clamp(counts.reshape(-1).long(), max=cap).sort().values
+    tiles = n.shape[0]
+    if tiles == 0:
+        return dict(tiles=0, pairs=0, mean=0.0, p50=0.0, p99=0.0, max=0,
+                    top1_share=0.0)
+    nd = n.double()
+    pairs = int(n.sum())
+    top = n[tiles - max(1, -(-tiles // 100)):]
+    return dict(tiles=tiles, pairs=pairs, mean=float(nd.mean()),
+                p50=float(torch.quantile(nd, 0.5)),
+                p99=float(torch.quantile(nd, 0.99)), max=int(n[-1]),
+                top1_share=float(top.sum()) / pairs if pairs else 0.0)
+
+
 def _check_tiles(name, coef, ints, T, tile_h, tile_w):
     if coef.dtype != torch.float32 or coef.dim() != 2 \
             or coef.shape[1] != _NCOEF:
