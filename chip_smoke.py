@@ -20,7 +20,9 @@ before the port is imported, so any import of either is fatal.  Phases
    length distribution (mean, p50, p99, longest, the pairs' share in the
    longest 1% of tiles);
 4. kernel K6 (``raster_ranged``) against its plain version on the same
-   frame's chunks: slots, z, u and v bit-equal; both times;
+   frame's chunks: slots, z, u, v and each tile's tested (tile, slot)
+   pairs bit-equal, the pairs equal per tile to the sorted prep's lists
+   (K6 culls each slot to its tile span); both times;
 5. tiers on the card: on the kitchen at 1080p the sorted and ranged tiers
    give bit-equal ``HitRecord`` tri, t, u and v; on ``kitchen_stress(256,
    tess=1)`` at 512x512 (the binned tier's shape) the sorted, binned and
@@ -57,7 +59,8 @@ before the port is imported, so any import of either is fatal.  Phases
     stage (LBVH of 8,192 leaves): the 1920x1080 camera rays and 2^18
     random rays with per-ray t_max; t, slot, u, v and the per-ray visit
     counts bit-equal; kernel and plain times, ``build_bvh`` time, node
-    pops and triangle tests per ray and the bound;
+    pops and triangle tests per ray, the launch's persistent lanes and
+    refills, and the bound;
 13. the BVH GI frame: ``render(gi=True, backend="bvh")`` on phase 7's
     renderer (no second SDF build) with phase 8's GI uniforms, counters
     reset first: exactly one ``bvh_traverse`` launch, two ``march_rays``
@@ -194,9 +197,10 @@ def _nbytes(*tensors) -> int:
 # 2); the winner's (u, v) per covered pixel (three fields 12, offsets 2,
 # guard and reciprocal 2, two products); one march step of march_rays.cu
 # (position 6, cascade search 12 per cascade, six axis exits 36, minima 8,
-# advance 10); one node pop of bvh_traverse.cu (slab test 25) and one
-# triangle test (Moller-Trumbore 54).  Push-time child tests are not
-# counted, so the bvh count is a lower bound.
+# advance 10); one node pop of bvh_traverse.cu (one slab test, 25: the
+# popped node's, which the kernel runs when the node is pushed) and one
+# triangle test (Moller-Trumbore 54).  Tests of children that miss and
+# are never pushed are not counted, so the bvh count is a lower bound.
 OPS_SLOT_TEST = 35
 OPS_UV = 18
 OPS_MARCH_STEP = 60
@@ -584,33 +588,17 @@ def _bvh_kernel(r, h: int, w: int, card: str) -> dict:
     2^18 random rays with per-ray t_max."""
     import torch
 
-    from vri_tpu_torch.ops import bvh, raygen
-    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.ops import bvh
     from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.tools import bvh_ray_sets
 
-    dev = r.device
     scene = r.scene
     world = bake_world(scene)
     accel = bvh.build_bvh(world, scene.tri_vertices, scene.num_faces)
     build_ms = _time_ms(lambda: bvh.build_bvh(world, scene.tri_vertices,
                                               scene.num_faces), 5)
     nodes, tris = accel.nodes, accel.tris
-    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
-    o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
-    ni = max(int(scene.num_instances), 1)
-    lo = scene.instance_aabb_lo[:ni].min(0).values.cpu().numpy()
-    hi = scene.instance_aabb_hi[:ni].max(0).values.cpu().numpy()
-    rng = np.random.default_rng(12)
-    m = 1 << 18
-    dv = rng.normal(size=(m, 3))
-    ray_sets = {
-        "camera": (o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
-                   torch.full((h * w,), 3.0e38, device=dev)),
-        "random": tuple(torch.as_tensor(a.astype(np.float32), device=dev)
-                        for a in (
-            rng.uniform(lo, hi, (m, 3)),
-            dv / np.linalg.norm(dv, axis=-1, keepdims=True),
-            rng.uniform(0.05, float(np.abs(hi - lo).max()), m)))}
+    ray_sets = bvh_ray_sets(r, h, w)
     kw = dict(num_leaves=accel.num_leaves, leaf_size=accel.leaf_size)
     entry = None
     for label, rays in ray_sets.items():
@@ -632,10 +620,14 @@ def _bvh_kernel(r, h: int, w: int, card: str) -> dict:
         ms = _time_ms(lambda: bvh.bvh_traverse(*args, **kw), 10)
         b = _bound_bvh(args, got)
         vis = got[4].double().mean(0)
-        print(f"bvh_traverse ({label}): {rays[0].shape[0]} rays, "
+        n = rays[0].shape[0]
+        lanes = bvh.persistent_lanes(n)
+        print(f"bvh_traverse ({label}): {n} rays, "
               f"{float((got[1] >= 0).double().mean()):.3f} hit, mean "
               f"{float(vis[0]):.1f} node pops and {float(vis[1]):.1f} "
-              f"triangle tests per ray, t/slot/u/v/visits equal to the plain "
+              f"triangle tests per ray (longest walk {int(got[4][:, 0].max())}"
+              f" pops); {lanes} persistent lanes, {max(n - lanes, 0)} "
+              f"refills; t/slot/u/v/visits equal to the plain "
               f"version; {ms:.3f} ms vs plain {plain_ms:.1f} ms (CUDA "
               f"events, kernel mean of 10), bound {b['bound_ms']:.4f} ms by "
               f"{b['bound_by']} [{card}]")
@@ -750,30 +742,36 @@ def main() -> int:
         height=h, width=w, cull_sign=cull)
     kargs = (rprep["coef"], rprep["order"], rprep["ranges"], rprep["words"])
     kkw = dict(n_global=rprep["n_global"], num_tx=rprep["num_tx"])
-    got = rasterize.raster_ranged(*kargs, **kkw)
+    got = rasterize.raster_ranged(*kargs, **kkw, pairs=True)
     torch.cuda.synchronize()
-    want = rasterize.raster_ranged_reference(*kargs, **kkw)
-    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
+    want = rasterize.raster_ranged_reference(*kargs, **kkw, pairs=True)
+    for name, g, wv in zip(("z", "slot", "u", "v", "pairs"), got, want):
         _check(torch.equal(g, wv), f"raster_ranged {name} differs from the "
                "plain version")
+    _check(torch.equal(got[4], prep["counts"]),
+           "raster_ranged: the (tile, slot) pairs tested per tile differ "
+           "from the sorted prep's lists")
     kernels["raster_ranged"] = dict(
         route="cuda", source="vri_tpu_torch/csrc/raster_ranged.cu",
         replaces="vri_tpu/ops/rasterize.py:400",
         max_abs_err=max(float((g.float() - wv.float()).abs().max())
-                        for g, wv in zip(got, want)),
+                        for g, wv in zip(got[:4], want[:4])),
         ms=_time_ms(lambda: rasterize.raster_ranged(*kargs, **kkw), 10),
         plain_ms=_time_ms(lambda: rasterize.raster_ranged_reference(
             *kargs, **kkw), 1),
         library_ms=None,
-        **_bound_raster_ranged(rprep, prep["counts"], got))
+        **_bound_raster_ranged(rprep, prep["counts"], got[:4]))
     spans = (rprep["ranges"][:, 1] - rprep["ranges"][:, 0]).clamp(min=0)
     walked = _chunk_slots(rprep)
     needed = float(prep["counts"].double().sum())
+    tested = int(got[4].sum())
     print(f"raster_ranged: {int(rprep['order'].shape[0]) // 128} chunks, "
           f"{rprep['n_global']} global, local ranges up to "
           f"{int(spans.max())} chunks (mean {float(spans.float().mean()):.1f})"
-          f"; walks {walked:.0f} (tile, slot) pairs where {needed:.0f} "
-          f"overlap ({walked / needed:.1f}x); equal to the plain version; "
+          f"; its live chunks hold {walked:.0f} (tile, slot) pairs "
+          f"({walked / needed:.1f}x the {needed:.0f} that overlap); it tests "
+          f"{tested} after the cull, per tile the sorted prep's lists; "
+          f"equal to the plain version; "
           f"{kernels['raster_ranged']['ms']:.3f} ms vs plain "
           f"{kernels['raster_ranged']['plain_ms']:.1f} ms, bound "
           f"{kernels['raster_ranged']['bound_ms']:.4f} ms by "

@@ -204,6 +204,110 @@ def test_visits_count_the_walk(case):
           f"{float(tests.float().mean()):.1f} triangle tests per ray")
 
 
+def _walk_t_near(nodes, tris, o, d, t_max, first_leaf, leaf_size):
+    """One ray's walk as ``csrc/bvh_traverse.cu`` runs it, in numpy
+    float32 (each operation rounded, in the plain version's order): the
+    stack holds (node, t_near) from the parent's slab test of the child,
+    and a pop tests only t_near < best t; the root's full slab test is its
+    push (t_near NaN where it fails).  Returns (t, slot, u, v, pops,
+    tests)."""
+    f32 = np.float32
+    tiny = np.where(d < 0, f32(-1e-12), f32(1e-12))
+    inv = f32(1.0) / np.where(np.abs(d) < f32(1e-12), tiny, d)
+
+    def slab(node, best):
+        lo, hi = nodes[node, 0:3], nodes[node, 3:6]
+        with np.errstate(over="ignore"):    # empty boxes: +-3e38 slabs
+            t0, t1 = (lo - o) * inv, (hi - o) * inv
+        tmin = np.minimum(t0, t1).max()
+        tmax = np.maximum(t0, t1).min()
+        hit = lo[0] <= hi[0] and tmax >= max(tmin, f32(0.0)) and tmin < best
+        return hit, tmin
+
+    best, slot, bu, bv = f32(t_max), -1, f32(0.0), f32(0.0)
+    pops = tests = 0
+    hit, tn = slab(0, best)
+    stack = [(0, tn if hit else f32(np.nan))]
+    while stack:
+        node, tn = stack.pop()
+        pops += 1
+        if not tn < best:
+            continue
+        if node >= first_leaf:
+            s0 = (node - first_leaf) * leaf_size
+            row = tris[s0:s0 + leaf_size]
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = row[:, :9].T
+            dx, dy, dz = d
+            pvx, pvy, pvz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, \
+                dx * e2y - dy * e2x
+            det = (pvx * e1x + pvy * e1y) + pvz * e1z
+            ok = np.abs(det) > f32(1e-9)
+            rcp = np.where(ok, f32(1.0) / np.where(ok, det, f32(1.0)),
+                           f32(0.0))
+            tvx, tvy, tvz = o[0] - v0x, o[1] - v0y, o[2] - v0z
+            u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * rcp
+            qvx, qvy, qvz = tvy * e1z - tvz * e1y, tvz * e1x - tvx * e1z, \
+                tvx * e1y - tvy * e1x
+            v = ((qvx * dx + qvy * dy) + qvz * dz) * rcp
+            t = ((qvx * e2x + qvy * e2y) + qvz * e2z) * rcp
+            ok &= (u >= 0) & (v >= 0) & (u + v <= f32(1.0)) \
+                & (t > f32(1e-4)) & (t < best) & (row[:, 10] > f32(0.5))
+            t = np.where(ok, t, f32(3.0e38))
+            k = int(np.argmin(t))
+            tests += leaf_size
+            if t[k] < best:
+                best, slot, bu, bv = t[k], s0 + k, u[k], v[k]
+        else:
+            c0, c1 = 2 * node + 1, 2 * node + 2
+            h0, t0 = slab(c0, best)
+            h1, t1 = slab(c1, best)
+            swap = t1 < t0
+            for child, h, tc in (((c0, h0, t0), (c1, h1, t1)) if swap
+                                 else ((c1, h1, t1), (c0, h0, t0))):
+                if h:
+                    stack.append((child, tc))
+    return best, slot, bu, bv, pops, tests
+
+
+@pytest.mark.parametrize("t_max", ["none", "per_ray"])
+def test_t_near_stack_walk_equals_plain_version(t_max):
+    """The identity the kernel relies on: a walk that keeps each child's
+    t_near from its push and tests only t_near < best t at its pop gives
+    the plain version's t, slot, u, v and visit counts bit for bit, on
+    256 of the 48-object kitchen's camera rays and 256 random rays from
+    inside its room, with and without a per-ray t_max."""
+    s, world, o, d = _inputs("kitchen32", "camera")
+    _, tb = _builds(s, world)
+    rng = np.random.default_rng(4)
+    dv = rng.normal(size=(256, 3))
+    o = np.concatenate([o[::4], rng.uniform(-2, 2, (256, 3))]) \
+        .astype(np.float32)
+    d = np.concatenate([d[::4], dv / np.linalg.norm(dv, axis=-1,
+                                                    keepdims=True)]) \
+        .astype(np.float32)
+    n = o.shape[0]
+    tm = (np.full(n, 3.0e38, np.float32) if t_max == "none"
+          else rng.uniform(0.05, 3.0, n).astype(np.float32))
+    want = tbvh.bvh_traverse_reference(
+        tb.nodes, tb.tris, torch.as_tensor(o), torch.as_tensor(d),
+        torch.as_tensor(tm), num_leaves=tb.num_leaves,
+        leaf_size=tb.leaf_size)
+    nodes, tris = tb.nodes.numpy(), tb.tris.numpy()
+    got = [_walk_t_near(nodes, tris, o[i], d[i], tm[i], tb.num_leaves - 1,
+                        tb.leaf_size) for i in range(n)]
+    t, slot, u, v, pops, tests = (np.array(x) for x in zip(*got))
+    hit = want[1].numpy() >= 0
+    assert 0.1 < hit.mean() < 1.0
+    np.testing.assert_array_equal(t.astype(np.float32), want[0].numpy())
+    np.testing.assert_array_equal(slot.astype(np.int32), want[1].numpy())
+    np.testing.assert_array_equal(u.astype(np.float32), want[2].numpy())
+    np.testing.assert_array_equal(v.astype(np.float32), want[3].numpy())
+    np.testing.assert_array_equal(np.stack([pops, tests], 1),
+                                  want[4].numpy())
+    print(f"t_max {t_max}: {hit.mean():.3f} hit, mean {pops.mean():.1f} "
+          f"pops and {tests.mean():.1f} triangle tests per ray")
+
+
 def test_trace_packet_matches_k8():
     """The port's trace_packet against K8 interpreted, at
     tests/test_bvh_kernel.py's tolerances."""

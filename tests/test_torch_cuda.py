@@ -9,7 +9,8 @@ the port itself, runs one kernel (raster_tiles, raster_ranged, march_rays,
 bvh_traverse, and the work-list kernels template_walk, setup_walk,
 grouped_step) on CUDA tensors
 and its plain version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
-versions' operation order, so every output agrees bit for bit.  On a host
+versions' operation order, so every output agrees bit for bit (also
+raster_ranged's per-tile tested pairs and bvh_traverse's visit counts).  On a host
 without a card every test skips.
 """
 
@@ -357,6 +358,161 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _ranged_equal(prep, sorted_counts=None, **kw):
+    """Kernel K6 against its plain version on ``prep``'s inputs (``kw``
+    overrides them): z, slot, u, v and the per-tile tested pairs
+    bit-equal, the pairs equal to ``sorted_counts`` when given."""
+    from vri_tpu_torch.ops import rasterize
+
+    a = dict(coef=prep["coef"], order=prep["order"], ranges=prep["ranges"],
+             words=prep["words"], n_global=prep["n_global"],
+             num_tx=prep["num_tx"])
+    a.update(kw)
+    got = rasterize.raster_ranged(**a, pairs=True)
+    torch.cuda.synchronize()
+    want = rasterize.raster_ranged_reference(**a, pairs=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if sorted_counts is not None:
+        assert torch.equal(got[4], sorted_counts)
+    return got
+
+
+def _frame_preps(frame, **kw):
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    args = (world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj)
+    kw = dict(height=192, width=256, cull_sign=frame_mod._cull_sign(r.scene),
+              **kw)
+    return (rasterize.prepare_ranged(*args, **kw),
+            rasterize.prepare_sorted(*args, **kw))
+
+
+def test_raster_ranged_culled_chunks_and_empty_ranges(frame):
+    """K6 with every chunk's bit set and every tile's range the whole
+    local block: most live chunks lose every slot to the cull, and the
+    tested pairs are still exactly the sorted lists, the output the
+    ranged tier's own.  Then n_global = 3 with every local range empty:
+    only the first three chunks are walked, a part of each tile's sorted
+    list."""
+    prep, sprep = _frame_preps(frame)
+    base = _ranged_equal(prep, sprep["counts"])
+    t = prep["ranges"].shape[0]
+    chunks = prep["order"].shape[0] // 128
+    all_bits = torch.full_like(prep["words"], -1)
+    whole = torch.tensor([[prep["n_global"], chunks]], dtype=torch.int32,
+                         device="cuda").expand(t, 2).contiguous()
+    got = _ranged_equal(prep, sprep["counts"], words=all_bits, ranges=whole)
+    assert chunks > 8 and (got[1] >= 0).float().mean() > 0.5
+    for g, w in zip(got[:4], base[:4]):
+        assert torch.equal(g, w)
+    empty = torch.zeros_like(prep["ranges"])
+    got = _ranged_equal(prep, words=all_bits, ranges=empty, n_global=3)
+    assert (got[4] <= sprep["counts"]).all()
+    assert (got[4] < sprep["counts"]).any() and (got[4] > 0).any()
+
+
+def test_raster_ranged_corners_on_tile_borders():
+    """K6 on triangles whose corners lie exactly on multiples of 128 and
+    8 pixels, with slivers and zero-area slots
+    (``test_torch_kernel_layouts._border_args``)."""
+    from test_torch_kernel_layouts import _border_args
+
+    from vri_tpu_torch.ops import rasterize
+
+    _card()
+    (world, tri, n, vp), kw = _border_args()
+    args = (world.cuda(), tri.cuda(), n, vp.cuda())
+    prep = rasterize.prepare_ranged(*args, **kw)
+    sprep = rasterize.prepare_sorted(*args, **kw)
+    got = _ranged_equal(prep, sprep["counts"])
+    assert (got[1] >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("shape", [(16, 64), (2, 512)])
+def test_raster_ranged_other_tile_shapes(frame, shape):
+    """Tiles other than 8 x 128: 16 x 64 (a thread's pixels share a
+    column) and 2 x 512 (each pixel its own)."""
+    tile_h, tile_w = shape
+    prep, sprep = _frame_preps(frame, tile_h=tile_h, tile_w=tile_w)
+    got = _ranged_equal(prep, sprep["counts"], tile_h=tile_h, tile_w=tile_w)
+    assert (got[1] >= 0).float().mean() > 0.5
+
+
+@pytest.fixture(scope="module")
+def kitchen_bvh(frame):
+    from vri_tpu_torch.ops import bvh
+
+    r, _, world = frame
+    return bvh.build_bvh(world, r.scene.tri_vertices, r.scene.num_faces)
+
+
+def _bvh_rays(m, seed, *, t_max=None, away=False):
+    """``m`` rays from inside the kitchen's room in random directions
+    (``away``: from far outside, pointing away from it), t_max per ray or
+    uniform in [0.05, 6]."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2.5, 2.5, (m, 3))
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.normal(size=(m, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if away:
+        d = np.abs(d)
+        o = 50.0 + o
+    tm = rng.uniform(0.05, 6.0, m) if t_max is None else t_max
+    return _cuda_tensors(o.astype(np.float32), d.astype(np.float32),
+                         np.broadcast_to(np.float32(tm), (m,)).copy())
+
+
+def _bvh_equal(accel, rays):
+    from vri_tpu_torch.ops import bvh
+
+    args = (accel.nodes, accel.tris) + tuple(rays)
+    kw = dict(num_leaves=accel.num_leaves, leaf_size=accel.leaf_size)
+    got = bvh.bvh_traverse(*args, visits=True, **kw)
+    torch.cuda.synchronize()
+    want = bvh.bvh_traverse_reference(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 31, 257, 1000])
+def test_bvh_traverse_ragged_counts(kitchen_bvh, m):
+    """One ray, fewer than a warp, a block and one, and not a multiple of
+    32: bit-equal, every ray written."""
+    got = _bvh_equal(kitchen_bvh, _bvh_rays(m, seed=m))
+    assert (got[4][:, 0] >= 1).all()
+
+
+def test_bvh_traverse_misses_and_zero_t_max(kitchen_bvh):
+    """Rays that miss the whole scene (from outside, pointing away: only
+    the root is popped) and rays with t_max = 0: no hit, t = t_max."""
+    for away, t_max in ((True, 3.0e38), (False, 0.0)):
+        rays = _bvh_rays(3000, seed=5, t_max=t_max, away=away)
+        got = _bvh_equal(kitchen_bvh, rays)
+        assert (got[1] == -1).all() and torch.equal(got[0], rays[2])
+        if away:
+            assert (got[4][:, 0] == 1).all()
+
+
+def test_bvh_traverse_refills_mixed_lengths(kitchen_bvh):
+    """Long walks (no t_max) and walks ended at once (t_max 1e-3)
+    alternating in every warp, twice as many rays as a persistent launch
+    has lanes (at most 2^20 + 77), so that persistent lanes refill many
+    times."""
+    from vri_tpu_torch.ops import bvh
+
+    lanes = bvh.persistent_lanes(1 << 20)
+    m = min(2 * lanes, 1 << 20) + 77
+    tm = np.where(np.arange(m) % 2 == 0, 1e-3, 3.0e38)
+    got = _bvh_equal(kitchen_bvh, _bvh_rays(m, seed=7, t_max=tm))
+    pops = got[4][:, 0].reshape(-1)[: m - m % 32].reshape(-1, 32)
+    assert (pops.max(1).values > pops.min(1).values).float().mean() > 0.5
 
 
 def _cuda_tensors(*xs):

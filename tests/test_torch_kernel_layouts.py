@@ -13,6 +13,14 @@ on, checked on the CPU (the kernels themselves run only on the card, in
 * Kernel R's pixel layout (pixel p = thread + 256 k, 4 a thread): every
   pixel of a tile belongs to one (thread, k), and where the tile width
   divides 256 a thread's pixels share one column.
+* The ranged walk's cull (``rasterize.ranged_pairs``, the predicate of
+  ``csrc/raster_ranged.cu:in_span``): per tile, the (tile, slot) pairs it
+  keeps are exactly the sorted prep's lists, on the Cornell box at 64^2,
+  the 48-object kitchen at tess 1 (its camera near-clips slots) and
+  synthetic triangles with slivers, degenerate slots and corners exactly
+  on multiples of 128 and 8; the kernel's float form of the predicate
+  (floor of the quotient compared as a float) keeps the same pairs as the
+  integer form.
 """
 
 import numpy as np
@@ -164,3 +172,126 @@ def test_raster_tile_pixel_layout(shape):
                               np.broadcast_to(column, p.shape))
     assert np.array_equal(gy[1].numpy()[p[live]],
                           (0.5 + (p[live] // tile_w)).astype(np.float32))
+
+
+def _stage_args(stage, h, w):
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    d = RenderDelegate(RenderConfig(width=w, height=h), device="cpu")
+    d.populate(stage)
+    scene = d.sync()
+    fp = frame_mod.FrameParams.from_camera(d.camera, h, device="cpu")
+    return ((bake_world(scene), scene.tri_vertices, scene.num_faces,
+             fp.view_proj),
+            dict(height=h, width=w, cull_sign=frame_mod._cull_sign(scene)))
+
+
+def _border_args(seed=3, n=3000):
+    """Triangles seen through the identity view-projection at 512 x 64
+    (4 x 8 tiles of 8 x 128), so screen x = 256 (wx + 1) and y = 32 (1 -
+    wy) exactly: corners on a quarter-pixel grid, a third of them snapped
+    to multiples of 128 in x or of 8 in y, slivers (a corner 1e-3 px off
+    the opposite edge's line), zero-area triangles and corners off the
+    screen."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-80, 2100, (n, 3, 2)).astype(np.float64) / 4.0
+    c[..., 1] = c[..., 1] * 64.0 / 520.0
+    c[..., 1] = np.round(c[..., 1] * 4.0) / 4.0
+    snap = rng.random((n, 3)) < 0.35
+    c[..., 0] = np.where(snap, np.round(c[..., 0] / 128.0) * 128.0,
+                         c[..., 0])
+    snap = rng.random((n, 3)) < 0.35
+    c[..., 1] = np.where(snap, np.round(c[..., 1] / 8.0) * 8.0, c[..., 1])
+    small = rng.random(n) < 0.5                 # most triangles small
+    c[small] = c[small, :1] + (c[small] - c[small, :1]) * 0.05
+    c[::9, 2] = c[::9, 0] + 0.5 * (c[::9, 1] - c[::9, 0]) + 1e-3   # slivers
+    c[1::23, 2] = c[1::23, 1]                   # zero area
+    xy = np.stack([c[..., 0] / 256.0 - 1.0, 1.0 - c[..., 1] / 32.0], -1)
+    z = rng.uniform(0.1, 0.9, (n, 3, 1))
+    world = torch.as_tensor(np.concatenate([xy, z], -1).reshape(-1, 3)
+                            .astype(np.float32))
+    tri = torch.arange(3 * n, dtype=torch.int32).reshape(n, 3)
+    return ((world, tri, n, torch.eye(4)),
+            dict(height=64, width=512, cull_sign=None))
+
+
+_SPAN_CASES = {
+    "cornell": lambda: _stage_args(scenes.cornell_box(), 64, 64),
+    "kitchen": lambda: _stage_args(
+        scenes.kitchen_stress(num_objects=48, tess=1), 64, 256),
+    "borders": _border_args,
+}
+
+
+def _pair_keys(tile, slot, src, f):
+    """(tile, slot) pairs as sorted int64 keys, each slot named by its
+    face and whether it is the face's first or second (near-clipped)
+    slot, which the sorted and ranged tables number differently."""
+    name = torch.where(slot < f, slot, f + src[slot].long())
+    return torch.sort(tile * (2 * f) + name).values
+
+
+@pytest.mark.parametrize("case", list(_SPAN_CASES))
+def test_ranged_cull_keeps_the_sorted_lists(case):
+    args, kw = _SPAN_CASES[case]()
+    f = int(args[1].shape[0])
+    sp = rasterize.prepare_sorted(*args, **kw)
+    rp = rasterize.prepare_ranged(*args, **kw)
+    assert int(sp["overflow"]) == 0
+    tile, slot = rasterize.ranged_pairs(
+        rp["coef"], rp["order"], rp["ranges"], rp["words"],
+        n_global=rp["n_global"], num_tx=rp["num_tx"])
+    want = _pair_keys(
+        torch.repeat_interleave(torch.arange(sp["counts"].shape[0]),
+                                sp["counts"].long()),
+        sp["lists"].long(), sp["src"], f)
+    got = _pair_keys(tile, slot, rp["src"], f)
+    assert want.shape[0] > 0 and torch.equal(got, want)
+    assert torch.equal(torch.bincount(tile, minlength=sp["counts"].shape[0])
+                       .to(torch.int32), sp["counts"])
+    coef = rp["coef"]
+    if case == "kitchen":           # near-plane-clipped second slots
+        assert int(coef[f:, 7].sum()) > 0
+    if case == "borders":
+        xs, ys = coef[:, 0:6:2], coef[:, 1:6:2]
+        assert int((xs % 128 == 0).sum()) > 100
+        assert int((ys % 8 == 0).sum()) > 100
+        assert int((coef[:f, 7] == 0).sum()) > 100      # zero-area slots
+    # and so the two tiers' hits are bit-equal
+    hs, _ = rasterize.rasterize_sorted(*args, **kw)
+    hr, _ = rasterize.rasterize(*args, **kw)
+    assert (hs.tri >= 0).any()
+    for key in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(hr, key), getattr(hs, key)), key
+    print(f"{case}: {want.shape[0]} pairs, as the sorted lists")
+
+
+@pytest.mark.parametrize("case", list(_SPAN_CASES))
+def test_ranged_cull_float_form(case):
+    """``in_span`` compares floor(min x / tile_w) etc. as floats with the
+    tile's column and row; :func:`rasterize._tile_span` converts them to
+    int32 (held within +-2^30) first.  Both keep the same (tile, slot)
+    pairs, also for near-plane-clipped corners far off the screen."""
+    args, kw = _SPAN_CASES[case]()
+    coef = rasterize.prepare_ranged(*args, **kw)["coef"]
+    xs, ys = coef[:, 0:6:2], coef[:, 1:6:2]
+    gy, gx = -(-kw["height"] // 8), -(-kw["width"] // 128)
+    col = torch.arange(gx)[None, :, None].float()
+    row = torch.arange(gy)[:, None, None].float()
+
+    def mn(v):
+        return torch.minimum(torch.minimum(v[:, 0], v[:, 1]), v[:, 2])
+
+    def mx(v):
+        return torch.maximum(torch.maximum(v[:, 0], v[:, 1]), v[:, 2])
+
+    flt = ((torch.floor(mn(xs) / 128.0) <= col)
+           & (col <= torch.floor(mx(xs) / 128.0))
+           & (torch.floor(mn(ys) / 8.0) <= row)
+           & (row <= torch.floor(mx(ys) / 8.0)))
+    tx0, tx1, ty0, ty1 = rasterize._tile_span(xs, ys, 8, 128)
+    col, row = col.long(), row.long()
+    ints = (tx0 <= col) & (col <= tx1) & (ty0 <= row) & (row <= ty1)
+    assert flt.any() and torch.equal(flt, ints)

@@ -37,14 +37,15 @@ _ENTRIES = {
                           _P, _P, _P, _P, _P]),
     "vri_raster_ranged": ("raster_ranged.cu",
                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P]),
+                           _P, _P, _P, _P, _P, _P]),
     "vri_march_rays": ("march_rays.cu",
                        [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _P]),
     "vri_march_lanes": ("march_rays.cu", [_I, _I]),
     "vri_bvh_traverse": ("bvh_traverse.cu",
                          [_P, _P, _P, _I, _P, _P, _I, _I,
-                          _P, _P, _P, _P, _P, _P]),
+                          _P, _P, _P, _P, _P, _P, _P]),
+    "vri_bvh_lanes": ("bvh_traverse.cu", [_I]),
     "vri_worklist_walk": ("worklist.cu",
                           [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P]),

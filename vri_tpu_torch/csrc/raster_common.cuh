@@ -13,7 +13,7 @@
 namespace vri {
 
 // slot record (slot_coefficients): x0 y0 x1 y1 x2 y2 (global pixels),
-// area sign, pad, depth (a b c), un (a b c), vn (a b c), den (a b c),
+// area sign, live flag, depth (a b c), un (a b c), vn (a b c), den (a b c),
 // frame origin ox oy, pad, pad
 constexpr int kCoef = 24;
 constexpr int kMissKey = 0x40000000;  // bit pattern of 2.0f

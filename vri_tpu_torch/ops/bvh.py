@@ -22,9 +22,13 @@ subtree to its leaves and finds nothing there: on the 49k kitchen, whose
 pool of 65,536 slots holds 2,024 empty leaves, that was 4,041 of the
 4,140.5 nodes and 16,192 of the 16,298 triangle tests of a mean 1080p
 camera ray (H100 runs of ``chip_smoke.py``).  ``bvh_traverse`` is the
-walk's kernel wrapper: it launches ``csrc/bvh_traverse.cu`` (one thread
-per ray) for CUDA tensors and runs ``bvh_traverse_reference``, the plain
-PyTorch version with the same operation order, for CPU tensors.  Both read
+walk's kernel wrapper: it launches ``csrc/bvh_traverse.cu`` (a lane
+walks one ray at a time; persistent warps take the next 32 rays from a
+counter when all their lanes are done; a warp tests the leaves its lanes
+reach in rounds; a stack of (node, t_near), so a pop tests only t_near
+against the best t) for CUDA tensors and runs ``bvh_traverse_reference``,
+the plain PyTorch version with the same operation order, for CPU
+tensors.  Both read
 the node and triangle tables that ``build_bvh`` packs once in the
 kernel's layout (see :class:`BVH`).
 """
@@ -344,19 +348,31 @@ def bvh_traverse(nodes: torch.Tensor, tris: torch.Tensor,
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     vis = (torch.empty((n, 2), dtype=torch.int32, device=dev) if visits
            else None)
+    # the persistent lanes' next-ray counter
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = _cuda.library()
     code = lib.vri_bvh_traverse(
         origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(), n,
         nodes.data_ptr(), tris.data_ptr(), num_leaves, leaf_size,
         t.data_ptr(), slot.data_ptr(), u.data_ptr(),
         v.data_ptr(), 0 if vis is None else vis.data_ptr(),
-        _cuda.stream_ptr(origins))
+        counter.data_ptr(), _cuda.stream_ptr(origins))
     _cuda.check(code, "bvh_traverse")
     bvh_traverse.launches += 1
     return (t, slot, u, v, vis) if visits else (t, slot, u, v)
 
 
 bvh_traverse.launches = 0
+
+
+def persistent_lanes(n: int) -> int:
+    """Lanes of a ``bvh_traverse`` launch over ``n`` rays on the current
+    card: as many 256-lane blocks as fit the card at once, or fewer when
+    ``n`` rays need fewer.  Every ray past them is taken by a refill."""
+    lanes = _cuda.library().vri_bvh_lanes(n)
+    if lanes < 0:
+        raise RuntimeError("bvh_traverse: the occupancy query failed")
+    return lanes
 
 
 def trace_slots(bvh: BVH, origins: torch.Tensor, dirs: torch.Tensor,

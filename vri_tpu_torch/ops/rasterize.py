@@ -15,8 +15,9 @@ slots.
 * :func:`rasterize` -- the capacity-free ranged tier: slots in
   screen-Morton order packed in chunks of 128; each tile walks the global
   (screen-spanning) chunks and its own Morton chunk range, skipping a
-  chunk whose overlap bit is clear.  Nothing can overflow: it is the
-  last rung of the renderer's overflow ladder.
+  chunk whose overlap bit is clear, and tests of a chunk only the slots
+  that the sorted tier lists for the tile (``_tile_span``).  Nothing can
+  overflow: it is the last rung of the renderer's overflow ladder.
 
 The sorted and binned lists go to kernel R (``raster_tiles``,
 ``csrc/raster_tiles.cu``), the ranged tier to ``raster_ranged``
@@ -403,19 +404,30 @@ def raster_tiles(coef: torch.Tensor, lists: torch.Tensor,
 raster_tiles.launches = 0
 
 
-def raster_ranged_reference(coef, order, ranges, words, *, n_global: int,
-                            num_tx: int, tile_h: int = 8, tile_w: int = 128):
-    """Plain PyTorch version of ``raster_ranged``.  Tile t walks chunks
-    0 .. n_global-1, then ranges[t, 0] .. ranges[t, 1]-1, each only when
-    its bit in words[t] is set; chunk c holds the slots order[128c ..
-    128c+127].  The winner is the minimum of (z with its 7 low mantissa
-    bits cleared, slot index) among slots whose pixel passes the edge and
-    depth tests.  The live (tile, chunk) pairs are evaluated in batches
-    and reduced per tile.  Returns (z, slot, u, v), each (T, P)."""
+def _tile_span(xs, ys, tile_h: int, tile_w: int):
+    """Inclusive tile span (tx0, tx1, ty0, ty1), each int32, of slots
+    with screen corners ``xs``, ``ys`` (..., 3): the floor of the bbox's
+    extremes over the tile size.  The sorted tier emits a (tile, slot)
+    pair for each tile of a valid slot's span; the ranged walk tests
+    exactly those pairs (``csrc/raster_ranged.cu:in_span``)."""
+    return (_to_i32(torch.floor(xs.min(dim=-1).values / tile_w)),
+            _to_i32(torch.floor(xs.max(dim=-1).values / tile_w)),
+            _to_i32(torch.floor(ys.min(dim=-1).values / tile_h)),
+            _to_i32(torch.floor(ys.max(dim=-1).values / tile_h)))
+
+
+def ranged_pairs(coef, order, ranges, words, *, n_global: int,
+                 num_tx: int, tile_h: int = 8, tile_w: int = 128):
+    """The (tile, slot) pairs the ranged walk tests, as (tile ids, slot
+    ids), each (N,) int64, in walk order.  Tile t walks chunks 0 ..
+    n_global-1, then ranges[t, 0] .. ranges[t, 1]-1, each only when its
+    bit in words[t] is set; chunk c holds the slots order[128c ..
+    128c+127].  Of a walked chunk it keeps only the slots that the sorted
+    tier lists for the tile: live (column 7 of the slot table) with the
+    tile inside their tile span (:func:`_tile_span` on columns 0-5, the
+    floats ``prepare_sorted`` reads)."""
     dev = coef.device
     T = ranges.shape[0]
-    P = tile_h * tile_w
-    gx, gy = _tile_pixels(T, num_tx, tile_h, tile_w, dev)
     lo = ranges[:, 0].long()
     steps = n_global + torch.clamp(ranges[:, 1].long() - lo, min=0)
     total = int(steps.sum())
@@ -427,28 +439,56 @@ def raster_ranged_reference(coef, order, ranges, words, *, n_global: int,
     word = words[tile_of, c >> 5].long() & 0xFFFFFFFF
     live = ((word >> (c & 31)) & 1) != 0
     tile_of, c = tile_of[live], c[live]
-    chunks = order.view(-1, _TC)
+    sid = order.view(-1, _TC)[c].long()                       # (N, 128)
+    tx0, tx1, ty0, ty1 = _tile_span(coef[:, 0:6:2], coef[:, 1:6:2],
+                                    tile_h, tile_w)
+    col = (tile_of % num_tx)[:, None]
+    row = torch.div(tile_of, num_tx, rounding_mode="floor")[:, None]
+    keep = (coef[sid, 7] > 0.5) & (tx0[sid] <= col) & (col <= tx1[sid]) \
+        & (ty0[sid] <= row) & (row <= ty1[sid])
+    return tile_of[:, None].expand_as(sid)[keep], sid[keep]
+
+
+def raster_ranged_reference(coef, order, ranges, words, *, n_global: int,
+                            num_tx: int, tile_h: int = 8, tile_w: int = 128,
+                            pairs: bool = False):
+    """Plain PyTorch version of ``raster_ranged``: per pixel, the minimum
+    of (z with its 7 low mantissa bits cleared, slot index) over the
+    (tile, slot) pairs of :func:`ranged_pairs` whose pixel passes the
+    edge and depth tests -- exactly the pairs the sorted tier lists, so
+    the tiers agree by construction.  The pairs are evaluated in batches
+    and reduced per tile.  Returns (z, slot, u, v), each (T, P), and with
+    ``pairs`` the (T,) int32 count of each tile's tested pairs."""
+    dev = coef.device
+    T = ranges.shape[0]
+    P = tile_h * tile_w
+    gx, gy = _tile_pixels(T, num_tx, tile_h, tile_w, dev)
+    tile_of, sid = ranged_pairs(coef, order, ranges, words,
+                                n_global=n_global, num_tx=num_tx,
+                                tile_h=tile_h, tile_w=tile_w)
     best = torch.full((T, P), _NEVER, dtype=torch.int64, device=dev)
-    batch = max(1, (1 << 22) // (_TC * P))
+    batch = max(1, (1 << 22) // P)
     for b0 in range(0, tile_of.shape[0], batch):
-        tb = tile_of[b0:b0 + batch]
-        sid = chunks[c[b0:b0 + batch]].long()                 # (B, 128)
-        comp = (_slot_keys(coef[sid], gx[tb][:, None, :],
-                           gy[tb][:, None, :]) << 32) | sid[..., None]
-        best.scatter_reduce_(0, tb[:, None].expand(-1, P),
-                             comp.min(dim=1).values, "amin")
-    return _resolve_winners(coef, best >> 32, best & 0xFFFFFFFF, gx, gy)
+        tb, sb = tile_of[b0:b0 + batch], sid[b0:b0 + batch]
+        comp = (_slot_keys(coef[sb], gx[tb], gy[tb]) << 32) | sb[:, None]
+        best.scatter_reduce_(0, tb[:, None].expand(-1, P), comp, "amin")
+    out = _resolve_winners(coef, best >> 32, best & 0xFFFFFFFF, gx, gy)
+    if pairs:
+        out += (torch.bincount(tile_of, minlength=T).to(torch.int32),)
+    return out
 
 
 def raster_ranged(coef: torch.Tensor, order: torch.Tensor,
                   ranges: torch.Tensor, words: torch.Tensor, *,
                   n_global: int, num_tx: int, tile_h: int = 8,
-                  tile_w: int = 128):
+                  tile_w: int = 128, pairs: bool = False):
     """Ranged kernel wrapper (see :func:`raster_ranged_reference`): CUDA
     tensors launch ``csrc/raster_ranged.cu``; CPU tensors run the plain
     version.  ``coef`` (S, 24) f32 slot table in setup order, ``order``
     (C * 128,) i32 slot ids in Morton order, ``ranges`` (T, 2) i32 local
-    chunk ranges, ``words`` (T, ceil(C / 32)) i32 overlap bits."""
+    chunk ranges, ``words`` (T, ceil(C / 32)) i32 overlap bits.  With
+    ``pairs`` it also returns each tile's count of tested (tile, slot)
+    pairs, (T,) int32."""
     T = ranges.shape[0]
     ints = dict(order=order, ranges=ranges, words=words)
     if order.dim() != 1 or order.shape[0] % _TC:
@@ -465,27 +505,31 @@ def raster_ranged(coef: torch.Tensor, order: torch.Tensor,
     if _check_tiles("raster_ranged", coef, ints, T, tile_h, tile_w):
         return raster_ranged_reference(coef, order, ranges, words,
                                        n_global=n_global, num_tx=num_tx,
-                                       tile_h=tile_h, tile_w=tile_w)
+                                       tile_h=tile_h, tile_w=tile_w,
+                                       pairs=pairs)
     coef, order, ranges, words = (
         x.contiguous() for x in (coef, order, ranges, words))
-    z, slot, u, v = _outputs(T, tile_h * tile_w, coef.device)
+    out = _outputs(T, tile_h * tile_w, coef.device)
+    if pairs:
+        out += (torch.empty((T,), dtype=torch.int32, device=coef.device),)
     code = _cuda.library().vri_raster_ranged(
         coef.data_ptr(), order.data_ptr(), ranges.data_ptr(),
         words.data_ptr(), T, n_global, words.shape[1], num_tx, tile_h,
-        tile_w, z.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
-        _cuda.stream_ptr(coef))
+        tile_w, *(x.data_ptr() for x in out[:4]),
+        out[4].data_ptr() if pairs else 0, _cuda.stream_ptr(coef))
     _cuda.check(code, "raster_ranged")
     raster_ranged.launches += 1
-    return z, slot, u, v
+    return out
 
 
 raster_ranged.launches = 0
 
 
 def slot_coefficients(tx, ty, tz, tw, b1, b2, valid):
-    """(S, 24) per-slot table for kernel R.  Columns: 0-5 the corners
-    (x0 y0 x1 y1 x2 y2) in global pixel coordinates for the edge tests, 6
-    the sign of the screen area, 7 pad; then affine (a, b, c) triples in
+    """(S, 24) per-slot table of the raster kernels.  Columns: 0-5 the
+    corners (x0 y0 x1 y1 x2 y2) in global pixel coordinates for the edge
+    tests and the tile spans, 6 the sign of the screen area, 7 the live
+    flag (1 for a valid slot, 0 else: the ranged walk's cull); then affine (a, b, c) triples in
     the slot's local frame (origin = floor of its screen-bbox min, held
     on the screen): 8-10 depth, 11-13 / 14-16 / 17-19 the perspective-correct attribute fields
     un, vn, den; 20-21 the frame origin (ox, oy); 22-23 pad.  Dead slots
@@ -549,7 +593,7 @@ def slot_coefficients(tx, ty, tz, tw, b1, b2, valid):
     zero = torch.zeros_like(ox)
     return torch.cat(
         [torch.stack([tx[:, 0], ty[:, 0], tx[:, 1], ty[:, 1], tx[:, 2],
-                      ty[:, 2], sign, zero], dim=1),
+                      ty[:, 2], sign, valid.to(torch.float32)], dim=1),
          fields, torch.stack([ox, oy, zero, zero], dim=1)],
         dim=1).contiguous()
 
@@ -643,12 +687,7 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
     fp = tx.shape[0]
 
     # per-slot inclusive tile span from the screen bbox
-    lox, hix = tx.min(dim=1).values, tx.max(dim=1).values
-    loy, hiy = ty.min(dim=1).values, ty.max(dim=1).values
-    tx0 = _to_i32(torch.floor(lox / tile_w))
-    tx1 = _to_i32(torch.floor(hix / tile_w))
-    ty0 = _to_i32(torch.floor(loy / tile_h))
-    ty1 = _to_i32(torch.floor(hiy / tile_h))
+    tx0, tx1, ty0, ty1 = _tile_span(tx, ty, tile_h, tile_w)
     on_screen = (tx1 >= 0) & (tx0 < gx) & (ty1 >= 0) & (ty0 < gy)
     vis = valid & on_screen
     if pairs_cap is None:

@@ -12,6 +12,10 @@ which scalar arithmetic runs instead.
 * ``micro_pass1``: the setup walk (``ops/worklist.setup_walk``);
 * ``micro_grouped``: the grouped step (``ops/worklist.grouped_step``);
 * ``prof_worklist``: the stages of the sorted raster tier (kernel R).
+
+It also holds what these tools share with ``chip_smoke.py``: the card
+line, the CUDA-event timer and the ray sets that hold ``bvh_traverse``
+against its plain version (:func:`bvh_ray_sets`).
 """
 
 from __future__ import annotations
@@ -69,3 +73,35 @@ def time_ms(fn, iters: int, device) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def bvh_ray_sets(r, h: int, w: int):
+    """The rays that hold ``bvh_traverse`` through renderer ``r``'s stage
+    (``chip_smoke.py`` phase 12, ``kernel_turns``): the h x w camera rays
+    and 2^18 random rays in the instances' bounds with per-ray t_max.
+    Returns {label: (origins, dirs, t_max)}."""
+    import numpy as np
+    import torch
+
+    from vri_tpu_torch.ops import raygen
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    dev = r.device
+    scene = r.scene
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
+    o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
+    ni = max(int(scene.num_instances), 1)
+    lo = scene.instance_aabb_lo[:ni].min(0).values.cpu().numpy()
+    hi = scene.instance_aabb_hi[:ni].max(0).values.cpu().numpy()
+    rng = np.random.default_rng(12)
+    m = 1 << 18
+    dv = rng.normal(size=(m, 3))
+    return {
+        "camera": (o.reshape(-1, 3).contiguous(),
+                   d.reshape(-1, 3).contiguous(),
+                   torch.full((h * w,), 3.0e38, device=dev)),
+        "random": tuple(torch.as_tensor(a.astype(np.float32), device=dev)
+                        for a in (
+            rng.uniform(lo, hi, (m, 3)),
+            dv / np.linalg.norm(dv, axis=-1, keepdims=True),
+            rng.uniform(0.05, float(np.abs(hi - lo).max()), m)))}

@@ -1,34 +1,44 @@
-"""Kernels M (``march_rays``) and R (``raster_tiles``) of this tree against
-other trees', in turns, on one CUDA card at the main path's shapes.
+"""This tree's hand-written kernels against other trees', in turns, on one
+CUDA card at the main path's shapes.
 
     python -m vri_tpu_torch.tools.kernel_turns --other DIR [--other DIR2 ...]
+        [--kernels raster_tiles,march_rays,raster_ranged,bvh_traverse]
         [--reps 20] [--frame-reps 10]
 
 Each ``DIR`` is the root of another checkout of this repository (for
 example a parent commit unpacked with ``git archive``); the first is the
-one the frame is compared with.  The tool builds this tree's kernels,
-each other tree's ``march_rays.cu`` and ``raster_tiles.cu`` (from its
+one the frames are compared with.  ``--kernels`` picks the kernels (all
+four by default): R (``raster_tiles``), M (``march_rays``), K6
+(``raster_ranged``) and ``bvh_traverse``.  The tool builds this tree's
+kernels, each other tree's source of each picked kernel (from its
 ``vri_tpu_torch/csrc``, with this tree's nvcc flags; a source equal to
-this tree's is skipped), and variants of this tree's two kernels that
-differ in one constant: M's refill interval (``kRefillEvery``), R's
-pixels a thread (``kPx``, so 1024 / kPx threads a block) and R's layout
-(each pixel its own column terms, as for tiles wider than the block).  On the main
-path's stage (the 49k kitchen at 1920x1080, "room" SDF preset) it holds
-every build bit-equal to this tree's kernel on the inputs of
-``chip_smoke.py``'s phases 3 and 6 (the frame's tile lists, its shadow
-and GI rays), then times each build with CUDA events in turns: the other
-trees', this tree's, the variants, the variants again, this tree's, the
-other trees'.  A timed call allocates what that tree's wrapper allocates
-(this tree's M also zeroes its ray counter).  Kernel R is also timed with
-its lists cut at 128 and 256 slots (``cap``), which shows how much of its
-time the longest lists take.  Last it times the main-path frame without
-the host copy, ``render(gi=True, to_numpy=False)``, with the first other
-tree's two kernels in place of this tree's and with this tree's, in the
-turns other, this, this, other (with an other tree's M that takes no
-counter the wrapper still zeroes one).
+this tree's is skipped, and an older entry signature -- M or
+``bvh_traverse`` without the ray counter, K6 without the pair counts --
+is called as that tree's wrapper calls it), and variants of this tree's
+kernels that differ in one to three tuning constants (:data:`VARIANTS`).
+A design that lost and left the sources is timed as an other tree: a
+copy of ``vri_tpu_torch/csrc`` with that kernel's losing source in its
+place.  On the main path's stage (the 49k kitchen at 1920x1080, "room"
+SDF preset) it holds every build bit-equal to this tree's kernel on the
+inputs of ``chip_smoke.py``'s phases 3 (R: the frame's tile lists), 4 (K6: the
+ranged tier's chunks), 6 (M: the frame's shadow and GI rays) and 12
+(``bvh_traverse``: the 1080p camera rays and 2^18 random rays with
+per-ray t_max, visit counts included), then times each build with CUDA
+events in turns: the other trees', this tree's, the variants, the
+variants again, this tree's, the other trees'.  A timed call allocates
+what that tree's wrapper allocates (this tree's M and ``bvh_traverse``
+also zero their ray counter).  Kernel R is also timed with its lists cut
+at 128 and 256 slots (``cap``), which shows how much of its time the
+longest lists take.  Last it times the frames without the host copy with
+the first other tree's kernels in place of this tree's and with this
+tree's, in the turns other, this, this, other: the main-path frame
+``render(gi=True, to_numpy=False)`` when R or M is picked, the ranged
+frame (``backend="raster_ranged"``) when K6 is, the BVH frame
+(``backend="bvh"``) when ``bvh_traverse`` is.
 
-Prints the card line, one line per timing and, last, a JSON object of
-every number, which it also writes to ``chiprun_out/kernel_turns.json``.
+Prints the card line, the registers and spills ptxas reports, one line
+per timing and, last, a JSON object of every number, which it also
+writes to ``chiprun_out/kernel_turns.json``.
 """
 
 from __future__ import annotations
@@ -42,23 +52,58 @@ import subprocess
 import types
 
 from vri_tpu_torch import _cuda
-from vri_tpu_torch.tools import card_line, time_ms
+from vri_tpu_torch.tools import bvh_ray_sets, card_line, time_ms
 
-#: this tree's variants: (name, source, constant as written, replacement)
-VARIANTS = (("M refill every step", "march_rays.cu",
-             "kRefillEvery = 4;", "kRefillEvery = 1;"),
-            ("M refill every 2", "march_rays.cu",
-             "kRefillEvery = 4;", "kRefillEvery = 2;"),
-            ("M refill every 8", "march_rays.cu",
-             "kRefillEvery = 4;", "kRefillEvery = 8;"),
-            ("R 8 pixels a thread", "raster_tiles.cu",
-             "kPx = 4;", "kPx = 8;"),
-            ("R 2 pixels a thread", "raster_tiles.cu",
-             "kPx = 4;", "kPx = 2;"),
-            ("R without the shared column", "raster_tiles.cu",
-             "kThreads % tile_w == 0 ?", "false ?"))
+KERNELS = ("raster_tiles", "march_rays", "raster_ranged", "bvh_traverse")
+#: text of a source whose entry takes this tree's last pointer argument
+#: (M's and bvh_traverse's ray counter, K6's pair counts)
+_NEW_ENTRY = {"march_rays": "int* counter,", "raster_ranged": "int* pairs,",
+              "bvh_traverse": "int* counter,"}
+#: this tree's variants: (name, kernel, (constant as written,
+#: replacement) for each constant changed)
+VARIANTS = (("M refill every step", "march_rays",
+             (("kRefillEvery = 4;", "kRefillEvery = 1;"),)),
+            ("M refill every 2", "march_rays",
+             (("kRefillEvery = 4;", "kRefillEvery = 2;"),)),
+            ("M refill every 8", "march_rays",
+             (("kRefillEvery = 4;", "kRefillEvery = 8;"),)),
+            ("R 8 pixels a thread", "raster_tiles",
+             (("kPx = 4;", "kPx = 8;"),)),
+            ("R 2 pixels a thread", "raster_tiles",
+             (("kPx = 4;", "kPx = 2;"),)),
+            ("R without the shared column", "raster_tiles",
+             (("kThreads % tile_w == 0 ?", "false ?"),)),
+            ("K6 1 pixel a thread", "raster_ranged",
+             (("kPx = 4;", "kPx = 1;"),)),
+            ("K6 8 pixels a thread", "raster_ranged",
+             (("kPx = 4;", "kPx = 8;"),)))
 #: kernel R timed with its lists cut short (not bit-equal: timing only)
 CAPS = (128, 256)
+#: frames timed with another tree's kernels: (label, kernels that pick
+#: it, render arguments)
+FRAMES = (("frame", ("raster_tiles", "march_rays"), {}),
+          ("ranged frame", ("raster_ranged",),
+           {"backend": "raster_ranged"}),
+          ("BVH frame", ("bvh_traverse",), {"backend": "bvh"}))
+
+
+def _entry_name(kernel: str) -> str:
+    return f"vri_{kernel}"
+
+
+def _argtypes(kernel: str, new: bool):
+    """ctypes argument types of a kernel's entry; ``new`` is false for an
+    entry without this tree's last pointer (counter or pair counts)."""
+    args = _cuda._ENTRIES[_entry_name(kernel)][1]
+    if new or kernel == "raster_tiles":
+        return args
+    return args[:-2] + args[-1:]
+
+
+def _old_call(fn):
+    """An entry without the last pointer, called with this tree's
+    arguments (the pointer dropped): for the frames' swapped library."""
+    return lambda *a: fn(*a[:-2], a[-1])
 
 
 def _compile_all(jobs) -> None:
@@ -73,9 +118,14 @@ def _compile_all(jobs) -> None:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas ({os.path.relpath(src)}): {line.strip()}")
+        _print_ptxas(os.path.relpath(src), log)
+
+
+def _print_ptxas(label: str, log: str) -> None:
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" \
+                in line:
+            print(f"  ptxas ({label}): {line.strip()}")
 
 
 def _entry(path: str, name: str, argtypes):
@@ -85,58 +135,51 @@ def _entry(path: str, name: str, argtypes):
     return fn
 
 
-def build(others) -> dict:
-    """Name -> (march entry or None, raster entry or None, march takes a
-    counter) for "this", each other tree (by its directory's name) and
-    each variant."""
+def build(others, kernels) -> dict:
+    """Build name ("this", each other tree by its directory's name, each
+    variant) -> kernel -> (entry, takes this tree's last pointer)."""
     this = _cuda.library()
+    if _cuda.build_log:
+        _print_ptxas("this tree", _cuda.build_log)
     work = os.path.join(_cuda.BUILD_DIR, "turns")
     shutil.rmtree(work, ignore_errors=True)
-    march_args = _cuda._ENTRIES["vri_march_rays"][1]
-    raster_args = _cuda._ENTRIES["vri_raster_tiles"][1]
-    jobs, entries = [], []    # entries: (name, kernel slot, entry, counter)
+    builds = {"this": {k: (getattr(this, _entry_name(k)), True)
+                       for k in kernels}}
+    jobs, pending = [], []
     for other in others:
         name = os.path.basename(os.path.normpath(other))
-        csrc = os.path.join(other, "vri_tpu_torch", "csrc")
-        for slot, src in enumerate(("march_rays.cu", "raster_tiles.cu")):
-            with open(os.path.join(csrc, src)) as f:
+        for k in kernels:
+            src = os.path.join(other, "vri_tpu_torch", "csrc", f"{k}.cu")
+            with open(src) as f:
                 text = f.read()
-            with open(os.path.join(_cuda.CSRC, src)) as f:
+            with open(os.path.join(_cuda.CSRC, f"{k}.cu")) as f:
                 if text == f.read():
                     continue
-            out = os.path.join(work, name, src[:-3] + ".so")
-            jobs.append((os.path.join(csrc, src), out))
-            if slot == 0:
-                counter = "counter" in text
-                entries.append((name, 0, (out, "vri_march_rays", march_args
-                                          if counter else
-                                          march_args[:14] + [_cuda._P]),
-                                counter))
-            else:
-                entries.append((name, 1, (out, "vri_raster_tiles",
-                                          raster_args), False))
-    for k, (name, src, old, new) in enumerate(VARIANTS):
-        d = os.path.join(work, f"v{k}")
+            out = os.path.join(work, name, f"{k}.so")
+            jobs.append((src, out))
+            new = _NEW_ENTRY.get(k, "") in text
+            pending.append((name, k, out, new))
+    for i, (name, k, changes) in enumerate(VARIANTS):
+        if k not in kernels:
+            continue
+        d = os.path.join(work, f"v{i}")
         shutil.copytree(_cuda.CSRC, d)
-        path = os.path.join(d, src)
+        path = os.path.join(d, f"{k}.cu")
         with open(path) as f:
             text = f.read()
-        if old not in text:
-            raise RuntimeError(f"{src} no longer holds {old!r}")
+        for old, new_text in changes:
+            if old not in text:
+                raise RuntimeError(f"{k}.cu no longer holds {old!r}")
+            text = text.replace(old, new_text)
         with open(path, "w") as f:
-            f.write(text.replace(old, new))
-        out = os.path.join(d, src[:-3] + ".so")
+            f.write(text)
+        out = os.path.join(d, f"{k}.so")
         jobs.append((path, out))
-        slot = 0 if src == "march_rays.cu" else 1
-        entries.append((name, slot, (out, f"vri_{src[:-3]}",
-                                     (march_args, raster_args)[slot]), True))
+        pending.append((name, k, out, True))
     _compile_all(jobs)
-    builds = {"this": [this.vri_march_rays, this.vri_raster_tiles, True]}
-    for name, slot, (out, fn, argtypes), counter in entries:
-        b = builds.setdefault(name, [None, None, counter])
-        b[slot] = _entry(out, fn, argtypes)
-        if slot == 0:
-            b[2] = counter
+    for name, k, out, new in pending:
+        builds.setdefault(name, {})[k] = (
+            _entry(out, _entry_name(k), _argtypes(k, new)), new)
     return builds
 
 
@@ -162,7 +205,7 @@ def march_call(fn, counter: bool, margs, mkw):
     return out
 
 
-def raster_call(fn, rargs, rkw):
+def raster_call(fn, _new: bool, rargs, rkw):
     """One call of a raster entry as the wrapper makes it."""
     from vri_tpu_torch.ops import rasterize
 
@@ -176,13 +219,56 @@ def raster_call(fn, rargs, rkw):
     return out
 
 
-def inputs(dev):
-    """The renderer and phases 3 and 6 of chip_smoke.py: the raster's
-    tile lists and the march's shadow and GI ray tables."""
+def ranged_call(fn, new: bool, kargs, kkw):
+    """One call of a K6 entry as its tree's wrapper makes it (this
+    tree's without the pair counts, as the ranged frame calls it)."""
+    from vri_tpu_torch.ops import rasterize
+
+    coef, order, ranges, words = kargs
+    t = ranges.shape[0]
+    out = rasterize._outputs(t, 1024, coef.device)
+    _cuda.check(fn(coef.data_ptr(), order.data_ptr(), ranges.data_ptr(),
+                   words.data_ptr(), t, kkw["n_global"], words.shape[1],
+                   kkw["num_tx"], 8, 128, *(x.data_ptr() for x in out),
+                   *([0] if new else []), _cuda.stream_ptr(coef)),
+                "raster_ranged")
+    return out
+
+
+def bvh_call(fn, counter: bool, bargs, bkw, visits: bool = False):
+    """One call of a ``bvh_traverse`` entry as its tree's wrapper makes
+    it; with ``visits`` it also returns the per-ray visit counts."""
+    import torch
+
+    nodes, tris, o, d, tm = bargs
+    n, dev = o.shape[0], o.device
+    out = (torch.empty((n,), dtype=torch.float32, device=dev),
+           torch.empty((n,), dtype=torch.int32, device=dev),
+           torch.empty((n,), dtype=torch.float32, device=dev),
+           torch.empty((n,), dtype=torch.float32, device=dev))
+    if visits:
+        out += (torch.empty((n, 2), dtype=torch.int32, device=dev),)
+    count = [torch.zeros((1,), dtype=torch.int32, device=dev).data_ptr()] \
+        if counter else []
+    _cuda.check(fn(o.data_ptr(), d.data_ptr(), tm.data_ptr(), n,
+                   nodes.data_ptr(), tris.data_ptr(), bkw["num_leaves"],
+                   bkw["leaf_size"], *(x.data_ptr() for x in out[:4]),
+                   out[4].data_ptr() if visits else 0, *count,
+                   _cuda.stream_ptr(o)), "bvh_traverse")
+    return out
+
+
+_CALLS = {"raster_tiles": raster_call, "march_rays": march_call,
+          "raster_ranged": ranged_call, "bvh_traverse": bvh_call}
+
+
+def inputs(dev, kernels):
+    """The renderer and, per picked kernel, {label: (args, kw)}: phases 3
+    (R), 4 (K6), 6 (M) and 12 (``bvh_traverse``) of chip_smoke.py."""
     import torch
 
     from vri_tpu_torch import RenderConfig, SDFConfig, scenes
-    from vri_tpu_torch.ops import gi, march_kernel, rasterize, raygen
+    from vri_tpu_torch.ops import bvh, gi, march_kernel, rasterize, raygen
     from vri_tpu_torch.ops import shading
     from vri_tpu_torch.passes import frame as frame_mod
     from vri_tpu_torch.registry import bake_world
@@ -195,34 +281,50 @@ def inputs(dev):
     fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
     world = bake_world(r.scene)
     cull = frame_mod._cull_sign(r.scene)
-    prep = rasterize.prepare_sorted(world, r.scene.tri_vertices,
-                                    r.scene.num_faces, fp.view_proj,
-                                    height=h, width=w, cull_sign=cull)
-    raster = ((prep["coef"], prep["lists"], prep["starts"], prep["counts"]),
-              dict(num_tx=prep["num_tx"], cap=prep["cap"]))
-    cas = r.ensure_cascades(eye=r.camera.eye)
-    o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
-    hit, _ = rasterize.rasterize_sorted(world, r.scene.tri_vertices,
-                                        r.scene.num_faces, fp.view_proj,
-                                        height=h, width=w, cull_sign=cull)
-    gb = shading.resolve_gbuffer(r.scene, world, hit, o.reshape(-1, 3),
-                                 d.reshape(-1, 3), fp.pixel_spread)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    u = torch.rand((h * w, 2), generator=gen, device=dev)
-    meta = march_kernel.pack_meta(cas, cfg)
-    march = {}
-    for label, (ro, rd, rt), steps in (
-            ("shadow", gi.shadow_rays(gb.position, gb.normal, r.scene, cas,
-                                      cfg), cfg.shadow_steps),
-            ("gi", gi.gi_rays(gb.position, gb.normal, u, cas, cfg),
-             cfg.gi_steps)):
-        march[label] = ((march_kernel.ray_table(cas, ro, rd, rt, cfg), meta,
-                         cas.march_coarse, cas.march_fine0,
-                         cas.march_fine1),
-                        dict(r=cfg.cascade_resolution,
-                             max_steps=steps * 2 + 16))
-    return r, raster, march
+    rargs = (world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj)
+    out = {}
+    if "raster_tiles" in kernels:
+        prep = rasterize.prepare_sorted(*rargs, height=h, width=w,
+                                        cull_sign=cull)
+        out["raster_tiles"] = {"lists": (
+            (prep["coef"], prep["lists"], prep["starts"], prep["counts"]),
+            dict(num_tx=prep["num_tx"], cap=prep["cap"]))}
+    if "raster_ranged" in kernels:
+        prep = rasterize.prepare_ranged(*rargs, height=h, width=w,
+                                        cull_sign=cull)
+        out["raster_ranged"] = {"chunks": (
+            (prep["coef"], prep["order"], prep["ranges"], prep["words"]),
+            dict(n_global=prep["n_global"], num_tx=prep["num_tx"]))}
+    if "bvh_traverse" in kernels:
+        accel = bvh.build_bvh(world, r.scene.tri_vertices, r.scene.num_faces)
+        kw = dict(num_leaves=accel.num_leaves, leaf_size=accel.leaf_size)
+        out["bvh_traverse"] = {
+            label: ((accel.nodes, accel.tris) + rays, kw)
+            for label, rays in bvh_ray_sets(r, h, w).items()}
+    if "march_rays" in kernels:
+        cas = r.ensure_cascades(eye=r.camera.eye)
+        o, d = raygen.camera_rays(fp.inv_view_proj, fp.eye, h, w)
+        hit, _ = rasterize.rasterize_sorted(*rargs, height=h, width=w,
+                                            cull_sign=cull)
+        gb = shading.resolve_gbuffer(r.scene, world, hit, o.reshape(-1, 3),
+                                     d.reshape(-1, 3), fp.pixel_spread)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        u = torch.rand((h * w, 2), generator=gen, device=dev)
+        meta = march_kernel.pack_meta(cas, cfg)
+        march = {}
+        for label, (ro, rd, rt), steps in (
+                ("shadow", gi.shadow_rays(gb.position, gb.normal, r.scene,
+                                          cas, cfg), cfg.shadow_steps),
+                ("gi", gi.gi_rays(gb.position, gb.normal, u, cas, cfg),
+                 cfg.gi_steps)):
+            march[label] = ((march_kernel.ray_table(cas, ro, rd, rt, cfg),
+                             meta, cas.march_coarse, cas.march_fine0,
+                             cas.march_fine1),
+                            dict(r=cfg.cascade_resolution,
+                                 max_steps=steps * 2 + 16))
+        out["march_rays"] = march
+    return r, out
 
 
 def _turns(order, timers: dict, reps: int, dev) -> dict:
@@ -239,6 +341,12 @@ def _print(label: str, times: dict, reps: int, card: str) -> None:
               + f" ms (CUDA events, mean of {reps}) [{card}]", flush=True)
 
 
+def _equal(got, want) -> bool:
+    import torch
+
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -246,19 +354,27 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, action="append",
                     help="root of another tree (e.g. _archive/parent); "
                          "repeat for more")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels to compare (default: "
+                         "all four)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--frame-reps", type=int, default=10)
     a = ap.parse_args(argv)
+    kernels = tuple(k for k in KERNELS if k in a.kernels.split(","))
+    unknown = set(a.kernels.split(",")) - set(KERNELS)
+    if unknown or not kernels:
+        raise SystemExit(f"--kernels: unknown {sorted(unknown)}; pick from "
+                         f"{', '.join(KERNELS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is "
                          "false): the tool compares kernels on the card")
     dev = torch.device("cuda")
     card = card_line(dev)
     print(card, flush=True)
-    builds = build(a.other)
-    others = [n for n in builds if n != "this"
-              and n not in {v[0] for v in VARIANTS}]
-    r, (rargs, rkw), march = inputs(dev)
+    builds = build(a.other, kernels)
+    names = [os.path.basename(os.path.normpath(o)) for o in a.other]
+    others = [n for n in names if n in builds]
+    r, sets = inputs(dev, kernels)
     result: dict = {"card": card}
 
     def order(names):
@@ -266,60 +382,61 @@ def main(argv=None) -> int:
         theirs = [n for n in others if n in names]
         return [*theirs, "this", *mine, *mine[::-1], "this", *theirs[::-1]]
 
-    # kernel R: every build bit-equal to this tree's, then in turns
-    rb = {n: b[1] for n, b in builds.items() if b[1] is not None}
-    want = raster_call(rb["this"], rargs, rkw)
-    for name, fn in rb.items():
-        got = raster_call(fn, rargs, rkw)
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-            f"raster_tiles ({name}) differs from this tree's"
-    timers = {n: (lambda fn=fn: raster_call(fn, rargs, rkw))
-              for n, fn in rb.items()}
-    for cap in CAPS:
-        timers[f"this, cap {cap}"] = (
-            lambda cap=cap: raster_call(rb["this"], rargs,
-                                        dict(rkw, cap=cap)))
-    result["raster_tiles"] = _turns(order(timers), timers, a.reps, dev)
-    _print("raster_tiles", result["raster_tiles"], a.reps, card)
+    for k in kernels:
+        call = _CALLS[k]
+        kb = {n: b[k] for n, b in builds.items() if k in b}
+        for label, (args, kw) in sets[k].items():
+            # every build bit-equal to this tree's (bvh_traverse with its
+            # visit counts)
+            extra = {"bvh_traverse": dict(visits=True)}.get(k, {})
+            want = call(*kb["this"], args, kw, **extra)
+            for name, (fn, new) in kb.items():
+                got = call(fn, new, args, kw, **extra)
+                assert _equal(got, want), \
+                    f"{k} ({name}) differs from this tree's on {label}"
+            timers = {n: (lambda fn=fn, new=new: call(fn, new, args, kw))
+                      for n, (fn, new) in kb.items()}
+            if k == "raster_tiles":
+                for cap in CAPS:
+                    timers[f"this, cap {cap}"] = (
+                        lambda cap=cap: call(*kb["this"], args,
+                                             dict(kw, cap=cap)))
+            key = f"{k} {label}"
+            result[key] = _turns(order(timers), timers, a.reps, dev)
+            _print(key, result[key], a.reps, card)
+    if "raster_ranged" in kernels:
+        from vri_tpu_torch.ops import rasterize
 
-    # kernel M, on each ray set
-    mb = {n: b for n, b in builds.items() if b[0] is not None}
-    for label, (margs, mkw) in march.items():
-        want = march_call(mb["this"][0], True, margs, mkw)
-        for name, (fn, _, counter) in mb.items():
-            got = march_call(fn, counter, margs, mkw)
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-                f"march_rays ({name}) differs from this tree's ({label})"
-        timers = {n: (lambda fn=b[0], c=b[2]: march_call(fn, c, margs, mkw))
-                  for n, b in mb.items()}
-        key = f"march_rays {label}"
-        result[key] = _turns(order(timers), timers, a.reps, dev)
-        _print(key, result[key], a.reps, card)
+        args, kw = sets["raster_ranged"]["chunks"]
+        tested = rasterize.raster_ranged(*args, **kw, pairs=True)[4]
+        result["raster_ranged pairs tested"] = int(tested.sum())
+        print(f"raster_ranged tests {int(tested.sum())} (tile, slot) pairs "
+              f"(this tree)", flush=True)
 
-    # the main-path frame without the host copy, with either tree's kernels
+    # the frames without the host copy, with either tree's kernels
     this_lib = _cuda.library()
-    om, orast, ocounter = builds[others[0]]
     swapped = types.SimpleNamespace(**vars(this_lib))
-    if orast is not None:
-        swapped.vri_raster_tiles = orast
-    if om is not None:
-        swapped.vri_march_rays = om if ocounter else (
-            lambda *args: om(*args[:14], args[15]))
-    libs = {others[0]: swapped, "this": this_lib}
+    theirs = builds.get(others[0], {}) if others else {}
+    for k, (fn, new) in theirs.items():
+        setattr(swapped, _entry_name(k), fn if new else _old_call(fn))
+    libs = {names[0]: swapped, "this": this_lib}
+    for label, picked, kw in FRAMES:
+        if not set(picked) & set(kernels):
+            continue
 
-    def frame(name):
-        _cuda._lib = libs[name]
-        try:
-            return time_ms(lambda: r.render(gi=True, to_numpy=False),
-                           a.frame_reps, dev)
-        finally:
-            _cuda._lib = this_lib
+        def frame(name, kw=kw):
+            _cuda._lib = libs[name]
+            try:
+                return time_ms(lambda: r.render(gi=True, to_numpy=False,
+                                                **kw), a.frame_reps, dev)
+            finally:
+                _cuda._lib = this_lib
 
-    result["frame"] = {others[0]: [], "this": []}
-    for name in (others[0], "this", "this", others[0]):
-        result["frame"][name].append(frame(name))
-    _print("frame without the host copy", result["frame"], a.frame_reps,
-           card)
+        times = {names[0]: [], "this": []}
+        for name in (names[0], "this", "this", names[0]):
+            times[name].append(frame(name))
+        result[label] = times
+        _print(f"{label} without the host copy", times, a.frame_reps, card)
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
