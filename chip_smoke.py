@@ -73,12 +73,14 @@ before the port is imported, so any import of either is fatal.  Phases
     colour, zero raster overflow, ``instance_id`` equal on >= 99% of the
     pixels;
 15. kernel ``template_walk``: the rows of ``vri_tpu_torch.tools.
-    micro_steps`` (packed, P 1024, TC 128, 4096 steps) and
-    ``micro_attrib`` (s5, s6), each with the counters reset first (only
-    ``template_walk`` launched), then held bit for bit against its plain
-    version on the row's inputs;
+    micro_steps`` (packed, P 1024, TC 128, 4096 steps), ``micro_worklist``
+    (full-highest, full-2pass) and ``micro_attrib`` (s5, s6), each with
+    the counters reset first (only ``template_walk`` launched), then held
+    bit for bit against its plain version on the row's inputs; then the
+    same work list over covering triangle templates in five modes, each
+    held the same way and timed beside its share of hits;
 16. kernel ``setup_walk``: ``micro_pass1``'s v3 row (5,313 steps), the
-    same way;
+    same way, and its work list over covering triangles, timed;
 17. kernel ``grouped_step``: ``micro_grouped``'s W = 8 and 32 rows (2,048
     steps), the same way.
 
@@ -312,33 +314,17 @@ def _drive(name: str, fn):
     return row, launches[name]
 
 
-def _covering_chunks(tiles, *, p: int, tc: int, setup: bool = False,
-                     seed: int = 7):
-    """One chunk of TC screen triangles around each of ``tiles`` (the
-    tools' grid: 15 tiles of 128 x P/128 pixels a row; ``setup``: the
-    setup walk's frame, x offset by tile % 15, TC pixels wide), depths
-    at a slant, integer slot ids: most pixels covered, many overlaps.
-    The tools' own templates are uniform in [0, 1) and cover almost no
-    pixel, so these hold the kernels' winner selection as well."""
-    from vri_tpu_torch.ops import worklist
-
-    rng = np.random.default_rng(seed)
-    t = np.repeat(np.asarray(tiles), tc)
-    if setup:
-        return worklist.setup_rows_from_triangles(
-            worklist.triangles_near(rng, t % 15, 0.0, tc, p // tc), tc)
-    tri = worklist.triangles_near(rng, (t % 15) * 128,
-                                  (t // 15) * (p // 128), 128, p // 128)
-    return worklist.templates_from_triangles(
-        tri, rng.integers(0, 1 << 20, t.shape[0]), tc)
-
-
-def _hold_covered(name: str, call, plain, card: str) -> None:
+def _hold_covered(name: str, call, plain, card: str) -> dict:
+    """Hold ``call()`` against ``plain()`` on covering triangle templates;
+    prints and returns the kernel's time (CUDA events, mean of 20) beside
+    the share of outputs that hit."""
     got = call()
     _held(name, got, plain)
-    print(f"{name} on covering triangle templates: "
-          f"{float((got[1] >= 0).double().mean()):.4f} of the outputs hit, "
-          f"equal to the plain version [{card}]")
+    ms = _time_ms(call, 20)
+    hit = float((got[1] >= 0).double().mean())
+    print(f"{name} on covering triangle templates: {ms:.4f} ms, {hit:.4f} "
+          f"of the outputs hit, equal to the plain version [{card}]")
+    return dict(ms=ms, hit=hit)
 
 
 def _worklist(dev, card: str, kernels: dict) -> None:
@@ -349,21 +335,28 @@ def _worklist(dev, card: str, kernels: dict) -> None:
     import torch
 
     from vri_tpu_torch.ops import worklist
-    from vri_tpu_torch.tools import (micro_attrib, micro_grouped,
-                                     micro_pass1, micro_steps)
+    from vri_tpu_torch.tools import (covering_chunks, micro_attrib,
+                                     micro_grouped, micro_pass1, micro_steps,
+                                     micro_worklist)
 
-    # -- 15. template walk: micro_steps packed, micro_attrib s5 and s6 ----
+    # -- 15. template walk: micro_steps packed, micro_worklist full-highest
+    # and full-2pass, micro_attrib s5 and s6 ---------------------------------
     entry, total = None, 0
-    rows = (("micro_steps packed P=1024 TC=128 n_work=4096", "bf16x2",
+    rows = (("micro_steps packed P=1024 TC=128 n_work=4096", "bf16x2", True,
              lambda: micro_steps.run(1024, 128, 4096, dev, variant="packed")),
-            ("micro_attrib s5", "bf16x3", lambda: micro_attrib.run(5, dev)),
-            ("micro_attrib s6", "k6", lambda: micro_attrib.run(6, dev)))
-    for label, evaluation, fn in rows:
+            ("micro_worklist full-highest", "f32", False,
+             lambda: micro_worklist.run("full-highest", dev)),
+            ("micro_worklist full-2pass", "bf16x2", False,
+             lambda: micro_worklist.run("full-2pass", dev)),
+            ("micro_attrib s5", "bf16x3", True,
+             lambda: micro_attrib.run(5, dev)),
+            ("micro_attrib s6", "k6", True, lambda: micro_attrib.run(6, dev)))
+    for label, evaluation, packed, fn in rows:
         row, n = _drive("template_walk", fn)
         total += n
-        args, k6 = row["args"], row["kw"].get("chunks_k6")
+        args, k6 = row["args"], row.get("kw", {}).get("chunks_k6")
         kw = dict(num_tiles=micro_steps.NUM_TILES, p=1024,
-                  evaluation=evaluation, translate=True, packed=True,
+                  evaluation=evaluation, translate=True, packed=packed,
                   chunks_k6=k6)
         got = worklist.template_walk(*args, **kw)
         plain_ms, err = _held("template_walk", got,
@@ -385,26 +378,28 @@ def _worklist(dev, card: str, kernels: dict) -> None:
                                        "tools/micro_worklist.py:22; "
                                        "tools/micro_attrib.py:44",
                          max_abs_err=err, ms=row["ms"], plain_ms=plain_ms,
-                         library_ms=None, **b)
+                         library_ms=None, rows={}, **b)
         else:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            entry.setdefault("rows", {})[label] = dict(
+            entry["rows"][label] = dict(
                 ms=row["ms"], plain_ms=plain_ms, bound_ms=b["bound_ms"])
     entry["launches"] = total
     kernels["template_walk"] = entry
     # the same work list over chunks that cover its tiles
     wt, _, fl, _ = micro_steps.inputs(128, 4096, dev)
     covered = (wt, wt, fl, torch.as_tensor(
-        _covering_chunks(range(2025), p=1024, tc=128), device=dev))
-    for evaluation, packed in (("bf16x2", False), ("bf16x2", True),
-                               ("bf16x3", True), ("k6", True)):
+        covering_chunks(range(2025), p=1024, tc=128), device=dev))
+    for evaluation, packed in (("f32", False), ("bf16x2", False),
+                               ("bf16x2", True), ("bf16x3", True),
+                               ("k6", True)):
         kw = dict(num_tiles=2025, p=1024, evaluation=evaluation,
                   translate=True, packed=packed,
                   chunks_k6=worklist.k6_operand(covered[3])
                   if evaluation == "k6" else None)
-        _hold_covered(
-            f"template_walk ({evaluation}, "
-            f"{'packed' if packed else 'per-lane'})",
+        label = (f"covering {evaluation} "
+                 f"{'packed' if packed else 'per-lane'}")
+        entry["rows"][label] = _hold_covered(
+            f"template_walk ({label[9:]})",
             lambda: worklist.template_walk(*covered, **kw),
             lambda: worklist.template_walk_reference(*covered, **kw), card)
 
@@ -426,17 +421,17 @@ def _worklist(dev, card: str, kernels: dict) -> None:
           f"pixels hit [{card}]")
     wt, _, fl, _ = args
     covered = (wt, wt, fl, torch.as_tensor(
-        _covering_chunks(range(2025), p=1024, tc=128, setup=True),
+        covering_chunks(range(2025), p=1024, tc=128, setup=True),
         device=dev))
-    _hold_covered("setup_walk",
-                  lambda: worklist.setup_walk(*covered, num_tiles=2025),
-                  lambda: worklist.setup_walk_reference(*covered,
-                                                        num_tiles=2025),
-                  card)
+    cover = _hold_covered(
+        "setup_walk", lambda: worklist.setup_walk(*covered, num_tiles=2025),
+        lambda: worklist.setup_walk_reference(*covered, num_tiles=2025),
+        card)
     kernels["setup_walk"] = dict(
         route="cuda", source="vri_tpu_torch/csrc/worklist.cu",
         replaces="tools/micro_pass1.py:33", launches=n, max_abs_err=err,
-        ms=row["ms"], plain_ms=plain_ms, library_ms=None, **b)
+        ms=row["ms"], plain_ms=plain_ms, library_ms=None,
+        rows={"covering v3": cover}, **b)
 
     # -- 17. grouped step: micro_grouped W = 8 and 32 -----------------------
     entry, total = None, 0
@@ -470,7 +465,7 @@ def _worklist(dev, card: str, kernels: dict) -> None:
     entry["launches"] = total
     kernels["grouped_step"] = entry
     # chunks around tile 0, the constant baked at its origin (0, 0)
-    ch = _covering_chunks([0] * 2048, p=1024, tc=128)
+    ch = covering_chunks([0] * 2048, p=1024, tc=128)
     ch[:, 2] = ch[:, 2] - ch[:, 0] * ch[:, 3] - ch[:, 1] * ch[:, 4]
     covered = (torch.arange(2048, dtype=torch.int32, device=dev),
                torch.as_tensor(ch, device=dev))

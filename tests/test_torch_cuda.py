@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vri_tpu_torch import RenderConfig, SDFConfig, scenes  # noqa: E402
+from vri_tpu_torch.ops.worklist import FULL_STAGE, WALK_KERNELS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -635,6 +636,142 @@ def test_timing_only_variants_launch():
         z, pos = worklist.setup_walk(*sargs, num_tiles=30, variant=v)
         torch.cuda.synchronize()
         assert (z == worklist.MISS_Z).all() and (pos == -1).all()
+
+
+WALK_P = (128, 256, 512, 1024, 2048, 4096)
+
+
+def _walk_equal(args, **kw):
+    from vri_tpu_torch.ops import worklist
+
+    got = worklist.template_walk(*args, **kw)
+    torch.cuda.synchronize()
+    want = worklist.template_walk_reference(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), kw
+    return got
+
+
+@pytest.mark.parametrize("p", WALK_P)
+@pytest.mark.parametrize("mode", [m[:2] for m in WALK_KERNELS
+                                  if m[2] == FULL_STAGE])
+def test_template_walk_every_mode_and_width(mode, p):
+    """Kernel ``template_walk`` in every full-stage mode at P = 128 to
+    4096 (one to four pixels a thread in a column, or in a row below 512)
+    and TC = 128 and 256, on the tools' draws and on triangle templates,
+    with the constant at the tile origin and at the template's."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    evaluation, packed = mode
+    for tc in (128, 256):
+        wt, wc, fl, draws = worklist.steps_inputs(
+            300, tc=tc, num_tiles=30, num_chunks=48, seed=p + tc)
+        tri = _triangle_templates(np.random.default_rng(tc), 48, tc,
+                                  p // 128)
+        for chunks in (draws, tri):
+            args = _cuda_tensors(wt, wc, fl, chunks)
+            k6 = worklist.k6_operand(args[3]) if evaluation == "k6" else None
+            for translate in (True, False):
+                got = _walk_equal(args, num_tiles=30, p=p,
+                                  evaluation=evaluation, translate=translate,
+                                  packed=packed, chunks_k6=k6)
+            if chunks is tri:
+                assert (got[1] >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("tc", [128, 256])
+def test_setup_walk_every_width(tc):
+    """Kernel ``setup_walk`` at every P the wrapper admits with TC
+    dividing it, variants 0 and 3, on the tool's draws and on covering
+    triangles."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    rng = np.random.default_rng(tc)
+    for p in [128 * m for m in range(1, 9)] + [2048, 4096]:
+        if p % tc:
+            continue
+        draws = _cuda_tensors(*worklist.pass1_inputs(
+            tc=tc, nt=40, wcap=120, nchunks=80, seed=p))
+        wt = draws[0].cpu().numpy()
+        t = np.repeat(wt, tc)
+        tri = worklist.setup_rows_from_triangles(
+            worklist.triangles_near(rng, t % 15, 0.0, tc, p // tc), tc)
+        covered = (draws[0], torch.arange(wt.shape[0], dtype=torch.int32,
+                                          device="cuda"), draws[2],
+                   torch.as_tensor(tri, device="cuda"))
+        for args in (draws, covered):
+            for variant in worklist.PASS1_DEFINED:
+                got = worklist.setup_walk(*args, num_tiles=40, p=p,
+                                          variant=variant)
+                torch.cuda.synchronize()
+                want = worklist.setup_walk_reference(*args, num_tiles=40,
+                                                     p=p, variant=variant)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (p, variant)
+        assert (got[1] >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("p", [128, 512, 4096])
+def test_walks_skip_broken_runs_at_other_widths(p):
+    """Broken runs (a first flag before the last, a run never closed) at
+    P of one, four and 32 rows: both walks leave them unwritten, as
+    their plain versions do."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    wt, wc, fl, _ = worklist.steps_inputs(300, num_tiles=30, num_chunks=48,
+                                          seed=p)
+    chunks = _triangle_templates(np.random.default_rng(p), 48, 128,
+                                 p // 128)
+    fl = fl.copy()
+    fl[np.flatnonzero(fl & worklist.LAST)[::3]] &= ~worklist.LAST
+    inner = np.flatnonzero((fl & (worklist.FIRST | worklist.LAST)) == 0)
+    fl[inner[::4]] |= worklist.FIRST
+    args = _cuda_tensors(wt, wc, fl, chunks)
+    for evaluation, packed in (("f32", False), ("bf16x2", True),
+                               ("bf16x3", True)):
+        _walk_equal(args, num_tiles=30, p=p, evaluation=evaluation,
+                    packed=packed)
+    swt, swc, sfl, sch = worklist.pass1_inputs(nt=40, wcap=120, nchunks=80,
+                                               seed=p)
+    sfl = sfl.copy()
+    sfl[np.flatnonzero(sfl & worklist.LAST)[::3]] &= ~worklist.LAST
+    sargs = _cuda_tensors(swt, swc, sfl, sch)
+    got = worklist.setup_walk(*sargs, num_tiles=40, p=p)
+    torch.cuda.synchronize()
+    want = worklist.setup_walk_reference(*sargs, num_tiles=40, p=p)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("p", WALK_P)
+def test_timing_only_variants_launch_at_every_width(p):
+    """The ladders' timing-only rungs (micro_attrib s0-s4, micro_pass1 v1
+    and v2) build and launch at every width; v1 and v2 leave the rows at
+    the miss values."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    for tc in (128, 256):
+        args = _cuda_tensors(*worklist.steps_inputs(120, tc=tc, num_tiles=30,
+                                                    num_chunks=16))
+        for stage in range(worklist.FULL_STAGE):
+            z, _ = worklist.template_walk(*args, num_tiles=30, p=p,
+                                          evaluation="bf16x3", packed=True,
+                                          stage=stage)
+            torch.cuda.synchronize()
+            assert z.shape == (30, p)
+        if p % tc:
+            continue
+        sargs = _cuda_tensors(*worklist.pass1_inputs(tc=tc, nt=30, wcap=80,
+                                                     nchunks=64))
+        for v in (1, 2):
+            z, pos = worklist.setup_walk(*sargs, num_tiles=30, p=p,
+                                         variant=v)
+            torch.cuda.synchronize()
+            assert (z == worklist.MISS_Z).all() and (pos == -1).all()
 
 
 @pytest.mark.parametrize("w", [8, 16, 32, 64])

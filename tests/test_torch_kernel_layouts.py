@@ -1,6 +1,6 @@
-"""The arithmetic and bookkeeping that the redesigned kernels M and R rely
-on, checked on the CPU (the kernels themselves run only on the card, in
-``tests/test_torch_cuda.py``).
+"""The arithmetic and bookkeeping that the redesigned kernels M, R, K6 and
+the work-list walks rely on, checked on the CPU (the kernels themselves
+run only on the card, in ``tests/test_torch_cuda.py``).
 
 * ``march_kernel.warp_step_efficiency`` against a brute count over warps.
 * ``rasterize.list_length_stats`` against numpy's percentiles and sums.
@@ -21,6 +21,15 @@ on, checked on the CPU (the kernels themselves run only on the card, in
   on multiples of 128 and 8; the kernel's float form of the predicate
   (floor of the quotient compared as a float) keeps the same pairs as the
   integer form.
+* The work-list walks (``csrc/worklist.cu``): a mirror of their thread ->
+  pixel map (``walk_shape``, ``pixel_of``; its constants read from the
+  source) covers each pixel once for every P the wrappers admit, with a
+  thread's pixels in one column or one row; every product of a pixel
+  coordinate and a staged bf16 factor (the tools' draws, covering
+  triangle templates, ``k6_operand``) equals its float64 value, which is
+  why the kernel may fuse it into its add, while FP32 factors' products
+  round; the walks' per-step-then-merge rule writes the per-lane rule's
+  winner on depths with forced ties.
 """
 
 import numpy as np
@@ -295,3 +304,208 @@ def test_ranged_cull_float_form(case):
     col, row = col.long(), row.long()
     ints = (tx0 <= col) & (col <= tx1) & (ty0 <= row) & (row <= ty1)
     assert flt.any() and torch.equal(flt, ints)
+
+
+# -- the work-list walks (csrc/worklist.cu) -----------------------------------
+
+def _walk_constants():
+    """kPx, kMaxThreads and kColumnFirst as csrc/worklist.cu writes them."""
+    import os
+    import re
+
+    from vri_tpu_torch import _cuda
+
+    with open(os.path.join(_cuda.CSRC, "worklist.cu")) as f:
+        text = f.read()
+    px = int(re.search(r"constexpr int kPx = (\d+);", text).group(1))
+    cap = int(re.search(r"constexpr int kMaxThreads = (\d+);",
+                        text).group(1))
+    first = re.search(r"constexpr bool kColumnFirst = (\w+);", text).group(1)
+    return px, cap, first == "true"
+
+
+def _walk_pixels(p, width, px, cap=1024, column_first=True):
+    """Mirror of worklist.cu:walk_shape and pixel_of: (layout, pixel index
+    (threads, ppt) of thread t's k-th pixel), or None for no layout."""
+    threads = min(p // px, cap)
+    ppt = p // threads
+    column, row = threads % width == 0, width % ppt == 0
+    t = np.arange(threads)[:, None]
+    k = np.arange(ppt)[None, :]
+    if column and (column_first or not row):
+        return "column", t + k * threads
+    if row:
+        return "row", t * ppt + k
+    return None
+
+
+WALK_P = [128 * m for m in range(1, 9)] + [2048, 4096]
+
+
+def test_walk_constants_are_the_mirrors():
+    assert _walk_constants() == (4, 1024, True)
+
+
+@pytest.mark.parametrize("p", WALK_P)
+@pytest.mark.parametrize("px", [2, 4, 8])
+@pytest.mark.parametrize("column_first", [True, False])
+def test_walk_pixel_map_covers_each_pixel_once(p, px, column_first):
+    """Every pixel of a tile belongs to one (thread, k) in the template
+    walk's layout (128 wide) and the setup walk's (TC wide, TC of 128 and
+    256 dividing P), and a thread's pixels share one column (one px) or
+    one row (one py)."""
+    for width in (128, 256):
+        if p % width:
+            continue
+        got = _walk_pixels(p, width, px, column_first=column_first)
+        assert got is not None
+        layout, pix = got
+        assert np.array_equal(np.sort(pix.ravel()), np.arange(p))
+        shared = pix % width if layout == "column" else pix // width
+        assert (shared == shared[:, :1]).all()
+        if width == 128 and px == 4:
+            # the kernel's own constants: P / 4 threads, 4 pixels each
+            assert pix.shape == (p // 4, 4)
+
+
+def _exact(x, f):
+    """x * f in float32 equals the float64 product, elementwise."""
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    return torch.equal((x32 * f).double(), x32.double() * f.double())
+
+
+def _staged_factors(kind, evaluation, p):
+    """Every factor the walk multiplies a pixel coordinate by, flattened:
+    the bf16 (or FP32) pairs of ``_template_terms`` for the tools' draws,
+    covering triangle templates, or (K=6) ``k6_operand``."""
+    from vri_tpu_torch.ops import worklist
+    from vri_tpu_torch.tools import covering_chunks
+
+    if kind == "draws":
+        *_, chunks = worklist.steps_inputs(8, num_tiles=30, num_chunks=8)
+    else:
+        chunks = covering_chunks(range(0, 2025, 253), p=p, tc=128)
+    rows = torch.as_tensor(chunks)
+    k6 = worklist.k6_operand(rows) if evaluation == "k6" else None
+    tiles = torch.arange(rows.shape[0]) * 253
+    pairs, _ = worklist._template_terms(rows, k6, tiles, p=p,
+                                        evaluation=evaluation,
+                                        translate=True)
+    return torch.cat([f.flatten() for pair in pairs for f in pair])
+
+
+@pytest.mark.parametrize("p", WALK_P)
+@pytest.mark.parametrize("evaluation", ["bf16x2", "bf16x3", "k6"])
+@pytest.mark.parametrize("kind", ["draws", "triangles"])
+def test_bf16_products_are_exact(p, evaluation, kind):
+    """The ground of the walks' fused products: every pixel coordinate
+    (k + 0.5: 9 significant bits) times every staged bf16 factor (8 bits)
+    is exact in FP32, so __fmaf_rn(x, f, acc) rounds as acc + x * f."""
+    f = _staged_factors(kind, evaluation, p)[None, :]
+    assert f.numel() > 0
+    px = 0.5 + np.arange(128)[:, None]
+    py = 0.5 + np.arange(p // 128)[:, None]
+    assert _exact(px, f) and _exact(py, f)
+
+
+@pytest.mark.parametrize("kind", ["draws", "triangles"])
+def test_fp32_products_are_not_exact(kind):
+    """The FP32 mode's factors carry 24 bits: their products with pixel
+    coordinates round, so a fused add would change the bits there."""
+    f = _staged_factors(kind, "f32", 1024)[None, :]
+    assert not _exact(0.5 + np.arange(128)[:, None], f)
+
+
+def _per_lane(z, sid):
+    """The per-lane rule over (steps, lanes, pixels): keep (z, lane) when
+    z < best or equal z at a lower lane (worklist_common.cuh:
+    lane_update, applied to every lane)."""
+    n_px = z.shape[2]
+    bz, bl, bs = np.full(n_px, 2.0), np.full(n_px, z.shape[1]), \
+        np.zeros(n_px)
+    for s in range(z.shape[0]):
+        for lane in range(z.shape[1]):
+            up = (z[s, lane] < bz) | ((z[s, lane] == bz) & (lane < bl))
+            bz, bl = np.where(up, z[s, lane], bz), np.where(up, lane, bl)
+            bs = np.where(up, sid[s, lane], bs)
+    return bz, bs
+
+
+def _step_then_merge(z, sid):
+    """The walks' rule (worklist.cu:take_covered, lane_update): per step
+    the first covering lane of least z (a strict "<" from the least float
+    above 1, so z = 2, a miss, is never taken), merged into the run's
+    best once a step by lane_update."""
+    n_px = z.shape[2]
+    bz, bl, bs = np.full(n_px, 2.0), np.full(n_px, z.shape[1]), \
+        np.zeros(n_px)
+    above_one = float(np.nextafter(np.float32(1.0), np.float32(2.0)))
+    for s in range(z.shape[0]):
+        sz, sl = np.full(n_px, above_one), np.zeros(n_px, np.int64)
+        for lane in range(z.shape[1]):
+            up = z[s, lane] < sz
+            sz, sl = np.where(up, z[s, lane], sz), np.where(up, lane, sl)
+        up = (sz < bz) | ((sz == bz) & (sl < bl))
+        bz, bl = np.where(up, sz, bz), np.where(up, sl, bl)
+        bs = np.where(up, sid[s][sl], bs)
+    return bz, bs
+
+
+def _finalized(bz, bs):
+    """What a walk writes: z and the slot where z <= 1, misses elsewhere."""
+    hit = bz <= 1.0
+    return np.where(hit, bz, 3e38), np.where(hit, bs, -1)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_step_merge_equals_the_per_lane_rule(seed):
+    """On depths from a few values (ties across lanes and steps, misses
+    at 2.0 and +-0), the walks' step-then-merge rule writes the per-lane
+    rule's winner, and both the plain version's (``worklist._combine``
+    over per-step minima); packed keys merged per step equal a strict
+    "<" per lane."""
+    from vri_tpu_torch.ops import worklist
+
+    rng = np.random.default_rng(seed)
+    steps, lanes, n_px = 5, 16, 256
+    z = rng.choice(np.array([0.0, -0.0, 0.25, 0.5, 0.75, 1.0, 2.0]),
+                   (steps, lanes, n_px), p=[.05, .05, .2, .2, .1, .1, .3])
+    sid = rng.permutation(steps * lanes).reshape(steps, lanes).astype(
+        np.float64)
+    want = _per_lane(z, sid)
+    got = _finalized(*_step_then_merge(z, sid))
+    assert np.array_equal(got[0], _finalized(*want)[0])
+    assert np.array_equal(got[1], _finalized(*want)[1])
+    # the plain version: per-step minimum, its lowest lane, then _combine
+    zt = torch.as_tensor(z, dtype=torch.float32).permute(0, 2, 1)
+    zmin = zt.min(-1).values
+    lane = torch.arange(lanes)
+    win = torch.where(zt == zmin[..., None], lane, lanes).min(-1).values
+    fl = torch.full((steps,), worklist.LIVE, dtype=torch.int32)
+    fl[0] |= worklist.FIRST
+    fl[-1] |= worklist.LAST
+    best, bsid = worklist._combine(
+        torch.tensor([0]), torch.tensor([steps - 1]), fl,
+        [zmin, win, torch.gather(torch.as_tensor(sid, dtype=torch.float32)
+                                 [:, None, :].expand(-1, n_px, -1), 2,
+                                 win[..., None])[..., 0]], False, lanes)
+    hit = want[0] <= 1.0
+    assert np.array_equal(best[0].numpy()[hit], want[0][hit])
+    assert np.array_equal(bsid[0].numpy()[hit], want[1][hit])
+    # packed: keys with the lane in the low bits, strict "<" per lane
+    # against the step's least key merged with a strict "<"
+    mask = ~((1 << worklist.lane_bits(lanes)) - 1)
+    key = (torch.as_tensor(z, dtype=torch.float32).view(torch.int32).numpy()
+           & mask) | np.arange(lanes)[None, :, None]
+    bk, bs = np.full(n_px, worklist.MISS_KEY), np.zeros(n_px)
+    mk, ms = bk.copy(), bs.copy()
+    for s in range(steps):
+        for lane in range(lanes):
+            up = key[s, lane] < bk
+            bk, bs = np.where(up, key[s, lane], bk), \
+                np.where(up, sid[s, lane], bs)
+        sk = key[s].min(0)
+        up = sk < mk
+        mk = np.where(up, sk, mk)
+        ms = np.where(up, sid[s][sk & ~mask], ms)
+    assert np.array_equal(mk, bk) and np.array_equal(ms, bs)

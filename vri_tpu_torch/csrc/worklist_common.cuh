@@ -1,5 +1,7 @@
 // Per-step staging and per-(pixel, lane) evaluation shared by the
-// work-list kernels (worklist.cu, worklist_grouped.cu).  The plain PyTorch
+// work-list kernels (worklist.cu, worklist_grouped.cu): the grouped step
+// stages a chunk row-major (stage_chunk), the walks one record a lane
+// (worklist.cu); both from column_terms.  The plain PyTorch
 // versions in vri_tpu_torch/ops/worklist.py (_template_terms, _evaluate,
 // _covered_depth) follow the same operation order; the library is built
 // with -fmad=false, so every product and sum rounds on its own, as
@@ -39,49 +41,60 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Stage one chunk (8, 3 TC) into shared memory: s[k * ncol + c] holds the
-// column's factors (a, b for FP32; hi, lo -- or hi, mid, lo -- pairs of
-// the bf16 split; the six pre-split K=6 rows), then its constant, moved
-// to the tile origin (fx0, fy0) when `translate` is set:
-// (a * (fx0 - ox) + b * (fy0 - oy)) + c.  sid[l] = row 5 for l < TC.
+// The staged terms of column c of a chunk (8, 3 TC) into t[0 ..
+// staged_rows - 1]: the column's factors (a, b for FP32; hi, lo -- or hi,
+// mid, lo -- pairs of the bf16 split; the six pre-split K=6 rows), then
+// its constant, moved to the tile origin (fx0, fy0) when `translate` is
+// set: (a * (fx0 - ox) + b * (fy0 - oy)) + c.
+template <int EVAL>
+__device__ __forceinline__ void column_terms(
+    const float* __restrict__ rows, const uint16_t* __restrict__ rows_k6,
+    int ncol, int c, bool translate, float fx0, float fy0, float* t) {
+  const float a = rows[c];
+  const float b = rows[ncol + c];
+  float k = rows[2 * ncol + c];
+  if (translate) {
+    const float dx = fx0 - rows[3 * ncol + c];
+    const float dy = fy0 - rows[4 * ncol + c];
+    k = (a * dx + b * dy) + k;
+  }
+  if (EVAL == kF32) {
+    t[0] = a;
+    t[1] = b;
+  } else if (EVAL == kK6) {
+    for (int j = 0; j < 6; ++j)
+      t[j] = __uint_as_float((uint32_t)rows_k6[j * ncol + c] << 16);
+  } else {
+    const float ha = bf16_round(a), hb = bf16_round(b);
+    const float ra = a - ha, rb = b - hb;
+    t[0] = ha;
+    t[1] = hb;
+    if (EVAL == kBf16x2) {
+      t[2] = bf16_round(ra);
+      t[3] = bf16_round(rb);
+    } else {
+      const float ma = bf16_round(ra), mb = bf16_round(rb);
+      t[2] = ma;
+      t[3] = mb;
+      t[4] = bf16_round(ra - ma);
+      t[5] = bf16_round(rb - mb);
+    }
+  }
+  t[staged_rows<EVAL>() - 1] = k;
+}
+
+// Stage one chunk (8, 3 TC) into shared memory row-major: s[k * ncol + c]
+// holds term k of column c (column_terms); sid[l] = row 5 for l < TC.
 template <int EVAL>
 __device__ void stage_chunk(const float* __restrict__ rows,
                             const uint16_t* __restrict__ rows_k6, int ncol,
                             int tc, bool translate, float fx0, float fy0,
                             float* s, float* sid) {
   for (int c = threadIdx.x; c < ncol; c += blockDim.x) {
-    const float a = rows[c];
-    const float b = rows[ncol + c];
-    float k = rows[2 * ncol + c];
-    if (translate) {
-      const float dx = fx0 - rows[3 * ncol + c];
-      const float dy = fy0 - rows[4 * ncol + c];
-      k = (a * dx + b * dy) + k;
-    }
-    if (EVAL == kF32) {
-      s[c] = a;
-      s[ncol + c] = b;
-    } else if (EVAL == kK6) {
-      for (int j = 0; j < 6; ++j)
-        s[j * ncol + c] =
-            __uint_as_float((uint32_t)rows_k6[j * ncol + c] << 16);
-    } else {
-      const float ha = bf16_round(a), hb = bf16_round(b);
-      const float ra = a - ha, rb = b - hb;
-      s[c] = ha;
-      s[ncol + c] = hb;
-      if (EVAL == kBf16x2) {
-        s[2 * ncol + c] = bf16_round(ra);
-        s[3 * ncol + c] = bf16_round(rb);
-      } else {
-        const float ma = bf16_round(ra), mb = bf16_round(rb);
-        s[2 * ncol + c] = ma;
-        s[3 * ncol + c] = mb;
-        s[4 * ncol + c] = bf16_round(ra - ma);
-        s[5 * ncol + c] = bf16_round(rb - mb);
-      }
-    }
-    s[(staged_rows<EVAL>() - 1) * ncol + c] = k;
+    float t[staged_rows<EVAL>()];
+    column_terms<EVAL>(rows, rows_k6, ncol, c, translate, fx0, fy0, t);
+#pragma unroll
+    for (int k = 0; k < staged_rows<EVAL>(); ++k) s[k * ncol + c] = t[k];
     if (c < tc) sid[c] = rows[5 * ncol + c];
   }
 }
@@ -139,16 +152,20 @@ __device__ __forceinline__ float covered_depth(const float* s, int ncol,
 }
 
 // The per-lane rule: keep the lexicographic minimum of (z, lane, step),
-// walking steps and lanes in order; `id` is what the winner carries (its
-// slot id, or micro_pass1's position).
-__device__ __forceinline__ void lane_update(float zm, int l, float id,
-                                            float& bz, int& bl,
-                                            float& bid) {
+// walking steps and lanes in order.  The walks apply it once a step, to
+// the step's own minimum (z, lane) -- the first lane of the step's least
+// z, which a strict "<" over ascending lanes keeps -- and that gives the
+// minimum over every (lane, step) as well.  True where (zm, l) wins; the
+// caller then sets what the winner carries (its slot id, or
+// micro_pass1's position).
+__device__ __forceinline__ bool lane_update(float zm, int l, float& bz,
+                                            int& bl) {
   if (zm < bz || (zm == bz && l < bl)) {
     bz = zm;
     bl = l;
-    bid = id;
+    return true;
   }
+  return false;
 }
 
 // One output pixel: the winner's z and id where it covers (z <= 1), the

@@ -94,8 +94,8 @@ WALK_KERNELS = (("f32", False, FULL_STAGE), ("bf16x2", False, FULL_STAGE),
                 ("k6", True, FULL_STAGE)) + tuple(
                     ("bf16x3", True, s) for s in range(FULL_STAGE))
 
-#: supported kernel shapes: P a multiple of 128 up to 1024 (one thread a
-#: pixel), or 2048 or 4096 (1024 threads, 2 or 4 pixels a thread)
+#: supported kernel shapes: P a multiple of 128 up to 1024, or 2048 or
+#: 4096 (the walks run P / 4 threads, 4 pixels a thread)
 _WIDE_P = (2048, 4096)
 
 
@@ -614,7 +614,8 @@ def template_walk(wt: torch.Tensor, wc: torch.Tensor, fl: torch.Tensor,
                   chunks_k6: torch.Tensor | None = None):
     """Template walk wrapper (see :func:`template_walk_reference`): CUDA
     tensors launch ``csrc/worklist.cu`` (one block per step, walking the
-    tile run that starts there), with no host synchronization; CPU
+    tile run that starts there; P / 4 threads, 4 pixels a thread), with
+    no host synchronization (two output fills and one launch); CPU
     tensors run the plain version.  ``stage`` < 5 selects a timing-only
     rung of ``micro_attrib``'s ladder (packed, bf16x3), which runs only
     on the card.  Returns (z, slot), each (num_tiles, P)."""

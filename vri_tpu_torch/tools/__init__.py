@@ -14,8 +14,9 @@ which scalar arithmetic runs instead.
 * ``prof_worklist``: the stages of the sorted raster tier (kernel R).
 
 It also holds what these tools share with ``chip_smoke.py``: the card
-line, the CUDA-event timer and the ray sets that hold ``bvh_traverse``
-against its plain version (:func:`bvh_ray_sets`).
+line, the CUDA-event timer, the ray sets that hold ``bvh_traverse``
+against its plain version (:func:`bvh_ray_sets`) and the work-list chunks
+that cover their tiles (:func:`covering_chunks`).
 """
 
 from __future__ import annotations
@@ -105,3 +106,26 @@ def bvh_ray_sets(r, h: int, w: int):
             rng.uniform(lo, hi, (m, 3)),
             dv / np.linalg.norm(dv, axis=-1, keepdims=True),
             rng.uniform(0.05, float(np.abs(hi - lo).max()), m)))}
+
+
+def covering_chunks(tiles, *, p: int, tc: int, setup: bool = False,
+                    seed: int = 7):
+    """One chunk of TC screen triangles around each of ``tiles`` (the
+    tools' grid: 15 tiles of 128 x P/128 pixels a row; ``setup``: the
+    setup walk's frame, x offset by tile % 15, TC pixels wide), depths
+    at a slant, integer slot ids: most pixels covered, many overlaps.
+    The tools' own templates are uniform in [0, 1) and cover almost no
+    pixel, so these hold the kernels' winner selection as well."""
+    import numpy as np
+
+    from vri_tpu_torch.ops import worklist
+
+    rng = np.random.default_rng(seed)
+    t = np.repeat(np.asarray(tiles), tc)
+    if setup:
+        return worklist.setup_rows_from_triangles(
+            worklist.triangles_near(rng, t % 15, 0.0, tc, p // tc), tc)
+    tri = worklist.triangles_near(rng, (t % 15) * 128,
+                                  (t // 15) * (p // 128), 128, p // 128)
+    return worklist.templates_from_triangles(
+        tri, rng.integers(0, 1 << 20, t.shape[0]), tc)
