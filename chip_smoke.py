@@ -14,7 +14,8 @@ before the port is imported, so any import of either is fatal.  Phases
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once;
+   process per source, all at once; prints each source's ptxas registers
+   and spills (``_cuda.compiler_log``) and fails where there are none;
 3. kernel R (``raster_tiles``) against its plain PyTorch version on the
    frame's real tile lists: slots, z, u and v bit-equal; the lists'
    length distribution (mean, p50, p99, longest, the pairs' share in the
@@ -82,7 +83,11 @@ before the port is imported, so any import of either is fatal.  Phases
 16. kernel ``setup_walk``: ``micro_pass1``'s v3 row (5,313 steps), the
     same way, and its work list over covering triangles, timed;
 17. kernel ``grouped_step``: ``micro_grouped``'s W = 8 and 32 rows (2,048
-    steps), the same way.
+    steps), the same way (the entry's ``rows`` list both; its ptxas
+    registers and spills are phase 2's ``worklist_grouped.cu`` lines);
+    then chunks that cover tile 0 at W = 8 and the forced-tie templates
+    (``worklist.grouped_tie_inputs``: key ties won by a larger z, exact z
+    ties) at W = 1, 8, 32 and 128, each held bit for bit and timed.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
@@ -314,17 +319,26 @@ def _drive(name: str, fn):
     return row, launches[name]
 
 
-def _hold_covered(name: str, call, plain, card: str) -> dict:
-    """Hold ``call()`` against ``plain()`` on covering triangle templates;
-    prints and returns the kernel's time (CUDA events, mean of 20) beside
-    the share of outputs that hit."""
+def _hold_covered(name: str, call, plain, card: str,
+                  inputs: str = "covering triangle templates") -> dict:
+    """Hold ``call()`` against ``plain()`` on ``inputs`` (covering triangle
+    templates); prints and returns the kernel's time (CUDA events, mean of
+    20) beside the share of outputs that hit."""
     got = call()
     _held(name, got, plain)
     ms = _time_ms(call, 20)
     hit = float((got[1] >= 0).double().mean())
-    print(f"{name} on covering triangle templates: {ms:.4f} ms, {hit:.4f} "
+    print(f"{name} on {inputs}: {ms:.4f} ms, {hit:.4f} "
           f"of the outputs hit, equal to the plain version [{card}]")
     return dict(ms=ms, hit=hit)
+
+
+def _ptxas(source: str) -> list:
+    """ptxas's register and spill lines from the build of one source."""
+    from vri_tpu_torch import _cuda
+
+    return [line.strip() for line in _cuda.compiler_log(source).splitlines()
+            if "registers" in line or "spill" in line]
 
 
 def _worklist(dev, card: str, kernels: dict) -> None:
@@ -335,8 +349,9 @@ def _worklist(dev, card: str, kernels: dict) -> None:
     import torch
 
     from vri_tpu_torch.ops import worklist
-    from vri_tpu_torch.tools import (covering_chunks, micro_attrib,
-                                     micro_grouped, micro_pass1, micro_steps,
+    from vri_tpu_torch.tools import (covering_chunks, grouped_covering,
+                                     micro_attrib, micro_grouped,
+                                     micro_pass1, micro_steps,
                                      micro_worklist)
 
     # -- 15. template walk: micro_steps packed, micro_worklist full-highest
@@ -457,22 +472,26 @@ def _worklist(dev, card: str, kernels: dict) -> None:
                          source="vri_tpu_torch/csrc/worklist_grouped.cu",
                          replaces="tools/micro_grouped.py:32",
                          max_abs_err=err, ms=row["ms"], plain_ms=plain_ms,
-                         library_ms=None, **b)
-        else:
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            entry["rows"] = {f"W={w}": dict(ms=row["ms"], plain_ms=plain_ms,
-                                            bound_ms=b["bound_ms"])}
+                         library_ms=None, rows={}, **b)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["rows"][f"W={w}"] = dict(ms=row["ms"], plain_ms=plain_ms,
+                                       bound_ms=b["bound_ms"])
     entry["launches"] = total
     kernels["grouped_step"] = entry
-    # chunks around tile 0, the constant baked at its origin (0, 0)
-    ch = covering_chunks([0] * 2048, p=1024, tc=128)
-    ch[:, 2] = ch[:, 2] - ch[:, 0] * ch[:, 3] - ch[:, 1] * ch[:, 4]
-    covered = (torch.arange(2048, dtype=torch.int32, device=dev),
-               torch.as_tensor(ch, device=dev))
-    _hold_covered("grouped_step (W=8)",
-                  lambda: worklist.grouped_step(*covered, w=8),
-                  lambda: worklist.grouped_step_reference(*covered, w=8),
-                  card)
+    covered = tuple(torch.as_tensor(x, device=dev)
+                    for x in grouped_covering(2048))
+    entry["rows"]["covering W=8"] = _hold_covered(
+        "grouped_step (W=8)", lambda: worklist.grouped_step(*covered, w=8),
+        lambda: worklist.grouped_step_reference(*covered, w=8), card)
+    # the forced-tie templates: key ties won by a larger z, exact z ties
+    for w in (1, 8, 32, 128):
+        ties = tuple(torch.as_tensor(x, device=dev) for x in
+                     worklist.grouped_tie_inputs(2048, w=w, seed=w))
+        entry["rows"][f"forced ties W={w}"] = _hold_covered(
+            f"grouped_step (W={w})",
+            lambda: worklist.grouped_step(*ties, w=w),
+            lambda: worklist.grouped_step_reference(*ties, w=w), card,
+            inputs="forced-tie templates")
 
 
 def _tagged(fn, tag: str, log: list):
@@ -673,12 +692,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(os.path.basename(p) for p in lib_paths.values())}) "
           f"[{card}]")
-    if _cuda.build_log:
-        with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-            f.write(_cuda.build_log)
-        for line in _cuda.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+        for src in _cuda.SOURCES:
+            f.write(f"== {src}\n{_cuda.compiler_log(src)}")
+    for src in _cuda.SOURCES:
+        lines = _ptxas(src)
+        _check(lines, f"{src}: no ptxas output beside its library")
+        for line in lines:
+            print(f"  ptxas ({src}): {line}")
 
     h, w = 1080, 1920
     sdf_cfg = SDFConfig.preset("room")

@@ -774,22 +774,47 @@ def test_timing_only_variants_launch_at_every_width(p):
             assert (z == worklist.MISS_Z).all() and (pos == -1).all()
 
 
-@pytest.mark.parametrize("w", [8, 16, 32, 64])
-@pytest.mark.parametrize("kind", ["draws", "triangles"])
-def test_grouped_step_matches_plain_version(w, kind):
+def _grouped_equal(args, **kw):
+    from vri_tpu_torch.ops import worklist
+
+    got = worklist.grouped_step(*args, **kw)
+    torch.cuda.synchronize()
+    want = worklist.grouped_step_reference(*args, **kw)
+    for g, wv in zip(got, want):
+        assert torch.equal(g, wv), kw
+    return got
+
+
+@pytest.mark.parametrize("p", [128, 512, 1024])
+@pytest.mark.parametrize("w", [1, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["draws", "triangles", "ties"])
+def test_grouped_step_matches_plain_version(w, kind, p):
+    """Kernel ``grouped_step`` at every W from 1 (a block shorter than the
+    lane unroll) to TC, at P = 128 (4 pixels a thread in a row), 512 (a
+    column of one tile row a block) and 1024 (a column of two), on the
+    tool's draws, triangle templates and the forced-tie templates (keys
+    tied in their cleared bits and exact z ties in every block)."""
     from vri_tpu_torch.ops import worklist
 
     _card()
     wc, chunks = worklist.grouped_inputs(96, num_chunks=64, seed=4)
     if kind == "triangles":
-        chunks = _triangle_templates(np.random.default_rng(5), 64, 128, 8,
-                                     tiles=1)
+        chunks = _triangle_templates(np.random.default_rng(5), 64, 128,
+                                     p // 128, tiles=1)
         # the constant at the tile origin (0, 0), as the grouped prep bakes
         chunks[:, 2] = chunks[:, 2] - chunks[:, 0] * chunks[:, 3] \
             - chunks[:, 1] * chunks[:, 4]
-    args = _cuda_tensors(wc, chunks)
-    got = worklist.grouped_step(*args, w=w)
-    torch.cuda.synchronize()
-    want = worklist.grouped_step_reference(*args, w=w)
-    for g, wv in zip(got, want):
-        assert torch.equal(g, wv)
+    elif kind == "ties":
+        wc, chunks = worklist.grouped_tie_inputs(96, w=w, seed=w)
+    _grouped_equal(_cuda_tensors(wc, chunks), w=w, p=p)
+
+
+@pytest.mark.parametrize("tc", [32, 256])
+def test_grouped_step_other_lane_counts(tc):
+    """TC other than the tool's 128: the key clears lane_bits(TC) bits."""
+    from vri_tpu_torch.ops import worklist
+
+    _card()
+    for w in (1, 4, tc):
+        wc, chunks = worklist.grouped_tie_inputs(48, w=w, tc=tc, seed=tc)
+        _grouped_equal(_cuda_tensors(wc, chunks), w=w, p=1024)

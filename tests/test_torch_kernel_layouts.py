@@ -30,7 +30,14 @@ run only on the card, in ``tests/test_torch_cuda.py``).
   why the kernel may fuse it into its add, while FP32 factors' products
   round; the walks' per-step-then-merge rule writes the per-lane rule's
   winner on depths with forced ties.
+* The grouped step (``csrc/worklist_grouped.cu``): its block of P / 4
+  threads (``block_shape``, the walks' map) covers each pixel of P = 128
+  to 1024 once with coalesced stores, and every pixel coordinate times
+  every bf16 factor of its inputs (the tool's draws, the forced-tie
+  templates) is exact.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -310,7 +317,6 @@ def test_ranged_cull_float_form(case):
 
 def _walk_constants():
     """kPx, kMaxThreads and kColumnFirst as csrc/worklist.cu writes them."""
-    import os
     import re
 
     from vri_tpu_torch import _cuda
@@ -344,6 +350,48 @@ WALK_P = [128 * m for m in range(1, 9)] + [2048, 4096]
 
 def test_walk_constants_are_the_mirrors():
     assert _walk_constants() == (4, 1024, True)
+
+
+def _grouped_constants():
+    """kGroupPx, kGroupColumnFirst and kGroupThreads (as its expression)
+    as csrc/worklist_grouped.cu writes them."""
+    import re
+
+    from vri_tpu_torch import _cuda
+
+    with open(os.path.join(_cuda.CSRC, "worklist_grouped.cu")) as f:
+        text = f.read()
+    px = int(re.search(r"constexpr int kGroupPx = (\d+);", text).group(1))
+    first = re.search(r"constexpr bool kGroupColumnFirst = (\w+);",
+                      text).group(1)
+    threads = re.search(r"constexpr int kGroupThreads = ([^;]+);",
+                        text).group(1)
+    return px, first == "true", threads
+
+
+GROUPED_P = [128 * m for m in range(1, 9)]
+
+
+@pytest.mark.parametrize("p", GROUPED_P)
+def test_grouped_pixel_map(p):
+    """The grouped step's block (block_shape with kGroupPx, at most
+    kGroupThreads = 1024 / kGroupPx threads): P / 4 threads, 4 pixels a
+    thread covering each pixel once, in one column where the block is a
+    whole number of tile rows (P = 512, 1024) and in one row elsewhere;
+    for each k, consecutive threads hold consecutive
+    pixels (column) or pixels 4 apart in one 512-byte span (row), so a
+    warp's stores to a group row stay within 128 or 512 bytes."""
+    px, column_first, threads = _grouped_constants()
+    assert (px, column_first, threads) == (4, True, "1024 / kGroupPx")
+    layout, pix = _walk_pixels(p, 128, px, cap=1024 // px,
+                               column_first=column_first)
+    assert pix.shape == (p // 4, 4)
+    assert np.array_equal(np.sort(pix.ravel()), np.arange(p))
+    assert layout == ("column" if p % 512 == 0 else "row")
+    shared = pix % 128 if layout == "column" else pix // 128
+    assert (shared == shared[:, :1]).all()
+    step = np.diff(pix, axis=0)
+    assert (step == (1 if layout == "column" else 4)).all()
 
 
 @pytest.mark.parametrize("p", WALK_P)
@@ -403,6 +451,37 @@ def test_bf16_products_are_exact(p, evaluation, kind):
     is exact in FP32, so __fmaf_rn(x, f, acc) rounds as acc + x * f."""
     f = _staged_factors(kind, evaluation, p)[None, :]
     assert f.numel() > 0
+    px = 0.5 + np.arange(128)[:, None]
+    py = 0.5 + np.arange(p // 128)[:, None]
+    assert _exact(px, f) and _exact(py, f)
+
+
+def _grouped_factors(kind):
+    """Every bf16 hi and lo factor the grouped step multiplies a pixel
+    coordinate by, flattened: of ``grouped_inputs`` (the tool's draws) or
+    of the forced-tie templates at W 1, 8 and 128."""
+    from vri_tpu_torch.ops import worklist
+
+    if kind == "draws":
+        chunks = [worklist.grouped_inputs(8, num_chunks=8)[1]]
+    else:
+        chunks = [worklist.grouped_tie_inputs(8, w=w, seed=w)[1]
+                  for w in (1, 8, 128)]
+    rows = torch.as_tensor(np.concatenate(chunks))
+    pairs, _ = worklist._template_terms(rows, None, None, p=1024,
+                                        evaluation="bf16x2",
+                                        translate=False)
+    return torch.cat([f.flatten() for pair in pairs for f in pair])
+
+
+@pytest.mark.parametrize("p", GROUPED_P)
+@pytest.mark.parametrize("kind", ["draws", "ties"])
+def test_grouped_bf16_products_are_exact(p, kind):
+    """The ground of the grouped step's fused products (``record_field``,
+    as the walks): every pixel coordinate of a P-pixel tile times every
+    bf16 hi and lo factor of its inputs equals its float64 value."""
+    f = _grouped_factors(kind)[None, :]
+    assert f.numel() > 0 and bool((f != 0).any())
     px = 0.5 + np.arange(128)[:, None]
     py = 0.5 + np.arange(p // 128)[:, None]
     assert _exact(px, f) and _exact(py, f)
@@ -509,3 +588,18 @@ def test_step_merge_equals_the_per_lane_rule(seed):
         mk = np.where(up, sk, mk)
         ms = np.where(up, sid[s][sk & ~mask], ms)
     assert np.array_equal(mk, bk) and np.array_equal(ms, bs)
+
+
+def test_compiler_log_sits_beside_its_library(tmp_path, monkeypatch):
+    """``_cuda.compiler_log`` reads the ptxas output kept beside a
+    source's current library (``chip_smoke.py`` prints the grouped step's
+    registers from it), and is empty before that library is built."""
+    from vri_tpu_torch import _cuda
+
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path))
+    assert _cuda.compiler_log("worklist_grouped.cu") == ""
+    lib = _cuda.library_paths()["worklist_grouped.cu"]
+    assert os.path.dirname(lib) == str(tmp_path)
+    with open(lib[:-3] + ".log", "w") as f:
+        f.write("ptxas info    : Used 58 registers\n")
+    assert "58 registers" in _cuda.compiler_log("worklist_grouped.cu")

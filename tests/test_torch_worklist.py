@@ -457,6 +457,49 @@ def test_micro_grouped_step(w, kind):
         assert hits > 0.1 * zg.numel()
 
 
+def _block_ties(chunks, wc, w):
+    """(key ties, exact ties) of the grouped step's block winners: pixels
+    (of every step and block) where a covering lane with the winner's key
+    quantum has a smaller z than the winner, and where another lane has
+    the winner's z exactly."""
+    out = worklist.template_fields(torch.as_tensor(chunks),
+                                   torch.as_tensor(wc), None, p=P,
+                                   evaluation="bf16x2", translate=False)
+    zm = worklist._covered_depth(out, TC).numpy()
+    mask = ~((1 << worklist.lane_bits(TC)) - 1)
+    q = (zm.view(np.int32) & mask).reshape(*zm.shape[:2], TC // w, w)
+    zb = zm.reshape(q.shape)
+    win = (q | np.arange(w)).argmin(-1)[..., None]
+    qw = np.take_along_axis(q, win, -1)
+    zw = np.take_along_axis(zb, win, -1)
+    hit = zw[..., 0] <= 1.0
+    key = ((q == qw) & (zb <= 1.0) & (zb < zw)).any(-1) & hit
+    exact = ((zb == zw).sum(-1) >= 2) & hit
+    return int(key.sum()), int(exact.sum())
+
+
+@pytest.mark.parametrize("w", [8, 16, 32, 64])
+def test_micro_grouped_step_forced_ties(w):
+    """T2 interpreted and the plain version bit-equal, z and slot, at every
+    pixel, on templates whose every product and sum is exact
+    (``grouped_tie_inputs``), with key ties (the lowest lane of a key
+    quantum wins though a later lane's z is smaller) and exact z ties."""
+    ns = _tool("micro_grouped", GROUPED_DEFS, P=P, TC=TC, NUM_CHUNKS=16)
+    wc, chunks = worklist.grouped_tie_inputs(2, w=w, tc=TC, seed=w)
+    zt, st = (np.asarray(x) for x in ns["call_grouped"](
+        w, wc.shape[0], jnp.asarray(wc), jnp.asarray(chunks),
+        interpret=True))
+    zg, sg = (x.numpy() for x in worklist.grouped_step(*_t(wc, chunks),
+                                                       w=w, p=P))
+    key, exact = _block_ties(chunks, wc, w)
+    hits = int((sg >= 0).sum())
+    print(f"micro_grouped W={w} forced ties: {hits} hits, {key} key ties "
+          f"won by a larger z, {exact} exact z ties")
+    assert key > 0 and exact > 0 and hits > 0.1 * sg.size
+    assert np.array_equal(zg.view(np.int32), zt.view(np.int32))
+    assert np.array_equal(sg, st)
+
+
 def test_micro_grouped_check_runs_on_cpu(capsys):
     from vri_tpu_torch.tools import micro_grouped
 

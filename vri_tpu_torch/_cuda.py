@@ -8,7 +8,8 @@ entry point launches on the stream it is given and returns
 exception.  The libraries land in ``vri_tpu_torch/_build/`` under names
 that carry a digest of the flags and of every file under ``csrc/``
 (shared headers included), so an edited source or header is never served
-by a stale build.  Nothing here runs at import time.
+by a stale build; each library's compiler output is kept beside it
+(:func:`compiler_log`).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -56,9 +57,6 @@ _ENTRIES = {
 }
 
 _lib = None
-#: compiler output of the builds this process made (None when every
-#: library was already built)
-build_log: str | None = None
 
 
 def _nvcc() -> str:
@@ -89,7 +87,6 @@ def library_paths() -> dict:
 def build() -> dict:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all started together; returns :func:`library_paths`."""
-    global build_log
     paths = library_paths()
     todo = {s: p for s, p in paths.items() if not os.path.exists(p)}
     if not todo:
@@ -104,20 +101,30 @@ def build() -> dict:
             [nvcc, *FLAGS, "-o", tmp, os.path.join(CSRC, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, out, tmp, proc))
-    logs, failed = [], []
+    failed = []
     for src, out, tmp, proc in jobs:
         text = proc.communicate()[0]
-        logs.append(f"== {src}\n{text}")
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed on {src} ({proc.returncode}):\n"
                           f"{text}")
         else:
+            with open(out[:-3] + ".log", "w") as f:
+                f.write(text)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    build_log = "".join(logs)
     return paths
+
+
+def compiler_log(source: str) -> str:
+    """``nvcc``'s output (ptxas's registers and spills) from the build of
+    ``source``'s current library, kept beside it; "" before the build."""
+    path = library_paths()[source][:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def library() -> types.SimpleNamespace:

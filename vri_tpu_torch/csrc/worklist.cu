@@ -114,110 +114,6 @@ __device__ __forceinline__ void take_covered(float l1, float l2, float z,
   sl = take ? l : sl;
 }
 
-enum Layout { kColumn = 0, kRow = 1 };
-
-// Floats of a lane's staged record: three fields' factors and constant,
-// padded to a multiple of 4.
-template <int EVAL>
-__host__ __device__ constexpr int record_floats() {
-  return (3 * staged_rows<EVAL>() + 3) / 4 * 4;
-}
-
-// Pixel k of thread t in a block of T threads holding PPT pixels each.
-template <int LAYOUT, int PPT>
-__device__ __forceinline__ int pixel_of(int t, int T, int k) {
-  return LAYOUT == kRow ? t * PPT + k : t + k * T;
-}
-
-// Pixel centers of thread t on a `width`-wide tile; in the column layout
-// every px[k] is one value, in the row layout every py[k].
-template <int LAYOUT, int PPT>
-__device__ __forceinline__ void pixel_centers(int width, float* px,
-                                              float* py) {
-  const int t = threadIdx.x, T = blockDim.x;
-  const int p0 = pixel_of<LAYOUT, PPT>(t, T, 0);
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = pixel_of<LAYOUT, PPT>(t, T, k);
-    px[k] = 0.5f + (float)((LAYOUT == kColumn ? p0 : p) % width);
-    py[k] = 0.5f + (float)((LAYOUT == kRow ? p0 : p) / width);
-  }
-}
-
-// Copy the chunk's lanes into records: rec[l * RW + f * S + j] is term j
-// of field f of lane l (column_terms), sid[l] its slot id.
-template <int EVAL>
-__device__ void stage_records(const float* __restrict__ rows,
-                              const uint16_t* __restrict__ rows_k6, int tc,
-                              bool translate, float fx0, float fy0,
-                              float* rec, float* sid) {
-  constexpr int S = staged_rows<EVAL>(), RW = record_floats<EVAL>();
-  const int ncol = 3 * tc;
-  for (int l = threadIdx.x; l < tc; l += blockDim.x) {
-    float r[RW];
-#pragma unroll
-    for (int f = 0; f < 3; ++f)
-      column_terms<EVAL>(rows, rows_k6, ncol, f * tc + l, translate, fx0,
-                         fy0, r + f * S);
-#pragma unroll
-    for (int j = 3 * S; j < RW; ++j) r[j] = 0.0f;
-    float4* dst = reinterpret_cast<float4*>(rec + l * RW);
-#pragma unroll
-    for (int i = 0; i < RW / 4; ++i)
-      dst[i] = make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2],
-                           r[4 * i + 3]);
-    sid[l] = rows[5 * ncol + l];
-  }
-}
-
-// One lane's record into registers, 16 bytes a load (the same address
-// for every thread: a broadcast).
-template <int RW>
-__device__ __forceinline__ void load_record(const float* src, float* r) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < RW / 4; ++i) {
-    const float4 v = s4[i];
-    r[4 * i] = v.x;
-    r[4 * i + 1] = v.y;
-    r[4 * i + 2] = v.z;
-    r[4 * i + 3] = v.w;
-  }
-}
-
-// px * a + py * b of exact products (a, b bf16): one product and one
-// fused add, which rounds as the separate add does.  The product of the
-// coordinate the thread's pixels share stays unfused, so it is computed
-// once for all of them.
-template <int LAYOUT>
-__device__ __forceinline__ float exact_pair(float px, float py, float a,
-                                            float b) {
-  return LAYOUT == kRow ? __fmaf_rn(px, a, py * b)
-                        : __fmaf_rn(py, b, px * a);
-}
-
-// Field of one lane's staged terms r (factor pairs, then the constant) at
-// tile-local pixel (px, py), in field()'s order (worklist_common.cuh):
-// the first PAIRS pairs' sum, then + the constant.
-template <int EVAL, int PAIRS, int LAYOUT>
-__device__ __forceinline__ float record_field(const float* r, float px,
-                                              float py) {
-  constexpr int C = staged_rows<EVAL>() - 1;
-  if (EVAL == kF32) return (px * r[0] + py * r[1]) + r[C];
-  float out = exact_pair<LAYOUT>(px, py, r[0], r[1]);
-#pragma unroll
-  for (int j = 1; j < PAIRS; ++j) {
-    const float a = r[2 * j], b = r[2 * j + 1];
-    if (EVAL == kK6) {
-      out = LAYOUT == kColumn ? out + px * a : __fmaf_rn(px, a, out);
-      out = LAYOUT == kRow ? out + py * b : __fmaf_rn(py, b, out);
-    } else {
-      out = out + exact_pair<LAYOUT>(px, py, a, b);
-    }
-  }
-  return out + r[C];
-}
-
 template <int EVAL, bool PACKED, int STAGE, int PPT, int LAYOUT>
 __global__ void __launch_bounds__(kMaxThreads)
     walk_kernel(const int* __restrict__ wt, const int* __restrict__ wc,
@@ -452,38 +348,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// A walk's block: P / kPx threads (at most 1024), ppt = P / threads
-// pixels each -- kPx, or 4 where the cap binds (P = 4096 at kPx = 2) --
-// in one column where the block width is a multiple of the tile width,
-// or in one row where ppt divides it; layout -1 where neither holds (no
-// shape the wrappers admit: P is a multiple of 128 and TC divides it).
-struct Shape {
-  int threads, ppt, layout;
-};
-
+// A walk's block (block_shape): P / kPx threads (at most 1024), ppt = P
+// / threads pixels each -- kPx, or 4 where the cap binds (P = 4096 at
+// kPx = 2); every shape the wrappers admit has a layout (P is a multiple
+// of 128 and TC divides it).
 inline Shape walk_shape(int P, int width) {
-  Shape s;
-  s.threads = P / kPx < kMaxThreads ? P / kPx : kMaxThreads;
-  s.ppt = P / s.threads;
-  const bool column = s.threads % width == 0, row = width % s.ppt == 0;
-  s.layout = column && (kColumnFirst || !row) ? kColumn : row ? kRow : -1;
-  return s;
-}
-
-// One launch of `kernel` (null: a shape without an instance) with s's
-// threads, n_work blocks and `smem` bytes of shared memory.
-template <typename... P, typename... A>
-int launch(void (*kernel)(P...), int n_work, const Shape& s, size_t smem,
-           cudaStream_t st, A... args) {
-  if (n_work <= 0) return (int)cudaGetLastError();
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<n_work, s.threads, smem, st>>>(args...);
-  return (int)cudaGetLastError();
+  return block_shape(P, width, kPx, kMaxThreads, kColumnFirst);
 }
 
 template <int EVAL, bool PACKED, int STAGE, int N>

@@ -25,7 +25,9 @@ for each of the three functions they compute:
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version only for CPU tensors; ``.launches`` counts the launches.
 The input functions reproduce each tool's seeded draws
-(``np.random.default_rng``, the tool's draw order).
+(``np.random.default_rng``, the tool's draw order); the test inputs
+(:func:`templates_from_triangles`, :func:`grouped_tie_inputs`) cover
+pixels and force the grouped step's ties.
 
 Deliberate differences from the TPU kernels, each kept on both sides:
 
@@ -185,6 +187,77 @@ def grouped_inputs(n_steps: int, *, tc: int = 128, num_chunks: int = 2048,
         rng.integers(0, 1 << 20, (num_chunks, tc)), 3, axis=0
     ).reshape(num_chunks, 3 * tc).astype(np.float32)
     return wc, chunks
+
+
+def grouped_tie_inputs(n_steps: int, *, w: int, tc: int = 128,
+                       seed: int = 0):
+    """(wc, chunks) for the grouped step whose W-lane blocks force ties of
+    the packed key.  Lane kinds in a block: *family* lanes share the
+    block's depth plane and differ only by a constant d 2^-24 (d < 40), so
+    their z differ in the low bits the key clears and, within one key
+    quantum, the lowest covering lane wins whatever its d; *copies* repeat
+    an earlier lane of the block exactly (equal z: the lane bits decide);
+    the rest have planes of their own, some beyond z = 1.  Most lanes
+    share the block's l1 and l2 planes, so a block's lanes overlap.
+    Every value is dyadic: slopes of at most 12 significant bits (the bf16
+    split holds them exactly), and every product and partial sum of the
+    bf16x2 evaluation at a pixel of a tile up to 8 rows is exact in
+    float32, so no order of evaluation or contraction changes a bit.
+    Step i reads chunk i; slot ids are integers below 2^20."""
+    rng = np.random.default_rng(seed)
+    n = n_steps
+    off = np.arange(tc) % w                  # offset of a lane in its block
+
+    def per_block(x):                        # (n, tc / w) -> (n, tc)
+        return np.repeat(x, w, axis=1)
+
+    def grid(lo, hi, step, shape):           # uniform on a dyadic grid
+        return rng.integers(round(lo / step), round(hi / step),
+                            shape) * step
+
+    def cover_planes(shape):                 # (a, b, c) of l1 or l2
+        return (grid(-4 / 512, 5 / 512, 2.0 ** -9, shape),
+                grid(-8 / 64, 9 / 64, 2.0 ** -6, shape),
+                grid(-0.25, 1.0, 2.0 ** -10, shape))
+
+    def depth_plane(shape, c_lo, c_hi):
+        return (grid(-2047 * 2.0 ** -20, 2048 * 2.0 ** -20, 2.0 ** -20,
+                     shape),
+                grid(-2047 * 2.0 ** -18, 2048 * 2.0 ** -18, 2.0 ** -18,
+                     shape),
+                grid(c_lo, c_hi, 2.0 ** -21, shape))
+
+    family, copy = 0, 1                      # and 2: a plane of its own
+    kind = rng.choice(3, (n, tc), p=[0.6, 0.2, 0.2])
+    kind[:, off == 0] = family
+    shared = rng.random((n, tc)) < np.where(kind == family, 0.8, 0.5)
+    fields = []
+    for _ in range(2):
+        block, own = cover_planes((n, tc // w)), cover_planes((n, tc))
+        fields.append([np.where(shared, per_block(b), o)
+                       for b, o in zip(block, own)])
+    block = depth_plane((n, tc // w), 0.3, 0.65)
+    own = depth_plane((n, tc), 0.3, 1.3)
+    d = rng.integers(0, 40, (n, tc)) * 2.0 ** -24
+    z = [np.where(kind == family, per_block(b), o)
+         for b, o in zip(block, own)]
+    z[2] = z[2] + np.where(kind == family, d, 0.0)
+    fields.append(z)
+    # copies, in block order: each repeats an earlier lane of its block
+    for j in range(1, w):
+        rows, lanes = np.nonzero((kind == copy) & (off == j))
+        src = lanes - j + rng.integers(0, j, lanes.shape)
+        for f in fields:
+            for x in f:
+                x[rows, lanes] = x[rows, src]
+    chunks = np.zeros((n, 8, 3 * tc), np.float64)
+    for fi, f in enumerate(fields):
+        for r, x in enumerate(f):
+            chunks[:, r, fi * tc:(fi + 1) * tc] = x
+    chunks[:, 5] = np.tile(rng.integers(0, 1 << 20, (n, tc)), 3)
+    out = chunks.astype(np.float32)
+    assert np.array_equal(out, chunks), "a tie template is not float32"
+    return np.arange(n, dtype=np.int32), out
 
 
 def templates_from_triangles(tri: np.ndarray, sid: np.ndarray,
@@ -696,9 +769,9 @@ setup_walk.launches = 0
 def grouped_step(wc: torch.Tensor, chunks: torch.Tensor, *, w: int,
                  p: int = 1024):
     """Grouped step wrapper (see :func:`grouped_step_reference`): CUDA
-    tensors launch ``csrc/worklist_grouped.cu`` (one block per step);
-    CPU tensors run the plain version.  Returns (z, slot), each (n, TC /
-    W, P)."""
+    tensors launch ``csrc/worklist_grouped.cu`` (one block per step; P / 4
+    threads, 4 pixels a thread, as the walks); CPU tensors run the plain
+    version.  Returns (z, slot), each (n, TC / W, P)."""
     name = "grouped_step"
     if wc.dtype != torch.int32 or wc.dim() != 1:
         raise ValueError(f"{name}: wc must be int32 (n,)")

@@ -129,3 +129,14 @@ def covering_chunks(tiles, *, p: int, tc: int, setup: bool = False,
                                   (t // 15) * (p // 128), 128, p // 128)
     return worklist.templates_from_triangles(
         tri, rng.integers(0, 1 << 20, t.shape[0]), tc)
+
+
+def grouped_covering(n_steps: int, *, p: int = 1024, tc: int = 128):
+    """(wc, chunks) for the grouped step: ``covering_chunks`` around tile
+    0, one chunk a step, each constant moved to the tile origin (0, 0) as
+    the grouped prep bakes it."""
+    import numpy as np
+
+    ch = covering_chunks([0] * n_steps, p=p, tc=tc)
+    ch[:, 2] = ch[:, 2] - ch[:, 0] * ch[:, 3] - ch[:, 1] * ch[:, 4]
+    return np.arange(n_steps, dtype=np.int32), ch

@@ -32,7 +32,9 @@ with per-ray t_max, visit counts included); the work-list kernels on
 the tools' rows of phases 15-17 (``micro_steps`` packed as T5,
 ``micro_worklist`` full-highest and full-2pass as T4, ``micro_attrib``
 s0-s6 as T3, ``micro_pass1`` v0-v3 as T1, ``micro_grouped`` W 8 and 32
-as T2), on the same work lists over covering triangle templates, and on
+as T2), on the same work lists over covering triangle templates, on
+the grouped step's forced-tie templates
+(``worklist.grouped_tie_inputs``), and on
 T5's and T4's runs renumbered longest first (:func:`longest_first`: the
 same work without a long run at the launch's end; a ladder's
 timing-only rungs are timed, not checked).  Then it times each
@@ -113,7 +115,17 @@ VARIANTS = (("M refill every step", "march_rays",
             ("walks one lane a loop", "worklist",
              (("kLaneUnroll = 4;", "kLaneUnroll = 1;"),)),
             ("walks unrolled by 2 lanes", "worklist",
-             (("kLaneUnroll = 4;", "kLaneUnroll = 2;"),)))
+             (("kLaneUnroll = 4;", "kLaneUnroll = 2;"),)),
+            ("grouped 2 pixels a thread", "worklist_grouped",
+             (("kGroupPx = 4;", "kGroupPx = 2;"),)),
+            ("grouped 8 pixels a thread", "worklist_grouped",
+             (("kGroupPx = 4;", "kGroupPx = 8;"),)),
+            ("grouped in rows", "worklist_grouped",
+             (("kGroupColumnFirst = true;", "kGroupColumnFirst = false;"),)),
+            ("grouped one lane a loop", "worklist_grouped",
+             (("kGroupLaneUnroll = 4;", "kGroupLaneUnroll = 1;"),)),
+            ("grouped unrolled by 2 lanes", "worklist_grouped",
+             (("kGroupLaneUnroll = 4;", "kGroupLaneUnroll = 2;"),)))
 #: kernel R timed with its lists cut short (not bit-equal: timing only)
 CAPS = (128, 256)
 #: frames timed with another tree's kernels: (label, kernels that pick
@@ -187,13 +199,14 @@ def build(others, kernels) -> dict:
     """Build name ("this", each other tree by its directory's name, each
     variant) -> kernel -> (entry, takes this tree's last pointer)."""
     this = _cuda.library()
-    if _cuda.build_log:
-        _print_ptxas("this tree", _cuda.build_log)
     work = os.path.join(_cuda.BUILD_DIR, "turns")
     shutil.rmtree(work, ignore_errors=True)
     builds = {"this": {k: (getattr(this, _entry_name(k)), True)
                        for k in kernels}}
     stems = sorted({SOURCES[k][0] for k in kernels})
+    for stem in stems:
+        _print_ptxas(f"this tree, {stem}.cu",
+                     _cuda.compiler_log(f"{stem}.cu"))
     jobs, pending = [], []
     for other in others:
         name = os.path.basename(os.path.normpath(other))
@@ -399,12 +412,14 @@ def worklist_inputs(dev, kernels):
     """Per picked work-list kernel, {label: (args, kw)}: the tools' rows
     of ``chip_smoke.py``'s phases 15-17 (``micro_steps`` packed,
     ``micro_worklist`` full-highest and full-2pass, ``micro_attrib``
-    s0-s6, ``micro_pass1`` v0-v3, ``micro_grouped`` W 8 and 32) and the
-    same work lists over chunks that cover their tiles."""
+    s0-s6, ``micro_pass1`` v0-v3, ``micro_grouped`` W 8 and 32), the
+    same work lists over chunks that cover their tiles, and the grouped
+    step's forced-tie templates at W 8 and 32."""
     import torch
 
     from vri_tpu_torch.ops import worklist
-    from vri_tpu_torch.tools import covering_chunks, micro_pass1, micro_steps
+    from vri_tpu_torch.tools import (covering_chunks, grouped_covering,
+                                     micro_pass1, micro_steps)
 
     out = {}
     if "template_walk" in kernels:
@@ -450,8 +465,17 @@ def worklist_inputs(dev, kernels):
     if "grouped_step" in kernels:
         wc, chunks = (torch.as_tensor(x, device=dev)
                       for x in worklist.grouped_inputs(2048))
-        out["grouped_step"] = {f"T2 W {w}": ((wc, chunks), dict(w=w, p=1024))
-                               for w in (8, 32)}
+        rows = {f"T2 W {w}": ((wc, chunks), dict(w=w, p=1024))
+                for w in (8, 32)}
+        rows["covering W 8"] = (tuple(torch.as_tensor(x, device=dev)
+                                      for x in grouped_covering(2048)),
+                                dict(w=8, p=1024))
+        for w in (8, 32):
+            rows[f"forced ties W {w}"] = (tuple(
+                torch.as_tensor(x, device=dev)
+                for x in worklist.grouped_tie_inputs(2048, w=w, seed=w)),
+                dict(w=w, p=1024))
+        out["grouped_step"] = rows
     return out
 
 
