@@ -8,9 +8,12 @@ a user runs: the 49k-triangle kitchen stage, 1920x1080, the "room" SDF
 preset; then the other paths: the ranged tier, the BVH backend, the app's
 default frame, a city-scale stage and the direct-only frame; then the
 work-list micro-benchmarks' kernels, each through its tool's own row at
-the tool's full shape.  The JAX package and JAX itself are blocked
+the tool's full shape; and the production frame (the temporal GI frame
+at ``gi_scale=2``), the reference preset's frame, the SDF debug views and
+the compacted march.  The JAX package and JAX itself are blocked
 before the port is imported, so any import of either is fatal.  Phases
-(run in the order 1-8, 12, 13, 9-11, 14-17), each fatal on failure:
+(run in the order 1-6, 21, 7, 8, 12, 13, 18, 20, 19, 9-11, 14-17; phase
+20's small input runs in phase 10), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -87,7 +90,40 @@ before the port is imported, so any import of either is fatal.  Phases
     registers and spills are phase 2's ``worklist_grouped.cu`` lines);
     then chunks that cover tile 0 at W = 8 and the forced-tie templates
     (``worklist.grouped_tie_inputs``: key ties won by a larger z, exact z
-    ties) at W = 1, 8, 32 and 128, each held bit for bit and timed.
+    ties) at W = 1, 8, 32 and 128, each held bit for bit and timed;
+18. the production frame, as ``bench.py``'s ``gi_1080p_ms`` row runs it:
+    ``render_frame_gi_temporal`` at ``gi_scale=2``, 1 spp, ``use_cache``,
+    the raster backend, on phase 7's renderer and cascades (kitchen,
+    1920x1080, room preset).  First kernel M against its plain version
+    on one frame's own rays, built as the frame builds them (the shadow
+    rays of the ``shadow_scale`` subsample, the GI rays at GI
+    resolution): t, hit voxel, iterations and activity exactly equal,
+    and the kernel's time on each.  Then 10 frames at the stage camera
+    from ``init_temporal(1080, 1920, 2)``, counters reset first: each
+    frame exactly one ``raster_tiles`` and two ``march_rays``; zero
+    overflow, finite colour, coverage > 50%, ``gi_history`` at most 17
+    and on at least 90% of the covered pixels equal to the frame count;
+    frame times with and without the AOV host copy beside phase 7's,
+    peak memory; the frame's stages, each between two synchronizes
+    (G-buffer, visibility, direct, indirect, the march, reprojection);
+    then 5 frames of ``render_flythrough(temporal=True, gi_scale=2)`` on
+    an orbit from the stage camera (mean ``gi_history`` above 1 by the
+    third frame);
+19. the reference preset's GI frame: ``RenderConfig(sdf=SDFConfig())`` on
+    the Cornell box at 1920x1080 through ``render(gi=True)``: one
+    ``raster_tiles``, one ``march_rays`` (the shadow rays), the GI rays
+    through the trilinear loop; finite colour, coverage > 50%; the SDF
+    build time, the frame time; kernel M against its plain version on
+    the frame's shadow rays over the preset's 8 cascades, exactly equal
+    as in phase 18; and the loop's steps and time per step on the
+    frame's GI rays;
+20. the SDF debug views (modes 7-12) of phase 7's frame: no kernel
+    launch, finite colour, the hit share and time; the Cornell box at
+    64^2 in ``SDF_DISTANCE`` on the card and the CPU agree on the hits of
+    at least 99.9% of the pixels;
+21. ``march_compact`` under ``compact_march`` on phase 6's GI rays: three
+    ``march_rays`` launches; t, hit voxel and iterations equal to
+    one-phase ``march``; both times.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
@@ -95,7 +131,8 @@ bytes it must move (inputs read once, outputs written once) over the
 H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
 single PyTorch call computes any of the seven, so ``library_ms`` is
-null.
+null.  ``raster_tiles`` and ``march_rays`` also carry their launches in
+one production frame (phase 18).
 
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -660,6 +697,379 @@ def _bvh_kernel(r, h: int, w: int, card: str) -> dict:
     return entry
 
 
+def _hold_march(cas, rays, cfg, steps: int, label: str) -> tuple:
+    """Holds ``march_rays`` on one ray set (origins, dirs, range) to its
+    plain version, with the budget ``sdf_trace`` gives the kernel tier
+    for ``steps``: t, hit voxel, iterations and activity exactly equal.
+    Returns the launch's arguments, keywords and outputs and the largest
+    difference."""
+    import torch
+
+    from vri_tpu_torch.ops import march_kernel, sdf_trace
+
+    ro, rd, rt = rays
+    margs = (march_kernel.ray_table(cas, ro, rd, rt, cfg),
+             march_kernel.pack_meta(cas, cfg), cas.march_coarse,
+             cas.march_fine0, cas.march_fine1)
+    mkw = dict(r=cfg.cascade_resolution,
+               max_steps=sdf_trace._kernel_steps(steps, cfg))
+    got = march_kernel.march_rays(*margs, **mkw)
+    torch.cuda.synchronize()
+    want = march_kernel.march_rays_reference(*margs, **mkw)
+    for name, g, wv in zip(("t", "hv", "it", "act"), got, want):
+        _check(torch.equal(g, wv), f"march_rays {name} differs from the "
+               f"plain version on the {label} rays")
+    err = max(float((g.double() - wv.double()).abs().max())
+              for g, wv in zip(got, want))
+    return margs, mkw, got, err
+
+
+def _stages(call, targets: dict, reps: int) -> dict:
+    """Host milliseconds of each stage of ``call()``, a mean over
+    ``reps`` calls after one warm-up: each ``targets`` entry, name ->
+    (module, attribute), is wrapped to run between two
+    ``torch.cuda.synchronize()`` calls (a stage called twice a frame
+    adds up; a nested stage counts inside its caller too).  ``frame`` is
+    the whole call between two synchronizes."""
+    import torch
+
+    times = dict.fromkeys(["frame", *targets], 0.0)
+    real = {name: getattr(*where) for name, where in targets.items()}
+
+    def fenced(name, fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return timed
+
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, fenced(name, real[name]))
+    try:
+        fenced("frame", call)()
+        times.update(dict.fromkeys(times, 0.0))
+        for _ in range(reps):
+            fenced("frame", call)()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, real[name])
+    return {name: t / reps for name, t in times.items()}
+
+
+def _events():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _compact(cas, rays, cfg, card: str) -> None:
+    """Phase 21: ``sdf_trace.march(approx=True, compact=True)`` under
+    ``compact_march`` -- ``march_kernel.march_compact``, three
+    ``march_rays`` launches -- on the frame's GI rays, held bit-equal to
+    one-phase ``march`` (t, hit voxel, iterations)."""
+    import dataclasses
+
+    import torch
+
+    from vri_tpu_torch.ops import march_kernel, sdf_trace
+
+    ro, rd, rt = rays
+    ccfg = dataclasses.replace(cfg, compact_march=True)
+    ks = cfg.gi_steps * 2 + 16
+
+    def one():
+        return march_kernel.march(cas, ro, rd, rt, config=cfg, max_steps=ks)
+
+    def compact():
+        return sdf_trace.march(cas, ro, rd, rt, config=ccfg,
+                               max_steps=cfg.gi_steps, approx=True,
+                               compact=True)
+
+    want = one()
+    _reset_counts()
+    got = compact()
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check(launches == _launches(march_rays=3),
+           f"march_compact: launch counts {launches}")
+    for key in ("t", "voxel", "iterations"):
+        _check(torch.equal(getattr(got, key), getattr(want, key)),
+               f"march_compact: {key} differs from one-phase march")
+    act = march_kernel.march_rays(
+        march_kernel.ray_table(cas, ro, rd, rt, cfg),
+        march_kernel.pack_meta(cas, cfg), cas.march_coarse,
+        cas.march_fine0, cas.march_fine1, r=cfg.cascade_resolution,
+        max_steps=24)[3]
+    m = ro.shape[0]
+    one_ms, comp_ms = _time_ms(one, 10), _time_ms(compact, 10)
+    print(f"march_compact (GI rays, {m} rays, budget {ks}): {launches} "
+          f"launches; {int(act.sum())} rays active after 24 steps, buffer "
+          f"{((m // 4) + 1023) // 1024 * 1024}; t, hit voxel and iterations "
+          f"equal to one-phase march; {comp_ms:.3f} ms against one phase "
+          f"{one_ms:.3f} ms (CUDA events, mean of 10) [{card}]")
+
+
+def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
+    """Phase 18: ``bench.py``'s ``gi_1080p_ms`` frame -- the temporal GI
+    frame at ``gi_scale=2``, 1 spp, ``use_cache``, the raster backend --
+    10 frames at the stage camera from an empty history on renderer
+    ``r`` (phase 7's, its cascades reused), after kernel M is held to
+    its plain version on one frame's shadow and GI rays; the frame's
+    stages; then 5 frames of ``render_flythrough(temporal=True,
+    gi_scale=2)`` on an orbit that starts at the stage camera.  Returns
+    the launches of one frame."""
+    import torch
+
+    from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.ops import gi, march_kernel
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    cam = r.camera
+    builds = r.last_build_ms
+    cas = r.ensure_cascades(eye=cam.eye)
+    _check(r.last_build_ms == builds, "production frame: the cascades "
+           "were rebuilt")
+    fp = frame_mod.FrameParams.from_camera(cam, h, device=r.device)
+    kw = dict(height=h, width=w, config=cfg, backend="raster", samples=1,
+              use_cache=True, gi_scale=2, lod_tau=r.config.lod_tau)
+    gen = torch.Generator(device=r.device)
+    gen.manual_seed(18)
+
+    # kernel M on one frame's own rays, built as the frame builds them:
+    # the shadow rays of the shadow_scale subsample, the GI rays of the
+    # GI-resolution view
+    _, gb = frame_mod._gbuffer(r.scene, fp, h, w, "raster",
+                               r.config.lod_tau)
+    sub_s, _ = frame_mod._subsample_pn(gb, h, w, cfg.shadow_scale)
+    sub_g, _ = frame_mod._subsample_pn(gb, h, w, 2)
+    u = torch.rand((sub_g.position.shape[0], 2), generator=gen,
+                   device=r.device)
+    m_ms = {}
+    for label, at, rays, steps in (
+            ("shadow", f"shadow_scale {cfg.shadow_scale}",
+             gi.shadow_rays(sub_s.position, sub_s.normal, r.scene, cas,
+                            cfg), cfg.shadow_steps),
+            ("gi", "gi_scale 2",
+             gi.gi_rays(sub_g.position, sub_g.normal, u, cas, cfg),
+             cfg.gi_steps)):
+        margs, mkw, got, _ = _hold_march(cas, rays, cfg, steps,
+                                         f"production frame's {label}")
+        m_ms[label] = _time_ms(lambda: march_kernel.march_rays(
+            *margs, **mkw), 10)
+        print(f"  march_rays on the production frame's {label} rays ({at}): "
+              f"{margs[0].shape[1]} rays, "
+              f"{float((got[1] >= 0).float().mean()):.3f} hit, steps mean "
+              f"{float(got[2].float().mean()):.2f}, max "
+              f"{int(got[2].max())}; equal to the plain version; "
+              f"{m_ms[label]:.3f} ms (CUDA events, mean of 10) [{card}]")
+    del gb, sub_s, sub_g, u, margs, got
+
+    state = frame_mod.init_temporal(h, w, 2, device=r.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times, shares = [], []
+    per_frame = _launches(raster_tiles=1, march_rays=2)
+    for i in range(10):
+        before = _counts()
+        start, stop = _events()
+        start.record()
+        aovs, state = frame_mod.render_frame_gi_temporal(
+            r.scene, fp, cas, state, generator=gen, **kw)
+        out = {k: v.cpu().numpy() for k, v in aovs.items()}
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        step = {k: v - before[k] for k, v in _counts().items()}
+        _check(step == per_frame, f"production frame {i}: launches {step}")
+        _check(int(out["raster_overflow_tiles"]) == 0,
+               f"production frame {i}: raster overflow")
+        _check(np.isfinite(out["color"]).all(),
+               f"production frame {i}: colour not finite")
+        cov = out["instance_id"] >= 0
+        _check(cov.mean() > 0.5, f"production frame {i}: coverage "
+               f"{cov.mean():.3f}")
+        hist = out["gi_history"]
+        _check(hist.max() <= 17.0, f"production frame {i}: gi_history "
+               f"{hist.max()} beyond the cap")
+        # a fixed camera: every covered pixel that keeps its history
+        # holds the frame count (bilinear weights round within 1e-3)
+        shares.append(float((np.abs(hist[cov] - (i + 1)) <= 1e-3).mean()))
+        _check(shares[-1] >= 0.9, f"production frame {i}: {shares[-1]:.4f} "
+               f"of covered pixels hold {i + 1} frames of history")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = _time_ms(lambda: frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, state, generator=gen, **kw), 5)
+    st = _stages(lambda: frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, state, generator=gen, **kw), {
+            "gbuffer": (frame_mod, "_gbuffer"),
+            "visibility": (frame_mod, "_visibility"),
+            "direct": (frame_mod, "_direct_lighting"),
+            "indirect": (gi, "indirect_radiance"),
+            "march": (march_kernel, "march"),
+            "reproject": (frame_mod, "_reproject")}, 5)
+    rest = st["frame"] - sum(st[k] for k in ("gbuffer", "direct",
+                                            "indirect", "reproject"))
+    print(f"production frame (render_frame_gi_temporal, gi_scale=2, 1 spp, "
+          f"use_cache, raster; kitchen 1920x1080, room): frames 1-10 "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms with the host copy (CUDA events); {dev_ms:.2f} ms without "
+          f"(mean of 5), against the gi_scale=1 frame's {gi1_ms:.2f} ms "
+          f"(phase 7); launches {launches}; coverage {cov.mean():.4f}; "
+          f"share of covered pixels holding the frame count "
+          + ", ".join(f"{x:.4f}" for x in shares)
+          + f"; peak memory {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"  production frame's stages (host clock between synchronizes, "
+          f"mean of 5 frames, ms): frame {st['frame']:.2f} = G-buffer "
+          f"{st['gbuffer']:.2f} (visibility {st['visibility']:.2f}) + "
+          f"direct {st['direct']:.2f} + indirect {st['indirect']:.2f} + "
+          f"reproject {st['reproject']:.2f} + blend, pack and compose "
+          f"{rest:.2f}; march_kernel.march (ray setup, kernel, payload; "
+          f"inside direct and indirect) {st['march']:.2f}, of it the "
+          f"kernel {m_ms['shadow'] + m_ms['gi']:.3f} [{card}]")
+
+    class Orbit(FreeCamera):
+        """An 8 s orbit about the kitchen's camera target (0, 0.6, 0) at
+        the authored camera's radius and height, started at 45 degrees,
+        where it meets the authored eye (3.36, 2.4, 3.36): the cascades'
+        focus stays within a coarse voxel, so nothing is rebuilt."""
+
+        def at_time(self, t, aspect, orbit_period=8.0):
+            return super().at_time(t + orbit_period / 8.0, aspect,
+                                   orbit_period)
+
+    orbit = Orbit(center=(0.0, 0.6, 0.0), radius=float(np.hypot(3.36, 3.36)),
+                  height=1.8, fov_y_deg=55.0, far=200.0)
+    t0 = time.perf_counter()
+    fly = r.render_flythrough(5, orbit, dt=1.0 / 60.0, temporal=True,
+                              gi_scale=2)
+    fly_s = time.perf_counter() - t0
+    means = [float(f["gi_history"][f["instance_id"] >= 0].mean())
+             for f in fly]
+    _check(all(np.isfinite(f["color"]).all() for f in fly),
+           "flythrough: colour not finite")
+    _check(means[2] > 1.0, f"flythrough: mean gi_history {means[2]:.3f} "
+           "by the third frame")
+    print(f"  render_flythrough(5, orbit, dt=1/60, temporal=True, "
+          f"gi_scale=2): mean gi_history over covered pixels "
+          + ", ".join(f"{x:.3f}" for x in means)
+          + f"; {1e3 * fly_s / 5:.1f} ms a frame (host clock, host copy "
+          f"included); SDF rebuilds: {int(r.last_build_ms != builds)} "
+          f"[{card}]")
+    return {name: n for name, n in per_frame.items() if n}
+
+
+def _sdf_views(r, card: str) -> None:
+    """Phase 20: each SDF debug view of renderer ``r``'s frame: camera
+    rays marched by the trilinear loop, no kernel launched."""
+    import torch
+
+    from vri_tpu_torch.config import DebugMode
+
+    for mode in range(DebugMode.SDF_DISTANCE, DebugMode.SDF_CASCADE_ID + 1):
+        _reset_counts()
+        start, stop = _events()
+        start.record()
+        out = r.render(mode=mode)
+        stop.record()
+        torch.cuda.synchronize()
+        launches = _counts()
+        _check(sum(launches.values()) == 0,
+               f"SDF view {mode}: launch counts {launches}")
+        _check(set(out) == {"color", "depth"} and
+               np.isfinite(out["color"]).all(),
+               f"SDF view {mode}: AOVs {sorted(out)} or colour not finite")
+        hit = float((out["depth"] < 1e30).mean())
+        print(f"SDF debug view {mode}: {hit:.4f} of pixels hit; {start.elapsed_time(stop):.1f} ms with the "
+              f"host copy (CUDA events, one frame), no kernel launch "
+              f"[{card}]")
+
+
+def _reference_preset(dev, h: int, w: int, card: str) -> None:
+    """Phase 19: the reference preset's GI frame (``SDFConfig()``:
+    8 cascades, ``approx_occlusion=False``) on the Cornell box at
+    1920x1080 through ``render(gi=True)``: the shadow rays launch
+    ``march_rays`` once (held to its plain version on them), the GI rays
+    march the trilinear loop."""
+    import torch
+
+    from vri_tpu_torch import RenderConfig, SDFConfig, scenes
+    from vri_tpu_torch.ops import gi, march_kernel, sdf_trace
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.renderer import Renderer
+
+    cfg = SDFConfig()
+    rq = Renderer(RenderConfig(width=w, height=h, sdf=cfg), device=dev)
+    rq.load_stage(scenes.cornell_box())
+    cas = rq.ensure_cascades()
+    _reset_counts()
+    start, stop = _events()
+    start.record()
+    out = rq.render(gi=True)
+    stop.record()
+    torch.cuda.synchronize()
+    frame_ms = start.elapsed_time(stop)
+    launches = _counts()
+    _check(launches == _launches(raster_tiles=1, march_rays=1),
+           f"reference preset frame: launch counts {launches}")
+    _check(np.isfinite(out["color"]).all(),
+           "reference preset frame: colour not finite")
+    cov = float((out["instance_id"] >= 0).mean())
+    _check(cov > 0.5, f"reference preset frame: coverage {cov:.3f}")
+    dev_ms = _time_ms(lambda: rq.render(gi=True, to_numpy=False), 3)
+    # kernel M on the frame's shadow rays (8 cascades) against its plain
+    # version; then the GI rays through the trilinear loop alone
+    fp = frame_mod.FrameParams.from_camera(rq.camera, h, device=dev)
+    _, gb = frame_mod._gbuffer(rq.scene, fp, h, w, "raster",
+                               rq.config.lod_tau)
+    margs, mkw, got, _ = _hold_march(
+        cas, gi.shadow_rays(gb.position, gb.normal, rq.scene, cas, cfg),
+        cfg, cfg.shadow_steps, "reference preset's shadow")
+    shadow_ms = _time_ms(lambda: march_kernel.march_rays(*margs, **mkw), 10)
+    print(f"  march_rays on the reference preset's shadow rays "
+          f"({int(margs[1].shape[1])} cascades): {margs[0].shape[1]} rays, "
+          f"{float((got[1] >= 0).float().mean()):.3f} hit, steps mean "
+          f"{float(got[2].float().mean()):.2f}, max {int(got[2].max())}; "
+          f"equal to the plain version; {shadow_ms:.3f} ms (CUDA events, "
+          f"mean of 10) [{card}]")
+    del margs, got
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    u = torch.rand((h * w, 2), generator=gen, device=dev)
+    go, gd, grange = gi.gi_rays(gb.position, gb.normal, u, cas, cfg)
+
+    def loop():
+        return sdf_trace.march(cas, go, gd, grange, config=cfg,
+                               max_steps=cfg.gi_steps, approx=False)
+
+    _reset_counts()
+    rec = loop()
+    torch.cuda.synchronize()
+    _check(sum(_counts().values()) == 0, "the trilinear loop launched a "
+           "kernel")
+    max_it = int(rec.iterations.max())
+    # the loop tests for a live ray every _CHECK_EVERY steps
+    every = sdf_trace._CHECK_EVERY
+    steps = min(cfg.gi_steps, -(-max_it // every) * every)
+    loop_ms = _time_ms(loop, 3)
+    print(f"reference preset frame (SDFConfig(), Cornell 1920x1080, "
+          f"render(gi=True)): SDF build + bake {rq.last_build_ms:.1f} ms "
+          f"(host clock), {int(cas.num_bricks)} bricks; frame "
+          f"{frame_ms:.2f} ms with the host copy, {dev_ms:.2f} ms without "
+          f"(CUDA events, mean of 3); launches {launches}; coverage "
+          f"{cov:.4f} [{card}]")
+    print(f"  trilinear loop on the frame's {go.shape[0]} GI rays: "
+          f"{loop_ms:.2f} ms (CUDA events, mean of 3), {steps} steps "
+          f"(iterations mean {float(rec.iterations.float().mean()):.2f}, "
+          f"max {max_it}), {loop_ms / max(steps, 1):.3f} ms a step; "
+          f"{float(rec.hit.float().mean()):.4f} hit [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -671,6 +1081,7 @@ def main() -> int:
     print(f"card: {card}")
 
     from vri_tpu_torch import RenderConfig, SDFConfig, _cuda, scenes
+    from vri_tpu_torch.config import DebugMode
     from vri_tpu_torch.hydra.delegate import RenderDelegate
     from vri_tpu_torch.ops import gi, march_kernel, rasterize, shading
     from vri_tpu_torch.ops import raygen
@@ -879,22 +1290,14 @@ def main() -> int:
     m_times = {}
     m_err = 0.0
     m_work = {"bytes": 0, "ops": 0}
-    for label, (ro, rd, rt), steps in (
-            ("shadow", gi.shadow_rays(gb.position, gb.normal, r.scene, cas,
-                                      sdf_cfg), sdf_cfg.shadow_steps),
-            ("gi", gi.gi_rays(gb.position, gb.normal, u, cas, sdf_cfg),
-             sdf_cfg.gi_steps)):
-        margs = (march_kernel.ray_table(cas, ro, rd, rt, sdf_cfg), meta,
-                 cas.march_coarse, cas.march_fine0, cas.march_fine1)
-        mkw = dict(r=sdf_cfg.cascade_resolution, max_steps=steps * 2 + 16)
-        got = march_kernel.march_rays(*margs, **mkw)
-        torch.cuda.synchronize()
-        want = march_kernel.march_rays_reference(*margs, **mkw)
-        for name, g, wv in zip(("t", "hv", "it", "act"), got, want):
-            _check(torch.equal(g, wv), f"march_rays {name} differs from the "
-                   f"plain version on the {label} rays")
-        m_err = max([m_err] + [float((g.double() - wv.double()).abs().max())
-                               for g, wv in zip(got, want)])
+    ray_sets = {"shadow": gi.shadow_rays(gb.position, gb.normal, r.scene,
+                                         cas, sdf_cfg),
+                "gi": gi.gi_rays(gb.position, gb.normal, u, cas, sdf_cfg)}
+    for label, steps in (("shadow", sdf_cfg.shadow_steps),
+                         ("gi", sdf_cfg.gi_steps)):
+        margs, mkw, got, err = _hold_march(cas, ray_sets[label], sdf_cfg,
+                                           steps, label)
+        m_err = max(m_err, err)
         b = _bound_march(margs, got, int(meta.shape[1]))
         m_work["bytes"] += b["bytes"]
         m_work["ops"] += b["ops"]
@@ -922,7 +1325,10 @@ def main() -> int:
         library_ms=None, **_bound(m_work["bytes"], m_work["ops"]))
     print(f"march_rays: bound {kernels['march_rays']['bound_ms']:.4f} ms by "
           f"{kernels['march_rays']['bound_by']} for both ray sets [{card}]")
-    del r, cas, gb, hit, o, d, u, prep, rargs, margs, got, want
+
+    # -- 21. march_compact on the frame's GI rays ----------------------------
+    _compact(cas, ray_sets["gi"], sdf_cfg, card)
+    del r, cas, gb, hit, o, d, u, prep, rargs, margs, got, ray_sets
     torch.cuda.empty_cache()
 
     # -- 7. main path ------------------------------------------------------------
@@ -1037,7 +1443,19 @@ def main() -> int:
           f"sorted-tier frame's on {agree:.4f} of pixels (no backface "
           f"culling on the BVH); {bvh_ms:.2f} ms with the host copy, "
           f"{bvh_dev_ms:.2f} ms without (CUDA events, mean of 3) [{card}]")
-    del r2, ranged, plain, uni, bvh_frame
+    del ranged, plain, uni, bvh_frame
+
+    # -- 18. the production frame: the temporal GI frame at gi_scale 2 --------
+    for name, n in _production(r2, h, w, sdf_cfg, card, dev_ms).items():
+        kernels[name]["launches_production_frame"] = n
+
+    # -- 20. the SDF debug views on the main path's renderer ------------------
+    _sdf_views(r2, card)
+    del r2
+    torch.cuda.empty_cache()
+
+    # -- 19. the reference preset's GI frame: Cornell at 1920x1080 ------------
+    _reference_preset(dev, h, w, card)
     torch.cuda.empty_cache()
 
     # -- 9. the app's default frame: Cornell at 512x512, room preset ----------
@@ -1078,13 +1496,14 @@ def main() -> int:
                       approx_occlusion=True)
     # one set of GI uniforms for both (the CPU and CUDA generators differ)
     u = np.random.default_rng(0).random((1, 64 * 64, 2), dtype=np.float32)
-    outs = []
+    outs, views = [], []
     for device in (dev, torch.device("cpu")):
         rs = Renderer(RenderConfig(width=64, height=64, sdf=small),
                       device=device)
         rs.load_stage(scenes.cornell_box())
         outs.append(rs.render(gi=True,
                               uniforms=torch.as_tensor(u, device=device)))
+        views.append(rs.render(mode=DebugMode.SDF_DISTANCE))
     same = outs[0]["instance_id"] == outs[1]["instance_id"]
     col = np.abs(outs[0]["color"] - outs[1]["color"]).max(-1)[same]
     print(f"small input: card vs CPU plain versions, ids equal on "
@@ -1092,6 +1511,17 @@ def main() -> int:
           "apart where they are")
     _check(same.mean() >= 0.999 and col.max() <= 2e-3,
            "card and CPU renders of the Cornell box disagree")
+    # phase 20's small input: the trilinear loop on the card and the CPU
+    hits = [v["depth"] < 1e30 for v in views]
+    agree = float((hits[0] == hits[1]).mean())
+    both = hits[0] & hits[1]
+    rel = float((np.abs(views[0]["depth"] - views[1]["depth"])[both]
+                 / views[1]["depth"][both]).max())
+    print(f"SDF distance view, Cornell 64^2: card vs CPU hits agree on "
+          f"{agree:.5f} of pixels ({hits[0].mean():.4f} hit), depth at "
+          f"most {rel:.2e} apart (relative) where both hit")
+    _check(agree >= 0.999, "card and CPU SDF views of the Cornell box "
+           f"disagree on the hits ({agree:.5f})")
 
     # -- 11. city: frustum compaction at 1.35M faces ---------------------------
     _city(dev, card)

@@ -10,8 +10,11 @@ bvh_traverse, and the work-list kernels template_walk, setup_walk,
 grouped_step) on CUDA tensors
 and its plain version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
 versions' operation order, so every output agrees bit for bit (also
-raster_ranged's per-tile tested pairs and bvh_traverse's visit counts).  On a host
-without a card every test skips.
+raster_ranged's per-tile tested pairs and bvh_traverse's visit counts).
+It also holds march_compact's three march_rays launches bit-equal to
+one-phase march, the trilinear SDF loop on the card against the CPU, and
+the temporal frame's launches (one raster_tiles and two march_rays a
+frame).  On a host without a card every test skips.
 """
 
 import numpy as np
@@ -818,3 +821,114 @@ def test_grouped_step_other_lane_counts(tc):
     for w in (1, 4, tc):
         wc, chunks = worklist.grouped_tie_inputs(48, w=w, tc=tc, seed=tc)
         _grouped_equal(_cuda_tensors(wc, chunks), w=w, p=1024)
+
+
+def _on_cpu(cas):
+    """The cascade set with every tensor copied to the CPU."""
+    import dataclasses
+
+    return cas.replace(**{f.name: getattr(cas, f.name).cpu()
+                          for f in dataclasses.fields(cas)
+                          if getattr(cas, f.name) is not None})
+
+
+def _random_rays(m, seed):
+    rng = np.random.default_rng(seed)
+    o = torch.as_tensor(rng.uniform(-3.5, 3.5, (m, 3)).astype(np.float32),
+                        device="cuda")
+    o[:, 1] = o[:, 1].abs() * 0.5
+    d = torch.as_tensor(rng.normal(size=(m, 3)).astype(np.float32),
+                        device="cuda")
+    return o, d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("div", [4, 64])
+def test_march_compact_matches_one_phase_march(frame, div):
+    """march_compact's three march_rays launches give one-phase march's
+    result bit for bit; with a phase 1 of 8 steps (as
+    tests/test_march_kernel.py runs the JAX version) at compact_div 64
+    more rays survive phase 1 than the buffer holds, so the cleanup
+    launch marches."""
+    import dataclasses
+
+    from vri_tpu_torch.ops import march_kernel
+
+    r, _, _ = frame
+    cas = r.ensure_cascades()
+    o, d = _random_rays(50000, seed=1)
+    ref = march_kernel.march(cas, o, d, 10.0, config=SDF, max_steps=72)
+    _, _, _, act = march_kernel.march_rays(
+        march_kernel.ray_table(cas, o, d, 10.0, SDF),
+        march_kernel.pack_meta(cas, SDF), cas.march_coarse,
+        cas.march_fine0, cas.march_fine1, r=64, max_steps=8)
+    before = march_kernel.march_rays.launches
+    got = march_kernel.march_compact(cas, o, d, 10.0, config=SDF,
+                                     max_steps=72, phase1_steps=8,
+                                     compact_div=div)
+    assert march_kernel.march_rays.launches - before == 3
+    if div == 64:
+        assert int(act.sum()) > 1024
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
+            f.name
+
+
+def test_trilinear_march_card_matches_cpu(frame):
+    """The trilinear loop (approx=False) runs on the rays' device, with
+    no kernel launch, and agrees with the CPU run: hit, iterations,
+    cascade and brick on at least 99.9% of the rays, t within rtol 1e-5
+    where both hit."""
+    import dataclasses
+
+    from vri_tpu_torch.ops import march_kernel, sdf_trace
+
+    r, _, _ = frame
+    cas = r.ensure_cascades()
+    cfg = dataclasses.replace(SDF, approx_occlusion=False)
+    o, d = _random_rays(20000, seed=2)
+    before = march_kernel.march_rays.launches
+    got = sdf_trace.march(cas, o, d, 10.0, config=cfg)
+    assert march_kernel.march_rays.launches == before
+    assert got.t.is_cuda
+    want = sdf_trace.march(_on_cpu(cas), o.cpu(), d.cpu(), 10.0,
+                           config=cfg)
+    same = torch.ones(o.shape[0], dtype=torch.bool)
+    for key in ("hit", "iterations", "cascade", "brick"):
+        same &= getattr(got, key).cpu() == getattr(want, key)
+    both = same & want.hit
+    assert float(same.float().mean()) >= 0.999 and bool(want.hit.any())
+    torch.testing.assert_close(got.t.cpu()[both], want.t[both], rtol=1e-5,
+                               atol=0)
+
+
+def test_temporal_frame_launches(frame):
+    """Each render_frame_gi_temporal frame at gi_scale=2 launches one
+    raster_tiles and two march_rays (the shadow rays at the shadow_scale
+    subsample, the GI rays at GI resolution) and nothing else."""
+    import dataclasses
+
+    from vri_tpu_torch.ops import bvh, march_kernel, rasterize, worklist
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, _ = frame
+    cas = r.ensure_cascades()
+    cfg = dataclasses.replace(SDF, shadow_scale=2)
+    wrappers = (rasterize.raster_tiles, rasterize.raster_ranged,
+                march_kernel.march_rays, bvh.bvh_traverse,
+                worklist.template_walk, worklist.setup_walk,
+                worklist.grouped_step)
+    state = frame_mod.init_temporal(192, 256, 2, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for i in range(2):
+        counts = [w.launches for w in wrappers]
+        aovs, state = frame_mod.render_frame_gi_temporal(
+            r.scene, fp, cas, state, height=192, width=256, config=cfg,
+            use_cache=True, gi_scale=2, generator=gen)
+        torch.cuda.synchronize()
+        diff = [w.launches - c for w, c in zip(wrappers, counts)]
+        assert diff == [1, 0, 2, 0, 0, 0, 0], diff
+        assert bool(torch.isfinite(aovs["color"]).all())
+        assert int(aovs["raster_overflow_tiles"]) == 0
+    cov = aovs["instance_id"] >= 0
+    assert float((aovs["gi_history"][cov] == 2.0).float().mean()) > 0.9

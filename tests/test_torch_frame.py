@@ -1,22 +1,26 @@
 """The whole slice: ``vri_tpu_torch.renderer.Renderer.render(gi=True)``
 against ``vri_tpu.renderer.Renderer.render(gi=True)`` on the Cornell box at
 64^2 with a room-like two-cascade r=64 configuration, through the raster
-and through the LBVH (``backend="bvh"``); and the direct-only frame
-(``render(gi=False)``) through the brute-force tracer, the LBVH and the
-raster on the Cornell box at 48^2.  Each side renders with its own
+and through the LBVH (``backend="bvh"``), with ``approx_occlusion=False``
+as the ``reference`` preset has it (GI rays march the trilinear loop),
+and the six SDF debug views (``render(mode=SDF_*)``); and the direct-only
+frame (``render(gi=False)``) through the brute-force tracer, the LBVH and
+the raster on the Cornell box at 48^2.  Each side renders with its own
 package's stage and configuration classes.
 
 On the CPU the JAX package marches SDF rays with its XLA loop, because
 ``sdf_trace`` dispatches to the march kernel only on a TPU
 (``sdf_trace.py:218``, ``:311``).  The reference run therefore swaps
 ``sdf_trace.march`` / ``sdf_trace.occlusion`` for copies of those TPU
-branches that run ``march_kernel.march_stream`` in interpret mode.  Both
+branches that run ``march_kernel.march_stream`` in interpret mode; calls
+outside the kernel's approximate tier still go to the XLA loop.  Both
 frames rasterize the 64^2 frame with their binned tier (``frame.py:258``):
 K5, interpreted, in the reference and kernel R over the binned lists in
 the port.  The frame then goes through K5 and K3, kernels the port
-replaces.  No file of ``vri_tpu`` changes.  The reference renders in its own interpreter with an XLA:CPU
-limited to AVX, which has no fused multiply-add, so XLA cannot contract
-products and sums that the port rounds one by one.  The port gets the
+replaces.  No file of ``vri_tpu`` changes.  The reference renders in its
+own interpreter with an XLA:CPU limited to AVX, which has no fused
+multiply-add, so XLA cannot contract products and sums that the port
+rounds one by one.  The port gets the
 reference frame's GI uniforms through ``uniforms=``.
 
 Tolerances, and why:
@@ -49,6 +53,15 @@ Tolerances, and why:
   1e-5), counted; ``color`` within 2e-3 where the ids agree.  Without
   contraction the two BVH walks are bit-equal (``tests/test_torch_bvh.py``),
   so no tie is expected.
+* The ``approx_occlusion=False`` GI frame: the raster frame's
+  tolerances (``instance_id`` equal on at least 99.5% of the pixels and
+  every differing pixel a tie, ``color`` within 2e-3 where the ids
+  agree).
+* The SDF debug views (each side marches its own cascades): the hit set
+  equal on at least 99.9% of the pixels; ``depth`` and ``color`` within
+  rtol 1e-5 (atol 1e-6 for colour channels near 0) where both hit, the
+  iteration heat everywhere.  Each view returns only ``color`` and
+  ``depth``.
 * The direct-only frames (the reference's in the same interpreter without
   fused multiply-adds): the hit triangle (``instance_id`` and
   ``prim_id``) equal on at least 99% of the pixels, and all but 0.1% of
@@ -77,7 +90,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import vri_tpu_torch  # noqa: E402
 from vri_tpu import renderer as jrenderer  # noqa: E402
-from vri_tpu.config import RenderConfig, SDFConfig  # noqa: E402
+from vri_tpu.config import DebugMode, RenderConfig, SDFConfig  # noqa: E402
 from vri_tpu.ops import march_kernel as jmarch  # noqa: E402
 from vri_tpu.ops import sdf_trace as jtrace  # noqa: E402
 from vri_tpu.usd import scenes  # noqa: E402
@@ -93,19 +106,33 @@ SDF_ARGS = dict(num_cascades=2, cascade_resolution=64, brick_size=8,
 CFG = SDFConfig(**SDF_ARGS)
 #: the same configuration in the port's own classes
 TCFG = vri_tpu_torch.SDFConfig(**SDF_ARGS)
+#: the reference preset's defining flag: GI rays march trilinear samples
+REF_CFG = SDFConfig(**dict(SDF_ARGS, approx_occlusion=False))
+TREF_CFG = vri_tpu_torch.SDFConfig(**dict(SDF_ARGS, approx_occlusion=False))
+SDF_MODES = range(DebugMode.SDF_DISTANCE, DebugMode.SDF_CASCADE_ID + 1)
 
 
-def _port_renderer(res: int) -> Renderer:
+def _port_renderer(res: int, sdf=TCFG) -> Renderer:
     tr = Renderer(vri_tpu_torch.RenderConfig(width=res, height=res,
-                                             sdf=TCFG), device="cpu")
+                                             sdf=sdf), device="cpu")
     tr.load_stage(vri_tpu_torch.scenes.cornell_box())
     return tr
 
 
+#: the XLA loop, which sdf_trace.march's TPU branch runs for every call
+#: that is not the kernel's approximate tier
+_XLA_MARCH = jtrace.march
+
+
 def _tpu_march(sdf, origins, dirs, t_max, *, config, max_steps=None,
                approx=False, compact=False):
-    """sdf_trace.march's TPU branch (sdf_trace.py:218-229), interpreted."""
-    assert approx and config.kernel_march and jmarch.supports(config)
+    """sdf_trace.march's TPU branch (sdf_trace.py:218-229), interpreted;
+    other calls go to the XLA loop, as on a TPU."""
+    if not (approx and config.kernel_march and jmarch.supports(config)):
+        return _XLA_MARCH(sdf, origins, dirs, t_max, config=config,
+                          max_steps=max_steps, approx=approx,
+                          compact=compact)
+    assert not compact
     ks = (max_steps or config.march_max_steps) * 2 + 16
     return jmarch.march_stream(sdf, origins, dirs, t_max, config=config,
                                max_steps=ks, interpret=True)
@@ -138,6 +165,14 @@ def _reference_frame():
         ref = {k: np.asarray(v) for k, v in jr.render(gi=True).items()}
         ref.update({f"bvh/{k}": np.asarray(v) for k, v in
                     jr.render(gi=True, backend="bvh").items()})
+        jq = jrenderer.Renderer(RenderConfig(width=RES, height=RES,
+                                             sdf=REF_CFG))
+        jq.load_stage(scenes.cornell_box())
+        ref.update({f"reference/{k}": np.asarray(v) for k, v in
+                    jq.render(gi=True).items()})
+        for mode in SDF_MODES:
+            ref.update({f"sdf{mode}/{k}": np.asarray(v) for k, v in
+                        jr.render(mode=mode).items()})
     jd = jrenderer.Renderer(RenderConfig(width=DIRECT_RES, height=DIRECT_RES,
                                          sdf=CFG))
     jd.load_stage(scenes.cornell_box())
@@ -146,6 +181,7 @@ def _reference_frame():
                     jd.render(gi=False, backend=be).items()})
     ref["uniforms"] = _uniforms(0)
     ref["bvh/uniforms"] = _uniforms(1)
+    ref["reference/uniforms"] = _uniforms(0)
     return ref
 
 
@@ -179,6 +215,13 @@ def frames(tmp_path_factory):
     got.update({f"bvh/{k}": v for k, v in tr.render(
         gi=True, backend="bvh",
         uniforms=torch.as_tensor(ref["bvh/uniforms"])[None]).items()})
+    for mode in SDF_MODES:
+        got.update({f"sdf{mode}/{k}": v
+                    for k, v in tr.render(mode=mode).items()})
+    tq = _port_renderer(RES, TREF_CFG)
+    got.update({f"reference/{k}": v for k, v in tq.render(
+        gi=True,
+        uniforms=torch.as_tensor(ref["reference/uniforms"])[None]).items()})
     return ref, got, tr
 
 
@@ -278,6 +321,50 @@ def test_bvh_gi_frame_matches(frames):
     np.testing.assert_array_less(err, 2e-3)
 
 
+def test_reference_preset_gi_frame_matches(frames):
+    """The GI frame with ``approx_occlusion=False``, the reference
+    preset's defining flag: shadow rays still take the march kernel, GI
+    rays the trilinear loop.  The existing frame's tolerances."""
+    ref, got, _ = frames
+    a = ref["reference/instance_id"].reshape(-1)
+    b = got["reference/instance_id"].reshape(-1)
+    same = a == b
+    tie = ~same & (a >= 0) & (b >= 0) & np.isclose(
+        got["reference/depth"].reshape(-1), ref["reference/depth"].reshape(-1),
+        rtol=1e-5, atol=0)
+    err = np.abs(got["reference/color"].reshape(-1, 3)
+                 - ref["reference/color"].reshape(-1, 3)).max(-1)[same]
+    print(f"reference preset frame: instance_id differs on "
+          f"{int((~same).sum())} of {a.size} pixels ({int(tie.sum())} "
+          f"ties); colour max {err.max():.2e} where they agree")
+    assert (same | tie).mean() >= 0.995 and (same | tie).all()
+    assert np.isfinite(got["reference/color"]).all()
+    np.testing.assert_array_less(err, 2e-3)
+    assert int(got["reference/raster_overflow_tiles"]) == 0
+
+
+@pytest.mark.parametrize("mode", SDF_MODES)
+def test_sdf_debug_frame_matches(frames, mode):
+    """``render(mode=SDF_*)``: camera rays marched by the trilinear loop
+    to the far plane; ``color`` and ``depth`` within rtol 1e-5 where both
+    hit (and everywhere for the iteration heat, which shows misses)."""
+    ref, got, _ = frames
+    pre = f"sdf{mode}/"
+    assert set(k for k in got if k.startswith(pre)) == {pre + "color",
+                                                          pre + "depth"}
+    d_ref, d_got = ref[pre + "depth"], got[pre + "depth"]
+    both = (d_ref < 1e30) & (d_got < 1e30)
+    print(f"SDF mode {mode}: {both.mean():.4f} of pixels hit on both sides, "
+          f"{int(((d_ref < 1e30) != (d_got < 1e30)).sum())} hit on one")
+    assert ((d_ref < 1e30) == (d_got < 1e30)).mean() >= 0.999
+    np.testing.assert_allclose(d_got[both], d_ref[both], rtol=1e-5)
+    where = (np.ones_like(both) if mode == DebugMode.SDF_ITERATIONS
+             else both)
+    np.testing.assert_allclose(got[pre + "color"][where],
+                               ref[pre + "color"][where], rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def direct_frames(frames):
     """The direct-only frame through each backend, the reference's and
@@ -330,9 +417,8 @@ def test_direct_frame_shadows_darken(direct_frames):
     assert bool((shadowed < lit - 1e-3).any())
 
 
-@pytest.mark.parametrize("argv", [["--lod", "2"], ["--mode", "sdf_distance"],
-                                  ["--cache", "scene.cache"], ["--multichip"],
-                                  ["--builtin", "animated"]])
+@pytest.mark.parametrize("argv", [["--lod", "2"], ["--cache", "scene.cache"],
+                                  ["--multichip"], ["--builtin", "animated"]])
 def test_app_refuses_unported_flags(argv):
     """``python -m vri_tpu_torch.app`` exits with 2 on a flag whose path is
     not ported, before it loads anything."""
@@ -342,12 +428,15 @@ def test_app_refuses_unported_flags(argv):
 
 
 @pytest.mark.parametrize("argv", [["--no-gi"], ["--backend", "bvh"],
-                                  ["--no-gi", "--backend", "bvh"]])
+                                  ["--no-gi", "--backend", "bvh"],
+                                  ["--mode", "sdf_distance"]])
 def test_app_takes_ported_flags(argv):
-    """The direct-only frame and the BVH backend parse and are ported."""
+    """The direct-only frame, the BVH backend and the SDF debug views
+    parse and are ported."""
     from vri_tpu_torch import app
 
     args = app.parse_args(argv)
     assert app._unported(args) == []
     assert args.no_gi == ("--no-gi" in argv)
     assert args.backend == ("bvh" if "bvh" in argv else "raster")
+    assert args.mode == (argv[1] if "--mode" in argv else "none")

@@ -160,7 +160,9 @@ def test_occlusion_form_matches(marches, name):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_trace_dispatch_budget(marches, name):
     """sdf_trace.occlusion marches with the TPU branch's budget
-    max_steps * 2 + 16 and payload=False."""
+    max_steps * 2 + 16 and payload=False; sdf_trace.march with
+    approx=False takes the trilinear loop, whose record has no hit voxel
+    (the kernel march's has)."""
     cfg, tcas, _, _, o, d = marches[name]
     cfg = _port_cfg(cfg)
     to, td = torch.as_tensor(o[:256]), torch.as_tensor(d[:256])
@@ -168,8 +170,9 @@ def test_trace_dispatch_budget(marches, name):
     direct = tmarch.march(tcas, to, td, 10.0, config=cfg, max_steps=56,
                           payload=False)
     np.testing.assert_array_equal(occ.numpy(), 1.0 - direct.hit.float().numpy())
-    with pytest.raises(NotImplementedError):
-        ttrace.march(tcas, to, td, 10.0, config=cfg, approx=False)
+    loop = ttrace.march(tcas, to, td, 10.0, config=cfg, approx=False)
+    assert loop.voxel is None and direct.voxel is not None
+    assert loop.t.shape == (256,) and bool(loop.hit.any())
 
 
 _NO_FMA_REFERENCE = r"""

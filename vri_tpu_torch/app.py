@@ -5,9 +5,10 @@ Takes the flags of ``python -m vri_tpu.app`` and runs the paths the port
 has: GI frames (``--mode none``), direct-only frames (``--no-gi``) or
 G-buffer debug views through the raster tiers (``--backend raster``),
 the LBVH (``--backend bvh``) or the brute-force tracer (``--backend
-brute``), written as PNGs.  Flags whose paths are not ported yet (the SDF
-debug modes, ``--multichip``, ``--lod``, ``--cache``, ``--trace``, the
-``animated`` builtin) exit with an error naming them.  It renders on the
+brute``), and the SDF debug views (``--mode sdf_*``), written as PNGs.
+Flags whose paths are not ported yet (``--multichip``, ``--lod``,
+``--cache``, ``--trace``, the ``animated`` builtin) exit with an error
+naming them.  It renders on the
 CUDA card.
 """
 
@@ -32,7 +33,9 @@ def parse_args(argv=None):
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--mode", default="none",
                    help="debug mode: none|mesh_id|prim_id|barycentric|depth|"
-                        "albedo|normal (the sdf_* modes are not ported)")
+                        "albedo|normal|sdf_distance|sdf_uvw|"
+                        "sdf_iterations|sdf_grad|sdf_brick_id|"
+                        "sdf_cascade_id")
     p.add_argument("--no-gi", action="store_true",
                    help="direct lighting only")
     p.add_argument("--sdf", default="room",
@@ -61,8 +64,6 @@ def parse_args(argv=None):
 
 def _unported(args) -> list:
     bad = []
-    if args.mode.lower().startswith("sdf"):
-        bad.append(f"--mode {args.mode}")
     for flag, on in (("--multichip", args.multichip), ("--lod", args.lod),
                      ("--cache", args.cache), ("--trace", args.trace)):
         if on:

@@ -121,6 +121,28 @@ def direct_radiance(points: torch.Tensor, normals: torch.Tensor, scene,
     return out
 
 
+def direct_radiance_cached(points: torch.Tensor, normals: torch.Tensor,
+                           scene, cascades: SDFCascades, config: SDFConfig,
+                           light_radius: float = 0.1) -> torch.Tensor:
+    """Direct radiance with the baked per-brick shadow visibility: N.L
+    and falloff per point, the shadow factor read from
+    ``brick_light_vis`` at the brick of the voxel just above the surface
+    (no march).  Shadow edges quantize to the voxel size."""
+    lp, lc, li, lt = _light_arrays(scene)
+    is_distant, dist, wi = _to_lights(points, lp, lt)
+    ndotl = torch.clamp(dot3(normals[:, None, :], wi), min=0.0)
+    bias = surface_bias(points, cascades, config)[:, None]
+    _, _, brick, _, _, _ = sdf_trace._sample(
+        cascades, points + normals * bias, config, trilinear=False)
+    vis = cascades.brick_light_vis[torch.clamp(brick, min=0).long()]
+    vis = torch.where((brick >= 0)[:, None], vis, 1.0)
+    falloff = torch.where(is_distant, 1.0,
+                          1.0 / torch.clamp(dist * dist,
+                                            min=light_radius ** 2))
+    irr = li[None, :] * ndotl * vis * falloff
+    return (irr[..., None] * lc[None, :, :]).sum(dim=1)
+
+
 def lightloop(gb, scene, cascades: SDFCascades, *, config: SDFConfig,
               samples: int = 1, generator: torch.Generator | None = None,
               uniforms: torch.Tensor | None = None,
@@ -128,14 +150,14 @@ def lightloop(gb, scene, cascades: SDFCascades, *, config: SDFConfig,
               gi_clamp: float = 4.0, use_cache: bool = False
               ) -> torch.Tensor:
     """Full shading: emissive + albedo * (direct + 1-bounce GI)."""
-    if config.cached_shadows and use_cache:
-        raise NotImplementedError(
-            "cached_shadows needs the trilinear sampler (sdf_trace._sample); "
-            "see ROADMAP.md 'What comes next', item 1")
     gi_steps = gi_steps or config.gi_steps
     shadow_steps = shadow_steps or config.shadow_steps
-    direct = direct_radiance(gb.position, gb.normal, scene, cascades,
-                             config, shadow_steps=shadow_steps)
+    if config.cached_shadows and use_cache:
+        direct = direct_radiance_cached(gb.position, gb.normal, scene,
+                                        cascades, config)
+    else:
+        direct = direct_radiance(gb.position, gb.normal, scene, cascades,
+                                 config, shadow_steps=shadow_steps)
     if samples == 0:   # direct-only (SDF-shadowed) fast path
         color = gb.emissive + gb.albedo * direct
         return torch.where(gb.valid[:, None], color, 0.0)
@@ -214,3 +236,33 @@ def indirect_radiance(gb, scene, cascades: SDFCascades, *,
                               scene.sky_color[None, :])
         indirect = indirect + contrib
     return indirect / samples
+
+
+def sdf_debug_color(mode: int, rec: sdf_trace.SDFHit, cascades: SDFCascades,
+                    config: SDFConfig, max_dist: float = 10.0
+                    ) -> torch.Tensor:
+    """False-colour views of an SDF march: distance, uvw, iterations,
+    gradient (the hit brick's normal), brick id and cascade id, black
+    where the ray missed (the iteration heat shows misses too)."""
+    from vri_tpu_torch.config import DebugMode
+    from vri_tpu_torch.ops.shading import _id_color
+
+    hit = rec.hit[:, None]
+    if mode == DebugMode.SDF_DISTANCE:
+        z = torch.clamp(rec.t / max_dist, 0.0, 1.0)[:, None]
+        c = (1.0 - z).repeat(1, 3)
+    elif mode == DebugMode.SDF_UVW:
+        c = rec.uvw
+    elif mode == DebugMode.SDF_ITERATIONS:
+        it = (rec.iterations.float() / config.march_max_steps)[:, None]
+        return torch.cat([it, 1.0 - it, torch.zeros_like(it)], -1)
+    elif mode == DebugMode.SDF_GRAD:
+        c = cascades.brick_normal[torch.clamp(rec.brick, min=0).long()] \
+            * 0.5 + 0.5
+    elif mode == DebugMode.SDF_BRICK_ID:
+        c = _id_color(rec.brick)
+    elif mode == DebugMode.SDF_CASCADE_ID:
+        c = _id_color(rec.cascade * 7 + 3)
+    else:
+        raise ValueError(f"not an SDF debug mode: {mode}")
+    return torch.where(hit, c, 0.0)

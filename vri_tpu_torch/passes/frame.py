@@ -4,18 +4,22 @@ G-buffer resolve -> SDF-shadowed direct light + one SDF-marched GI
 bounce; ``render_frame`` is the direct-only frame: visibility ->
 G-buffer -> Lambertian direct light with brute-force hard shadows.
 
-Ported: mode NONE at ``gi_scale=1`` and the G-buffer debug modes;
-visibility through every raster tier with the JAX package's dispatch
-(frustum compaction for face pools of 2^19 slots or more, the binned tier
-for small pools at small frames, the sorted tier otherwise, the ranged
-tier on request), through the LBVH (``backend="bvh"``, one
-``bvh_traverse`` launch; like the reference's, it does no backface
-culling) and through the brute-force tracer.  The dispatch thresholds
-were tuned for the TPU; the port keeps them so that it takes the
-reference's tier at every shape.  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP.md item: the SDF debug
-modes (item 1), reduced-rate GI and the temporal frame (item 2) and LOD
-masks (item 6).
+``render_frame_gi_temporal`` is the production GI frame: the indirect
+term gathered at GI resolution and accumulated over frames through a
+reprojected history.
+
+Ported: every mode of ``render_frame_gi`` at every ``gi_scale`` (the SDF
+debug views march camera rays with the trilinear loop) and the temporal
+frame without bands; visibility through every raster tier with the JAX
+package's dispatch (frustum compaction for face pools of 2^19 slots or
+more, the binned tier for small pools at small frames, the sorted tier
+otherwise, the ranged tier on request), through the LBVH
+(``backend="bvh"``, one ``bvh_traverse`` launch; like the reference's, it
+does no backface culling) and through the brute-force tracer.  The
+dispatch thresholds were tuned for the TPU; the port keeps them so that
+it takes the reference's tier at every shape.  Not ported yet, each
+raising ``NotImplementedError`` that names its ROADMAP.md item: LOD masks
+(item 6) and the band arguments of the temporal frame (item 7).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from vri_tpu_torch.config import DebugMode
 from vri_tpu_torch.ops import gi as gi_mod
-from vri_tpu_torch.ops import intersect, raygen, shading
+from vri_tpu_torch.ops import intersect, raygen, sdf_trace, shading
 from vri_tpu_torch.ops import trace as trace_mod
 from vri_tpu_torch.ops import rasterize as raster_mod
 from vri_tpu_torch.ops.geometry import norm3
@@ -298,25 +302,55 @@ def _shadow_factors(scene: SceneBuffers, world_verts,
     return 1.0 - blocked.reshape(n, L).to(torch.float32)
 
 
-def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
-                    cascades, *, height: int, width: int, config,
-                    mode: int = DebugMode.NONE, backend: str = "raster",
-                    samples: int = 1, use_cache: bool = False,
-                    gi_scale: int = 1, lod_tau: float = 0.75,
-                    generator: torch.Generator | None = None,
-                    uniforms: torch.Tensor | None = None
-                    ) -> Dict[str, torch.Tensor]:
-    """Full frame with the SDF-driven lightloop: visibility -> G-buffer
-    -> direct + 1-bounce GI (or a G-buffer debug view).  GI samples come
-    from ``uniforms`` (samples, H*W, 2) or ``generator``."""
-    if mode >= DebugMode.SDF_DISTANCE:
-        raise NotImplementedError(
-            "SDF debug views need the trilinear march; see ROADMAP.md "
-            "'What comes next', item 1")
-    if gi_scale != 1:
-        raise NotImplementedError(
-            "reduced-rate GI (gi_scale > 1) is not ported; see ROADMAP.md "
-            "'What comes next', item 2")
+class _IndirectView:
+    """Position and normal of a pixel subset: all that
+    ``gi.indirect_radiance`` and the shadow march read of a G-buffer."""
+
+    __slots__ = ("position", "normal")
+
+    def __init__(self, position, normal):
+        self.position = position
+        self.normal = normal
+
+
+def _subsample_pn(gb, height: int, width: int, s: int):
+    """Position, normal and valid of every ``s``-th pixel of every
+    ``s``-th row (the GI-resolution view), row-major."""
+    dev = gb.position.device
+    ys = torch.arange(0, height, s, device=dev)
+    xs = torch.arange(0, width, s, device=dev)
+    idx = (ys[:, None] * width + xs[None, :]).reshape(-1)
+    return _IndirectView(gb.position[idx], gb.normal[idx]), gb.valid[idx]
+
+
+def _upsample(a, hs: int, ws: int, s: int):
+    """Nearest upsampling of a row-major (hs * ws, ...) field by ``s``."""
+    rest = tuple(a.shape[1:])
+    a = a.reshape((hs, ws) + rest)
+    a = a.repeat_interleave(s, dim=0).repeat_interleave(s, dim=1)
+    return a.reshape((hs * s * ws * s,) + rest)
+
+
+def _direct_lighting(gb, scene, cascades, config, height: int, width: int):
+    """Direct light with the shadow march at ``config.shadow_scale``: the
+    march runs on the strided pixel subset and its visibility factors
+    are upsampled; N.L, falloff and colours stay full-rate."""
+    ss = config.shadow_scale
+    if ss <= 1:
+        return gi_mod.direct_radiance(gb.position, gb.normal, scene,
+                                      cascades, config)
+    sub, _ = _subsample_pn(gb, height, width, ss)
+    occ = gi_mod.shadow_occlusion(sub.position, sub.normal, scene,
+                                  cascades, config)
+    occ = _upsample(occ, height // ss, width // ss, ss)
+    return gi_mod.direct_radiance_analytic(gb.position, gb.normal, scene,
+                                           occ)
+
+
+def _gbuffer(scene: SceneBuffers, frame: FrameParams, height: int,
+             width: int, backend: str, lod_tau: float):
+    """Camera rays -> visibility through ``backend`` -> G-buffer with
+    world ray distances as depth."""
     world_verts = bake_world(scene)
     origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
                                        height, width)
@@ -328,14 +362,53 @@ def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
                                  pixel_spread=frame.pixel_spread)
     # report the world-space ray distance (raster depth is NDC)
     t = norm3(gb.position - frame.eye[None, :])
-    gb = gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
+    return hit, gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
 
-    if mode == DebugMode.NONE:
+
+def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
+                    cascades, *, height: int, width: int, config,
+                    mode: int = DebugMode.NONE, backend: str = "raster",
+                    samples: int = 1, use_cache: bool = False,
+                    gi_scale: int = 1, lod_tau: float = 0.75,
+                    generator: torch.Generator | None = None,
+                    uniforms: torch.Tensor | None = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Full frame with the SDF-driven lightloop: visibility -> G-buffer
+    -> direct + 1-bounce GI (or a G-buffer debug view); or, for the SDF
+    debug modes, camera rays marched through the cascades (trilinear
+    loop) to ``frame.far``, returning only ``color`` and ``depth``.  At
+    ``gi_scale > 1`` the indirect term is gathered on every
+    ``gi_scale``-th pixel and row and upsampled; the direct term stays
+    full-rate, its shadows marched at ``config.shadow_scale``.  GI
+    samples come from ``uniforms`` (samples, GI pixels, 2) or
+    ``generator``."""
+    if mode >= DebugMode.SDF_DISTANCE:
+        origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
+                                           height, width)
+        rec = sdf_trace.march(cascades, origins.reshape(-1, 3),
+                              dirs.reshape(-1, 3), t_max=frame.far,
+                              config=config)
+        color = gi_mod.sdf_debug_color(mode, rec, cascades, config)
+        return {"color": color.reshape(height, width, 3),
+                "depth": rec.t.reshape(height, width)}
+
+    hit, gb = _gbuffer(scene, frame, height, width, backend, lod_tau)
+    if mode != DebugMode.NONE:
+        color = shading.debug_color(mode, gb)
+    elif gi_scale <= 1 or samples == 0:
         color = gi_mod.lightloop(gb, scene, cascades, config=config,
                                  samples=samples, generator=generator,
                                  uniforms=uniforms, use_cache=use_cache)
     else:
-        color = shading.debug_color(mode, gb)
+        direct = _direct_lighting(gb, scene, cascades, config, height, width)
+        sub, _ = _subsample_pn(gb, height, width, gi_scale)
+        ind = gi_mod.indirect_radiance(sub, scene, cascades, config=config,
+                                       samples=samples, generator=generator,
+                                       uniforms=uniforms,
+                                       use_cache=use_cache)
+        ind = _upsample(ind, height // gi_scale, width // gi_scale, gi_scale)
+        color = gb.emissive + gb.albedo * (direct + ind)
+        color = torch.where(gb.valid[:, None], color, 0.0)
 
     out = {
         "color": color.reshape(height, width, color.shape[-1]),
@@ -355,3 +428,207 @@ def accumulate(prev_color: torch.Tensor, prev_count: torch.Tensor,
     count = prev_count + 1.0
     color = prev_color + (new_color - prev_color) / count
     return color, count
+
+
+# ---------------------------------------------------------------------------
+# Temporal reprojection (progressive GI under camera motion)
+# ---------------------------------------------------------------------------
+
+_BANDS_TODO = ("the band arguments (y0, proj_height) of the temporal frame "
+               "are not ported; see ROADMAP.md 'What comes next', item 7")
+
+
+@dataclasses.dataclass
+class TemporalState:
+    """History of the indirect term (direct light and albedo re-shade
+    every frame): one (N, 8) row per GI pixel, [indirect(3) | depth |
+    normal(3) | count], with the camera of the frame that wrote it."""
+
+    data: torch.Tensor       # (N, 8) f32
+    view_proj: torch.Tensor  # (4, 4) of the writing frame
+    eye: torch.Tensor        # (3,)
+
+
+def init_temporal(height: int, width: int, gi_scale: int = 1, *,
+                  device="cuda") -> TemporalState:
+    """Empty history for :func:`render_frame_gi_temporal` at the frame's
+    ``gi_scale``: the history lives at GI resolution."""
+    n = (height // gi_scale) * (width // gi_scale)
+    return TemporalState(
+        data=torch.zeros((n, 8), dtype=torch.float32, device=device),
+        view_proj=torch.eye(4, dtype=torch.float32, device=device),
+        eye=torch.zeros((3,), dtype=torch.float32, device=device))
+
+
+def pack_temporal(indirect, depth, normal, count, view_proj, eye
+                  ) -> TemporalState:
+    data = torch.cat([indirect, depth[:, None], normal, count[:, None]],
+                     dim=1)
+    return TemporalState(data=data, view_proj=view_proj, eye=eye)
+
+
+def _reproject(state: TemporalState, position, normal, valid, height: int,
+               width: int, depth_tol: float = 0.02, y0: int = 0,
+               proj_height: int | None = None, query_y0=0):
+    """Bilinear history fetch at each point reprojected through the
+    previous frame's camera.  A tap counts only inside the screen, at a
+    depth within the (velocity-widened) tolerance, with a normal within
+    60 degrees and a history of its own; invalid taps drop out of the
+    weights and a pixel whose taps weigh 0.05 or less restarts (count
+    0).  The history covers rows [y0, y0 + height) of a ``proj_height``
+    frame; the queries are rows [query_y0, ...) of the history.
+
+    As the JAX function: the two taps of a row come from one gathered
+    pair of history rows, [data[i] | data[i + 1]] (the last row pairs with
+    the first), at the window column xw = clip(x0, 0, W - 2); a tap at
+    column x reads slot x - xw and counts only in slot 0 or 1.  The four
+    taps add up in the order (row 0: x0, x0 + 1; row 1: x0, x0 + 1)."""
+    vp = state.view_proj
+    # [position, 1] @ view_proj.T written out as per-column products
+    clip = (position[:, 0:1] * vp[:, 0] + position[:, 1:2] * vp[:, 1]
+            + position[:, 2:3] * vp[:, 2] + vp[:, 3])
+    w = clip[:, 3]
+    ndc = clip[:, :3] / torch.clamp(w, min=1e-6)[:, None]
+    px = (ndc[:, 0] * 0.5 + 0.5) * width - 0.5
+    py = (0.5 - ndc[:, 1] * 0.5) * (proj_height or height) - y0 - 0.5
+    x0 = torch.floor(px).to(torch.int32)
+    y0i = torch.floor(py).to(torch.int32)
+    fx = (px - x0.float())[:, None]
+    fy = (py - y0i.float())[:, None]
+
+    # velocity: the reprojected position against the query's own pixel
+    n = position.shape[0]
+    ar = torch.arange(n, dtype=torch.float32, device=position.device)
+    own_x = ar % width
+    own_y = torch.floor(ar / width) + query_y0
+    vel = torch.sqrt((px - own_x) ** 2 + (py - own_y) ** 2)
+    tol = depth_tol * (1.0 + 0.25 * torch.clamp(vel, max=8.0))
+
+    t_prev = norm3(position - state.eye[None, :])
+    paired = torch.cat([state.data, torch.roll(state.data, -1, dims=0)],
+                       dim=1)
+    xw = torch.clamp(x0, 0, max(width - 2, 0))
+
+    def row_taps(dy):
+        yi = y0i + dy
+        y_in = (w > 1e-6) & (yi >= 0) & (yi < height)
+        h = paired[(torch.clamp(yi, 0, height - 1) * width + xw).long()]
+        out = []
+        for dx in (0, 1):
+            si = x0 + dx - xw                      # window slot, 0 or 1
+            xi = x0 + dx
+            inside = y_in & (xi >= 0) & (xi < width) & (si >= 0) & (si <= 1)
+            f = torch.where((si == 1)[:, None], h[:, 8:], h[:, :8])
+            depth_ok = torch.abs(f[:, 3] - t_prev) <= tol * t_prev + 1e-3
+            normal_ok = (f[:, 4] * normal[:, 0] + f[:, 5] * normal[:, 1]
+                         + f[:, 6] * normal[:, 2]) > 0.5
+            ok = inside & depth_ok & normal_ok & (f[:, 7] > 0.0)
+            wgt = ((fy if dy else 1.0 - fy)
+                   * (fx if dx else 1.0 - fx))[:, 0]
+            out.append((f[:, 0:3], f[:, 7], torch.where(ok, wgt, 0.0)))
+        return out
+
+    taps = row_taps(0) + row_taps(1)
+    wsum = sum(t[2] for t in taps)
+    scale = 1.0 / torch.clamp(wsum, min=1e-6)
+    h_ind = sum(t[0] * t[2][:, None] for t in taps) * scale[:, None]
+    h_count = sum(t[1] * t[2] for t in taps) * scale
+    ok = valid & (wsum > 0.05)
+    return (torch.where(ok[:, None], h_ind, 0.0),
+            torch.where(ok, h_count, 0.0))
+
+
+def gi_band_inputs(scene: SceneBuffers, frame: FrameParams, cascades, *,
+                   height: int, width: int, config, backend: str = "raster",
+                   samples: int = 1, use_cache: bool = False,
+                   gi_scale: int = 1, lod_tau: float = 0.75, y0=0,
+                   proj_height: int | None = None,
+                   generator: torch.Generator | None = None,
+                   uniforms: torch.Tensor | None = None):
+    """The temporal frame's body: raygen -> visibility -> G-buffer ->
+    full-rate direct -> GI-resolution indirect sample.  Returns (hit, gb,
+    direct, sub, valid_s, ind), ``sub`` / ``valid_s`` the GI-resolution
+    view (the G-buffer itself at ``gi_scale`` 1).
+
+    As the JAX function dispatches: a ``raster*`` backend goes to the
+    raster, every other backend (``"bvh"`` included) to the brute-force
+    tracer.  Only the whole frame (``y0=0``, ``proj_height=None``)."""
+    if not (isinstance(y0, int) and y0 == 0) or proj_height is not None:
+        raise NotImplementedError(_BANDS_TODO)
+    hit, gb = _gbuffer(scene, frame, height, width,
+                       backend if backend.startswith("raster") else "brute",
+                       lod_tau)
+    direct = _direct_lighting(gb, scene, cascades, config, height, width)
+    if gi_scale > 1:
+        if height % gi_scale or width % gi_scale:
+            raise ValueError(f"gi_scale {gi_scale} must divide the frame "
+                             f"({height}x{width})")
+        sub, valid_s = _subsample_pn(gb, height, width, gi_scale)
+    else:
+        sub, valid_s = gb, gb.valid
+    ind = gi_mod.indirect_radiance(sub, scene, cascades, config=config,
+                                   samples=samples, generator=generator,
+                                   uniforms=uniforms, use_cache=use_cache)
+    return hit, gb, direct, sub, valid_s, ind
+
+
+def temporal_blend(ind, h_ind, h_count, history_cap: float):
+    """Running mean over at most ``history_cap`` frames of history."""
+    count = torch.clamp(h_count, max=history_cap) + 1.0
+    return h_ind + (ind - h_ind) / count[:, None], count
+
+
+def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
+                             cascades, state: TemporalState, *,
+                             height: int, width: int, config,
+                             backend: str = "raster", samples: int = 1,
+                             use_cache: bool = False, gi_scale: int = 1,
+                             history_cap: float = 16.0, band=None,
+                             lod_tau: float = 0.75,
+                             generator: torch.Generator | None = None,
+                             uniforms: torch.Tensor | None = None):
+    """GI frame with the indirect term accumulated over frames through a
+    reprojected history (up to ``history_cap`` frames a pixel, validated
+    by depth and normal).  Returns (aovs, new_state); ``gi_history`` is
+    each pixel's frame count.  At ``gi_scale > 1`` the history,
+    reprojection, validation and blend all run at GI resolution and the
+    blended term upsamples once.  GI samples come from ``uniforms``
+    (samples, GI pixels, 2) or ``generator``."""
+    if band is not None:
+        raise NotImplementedError(_BANDS_TODO)
+    hit, gb, direct, sub, valid_s, ind = gi_band_inputs(
+        scene, frame, cascades, height=height, width=width, config=config,
+        backend=backend, samples=samples, use_cache=use_cache,
+        gi_scale=gi_scale, lod_tau=lod_tau, generator=generator,
+        uniforms=uniforms)
+    if gi_scale <= 1:
+        h_ind, h_count = _reproject(state, gb.position, gb.normal, gb.valid,
+                                    height, width)
+        ind_blend, count = temporal_blend(ind, h_ind, h_count, history_cap)
+        ind_state, t_s, n_s = ind_blend, gb.depth, gb.normal
+        count_full = count
+    else:
+        hs, ws = height // gi_scale, width // gi_scale
+        h_ind, h_count = _reproject(state, sub.position, sub.normal,
+                                    valid_s, hs, ws)
+        ind_state, count = temporal_blend(ind, h_ind, h_count, history_cap)
+        t_s = norm3(sub.position - frame.eye[None, :])
+        n_s = sub.normal
+        ind_blend = _upsample(ind_state, hs, ws, gi_scale)
+        count_full = _upsample(count, hs, ws, gi_scale)
+    new_state = pack_temporal(ind_state, t_s, n_s, count, frame.view_proj,
+                              frame.eye)
+
+    color = gb.emissive + gb.albedo * (direct + ind_blend)
+    color = torch.where(gb.valid[:, None], color, 0.0)
+    aovs = {
+        "color": color.reshape(height, width, 3),
+        "depth": gb.depth.reshape(height, width),
+        "instance_id": gb.instance.reshape(height, width),
+        "normal": gb.normal.reshape(height, width, 3),
+        "albedo": gb.albedo.reshape(height, width, 3),
+        "gi_history": count_full.reshape(height, width),
+    }
+    if hit.overflow is not None:
+        aovs["raster_overflow_tiles"] = hit.overflow
+    return aovs, new_state

@@ -2,8 +2,9 @@
 
 Owns the delegate, builds the SDF cascades when the scene or the focus
 changes (full cell-binned build with demand-scaled list caps, then the
-radiance bake), and renders GI frames, or direct-only frames with
-``gi=False``, on an explicit ``device``.  GI samples come from a
+radiance bake), and renders GI frames, direct-only frames with
+``gi=False``, SDF debug views and temporal flythroughs on ``device``
+(the CUDA card unless the caller asks for the CPU).  GI samples come from a
 ``torch.Generator`` seeded with the frame index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from vri_tpu_torch.config import DebugMode, RenderConfig
-from vri_tpu_torch.hydra.camera import CameraState
+from vri_tpu_torch.hydra.camera import CameraState, FreeCamera
 from vri_tpu_torch.usd.stage import Stage
 from vri_tpu_torch.hydra.delegate import RenderDelegate
 from vri_tpu_torch.ops import sdf as sdf_mod
@@ -34,9 +35,15 @@ log = logging.getLogger("vri_tpu_torch")
 
 
 class Renderer:
-    def __init__(self, config: Optional[RenderConfig] = None, *, device):
+    def __init__(self, config: Optional[RenderConfig] = None, *,
+                 device="cuda"):
         self.config = config or RenderConfig()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer: no CUDA card is present (torch.cuda.is_available()"
+                " is false); pass device='cpu' to render with the kernels' "
+                "plain PyTorch versions")
         self.delegate = RenderDelegate(self.config, device=self.device)
         self.scene: Optional[SceneBuffers] = None
         self.cascades = None
@@ -147,9 +154,10 @@ class Renderer:
                uniforms: torch.Tensor | None = None
                ) -> Dict[str, np.ndarray]:
         """One frame: the GI frame, or with ``gi=False`` the direct-only
-        frame (brute-force hard shadows, no SDF cascades).  ``uniforms``
-        (samples, H*W, 2) replaces the generator draws of the GI frame
-        (parity tests hand in the reference's samples)."""
+        frame (brute-force hard shadows, no SDF cascades); an SDF debug
+        ``mode`` marches the cascades whatever ``gi`` says.  ``uniforms``
+        (samples, GI pixels, 2) replaces the generator draws of the GI
+        frame (parity tests hand in the reference's samples)."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         cam = camera or self.camera
@@ -206,3 +214,37 @@ class Renderer:
                 color = torch.zeros_like(aovs["color"])
             color, count = frame_mod.accumulate(color, count, aovs["color"])
         return color.cpu().numpy()
+
+    def render_flythrough(self, n_frames: int, free_cam: FreeCamera,
+                          dt: float = 1.0 / 30.0, gi: bool = True,
+                          backend: str = "raster", temporal: bool = False,
+                          gi_scale: int = 1, samples: int = 1) -> list:
+        """Frames along a scripted camera path (``free_cam.at_time(i *
+        dt)``), as numpy AOV dicts.  ``temporal=True`` accumulates the GI
+        through the reprojected history
+        (``frame.render_frame_gi_temporal``), so reduced per-frame ray
+        budgets (``gi_scale=2``, ``samples=1``) converge like a
+        many-sample accumulation."""
+        aspect = self.config.width / self.config.height
+        h, w = self.config.height, self.config.width
+        frames = []
+        state = (frame_mod.init_temporal(h, w, gi_scale, device=self.device)
+                 if temporal else None)
+        for i in range(n_frames):
+            cam = free_cam.at_time(i * dt, aspect)
+            if not (temporal and gi):
+                frames.append(self.render(camera=cam, gi=gi, backend=backend,
+                                          gi_scale=gi_scale, samples=samples))
+                continue
+            cascades = self.ensure_cascades(eye=cam.eye)
+            fp = frame_mod.FrameParams.from_camera(cam, h, device=self.device)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.frame_index)
+            self.frame_index += 1
+            aovs, state = frame_mod.render_frame_gi_temporal(
+                self.scene, fp, cascades, state, height=h, width=w,
+                config=self.config.sdf, backend=backend, samples=samples,
+                use_cache=True, gi_scale=gi_scale,
+                lod_tau=self.config.lod_tau, generator=gen)
+            frames.append({k: v.cpu().numpy() for k, v in aovs.items()})
+        return frames
