@@ -8,12 +8,15 @@ a user runs: the 49k-triangle kitchen stage, 1920x1080, the "room" SDF
 preset; then the other paths: the ranged tier, the BVH backend, the app's
 default frame, a city-scale stage and the direct-only frame; then the
 work-list micro-benchmarks' kernels, each through its tool's own row at
-the tool's full shape; and the production frame (the temporal GI frame
-at ``gi_scale=2``), the reference preset's frame, the SDF debug views and
-the compacted march.  The JAX package and JAX itself are blocked
+the tool's full shape; the production frame (the temporal GI frame at
+``gi_scale=2``), the reference preset's frame, the SDF debug views and
+the compacted march; and the LOD and animated-stage paths: the LOD face
+mask through the three raster tiers, the bounded SDF update, the
+animated frame, the clipmap scroll and the app's ``--lod`` and
+``--builtin animated``.  The JAX package and JAX itself are blocked
 before the port is imported, so any import of either is fatal.  Phases
-(run in the order 1-6, 21, 7, 8, 12, 13, 18, 20, 19, 9-11, 14-17; phase
-20's small input runs in phase 10), each fatal on failure:
+(run in the order 1-6, 21, 7, 8, 12, 13, 18, 20, 23, 24, 19, 9-11, 22,
+14-17; phase 20's small input runs in phase 10), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -53,12 +56,14 @@ before the port is imported, so any import of either is fatal.  Phases
 10. agreement on a small input: Cornell box at 64^2 rendered on the card
     and, with the plain versions, on the CPU;
 11. city: ``bench.py``'s city stage (4,500 instanced towers, 1.35M faces)
-    at 1920x1080 without LOD chains: frustum-compacted raster frames,
-    escalating the capacities as the renderer's ladder does until a frame
-    reports no overflow; then three frames at that scale (zero overflow,
-    ``raster_tiles`` counted), the compacted ``HitRecord`` equal to an
-    uncompacted sorted raster of the frame; the live face count, the
-    longest tile list, the ladder, frame times and peak memory;
+    at 1920x1080, packed as ``bench.py:327-333`` packs it (``lod_levels=3,
+    lod_min_faces=64``) and rendered at ``lod_tau=0``: frustum-compacted
+    raster frames, escalating the capacities as the renderer's ladder
+    does until a frame reports no overflow; then three frames at that
+    scale (zero overflow, ``raster_tiles`` counted), the compacted
+    ``HitRecord`` equal to an uncompacted sorted raster of the frame; the
+    live face count, the longest tile list, the ladder, frame times and
+    peak memory;
 12. kernel ``bvh_traverse`` against its plain version on the main path's
     stage (LBVH of 8,192 leaves): the 1920x1080 camera rays and 2^18
     random rays with per-ray t_max; t, slot, u, v and the per-ray visit
@@ -123,7 +128,50 @@ before the port is imported, so any import of either is fatal.  Phases
     at least 99.9% of the pixels;
 21. ``march_compact`` under ``compact_march`` on phase 6's GI rays: three
     ``march_rays`` launches; t, hit voxel and iterations equal to
-    one-phase ``march``; both times.
+    one-phase ``march``; both times;
+22. LOD: on phase 11's city, ``_visibility_raster`` frames at
+    ``lod_tau=0.75`` (the mask is present, so the uncompacted sorted
+    tier), escalating the capacities as phase 11 does: zero overflow at
+    the settled scale, one ``raster_tiles`` a frame, no face of a level
+    not chosen wins a pixel, kernel R bit-equal to its plain version on
+    the frame's lists; the faces selected against the chains, the
+    instances per level and the frame times beside phase 11's.  Then the
+    masked tiers bit-equal (``tri``, ``t``, ``u``, ``v``): sorted and
+    ranged on ``kitchen_stress(256, tess=4)`` at 1080p, sorted, binned
+    and ranged on ``kitchen_stress(64, tess=4)`` at 512^2 (at tess 1 no
+    mesh reaches ``lod_min_faces=64``), one ``raster_ranged`` launch on
+    the ranged tier;
+23. the bounded update and the animated frame, on phase 7's renderer and
+    cascades (kitchen, 1080p, room): (a) ``update_for_scene`` moving the
+    smallest prop by 0.03, as ``bench.py:180-215`` times it:
+    ``needs_full`` 0; its time (CUDA events), dirty cells, triangles and
+    re-emitted bricks against the room preset's caps, and its host syncs
+    (``torch.cuda.set_sync_debug_mode``); (b) 5 frames of
+    ``render_frame_gi_dynamic`` with the prop on ``bench.py``'s
+    oscillating path (``bench.py:220-280``: ``gi_scale=2``, 1 spp,
+    ``use_cache``, raster, from ``init_temporal(1080, 1920, 2)``),
+    counters reset first: each frame one ``raster_tiles`` and three
+    ``march_rays`` (the partial bake's shadow rays, the frame's shadow and
+    GI rays: ``gi.direct_radiance`` marches once a call), ``needs_full``
+    0, finite colour, coverage > 50%; the frame times, the re-bake sets
+    against ``bake_brick_cap``, the host syncs of a sixth frame and the
+    peak memory; (c) kernel M bit-equal to its plain version on the last
+    partial bake's shadow rays; (d) ``animated_stage()`` at the room
+    preset (update caps raised to hold all 8 props, 64 triangles a brick)
+    through ``render(time_code=t)`` for t = 0, 4, 8: rebuilt, then the
+    update path twice, and the updated cascades voxel-equal to a full
+    build at t = 8 (occupancy, ESD, atlas and albedo per voxel, march
+    tables);
+24. the clipmap scroll and the app: phase 7's renderer with its focus
+    moved by two coarse voxels along -x takes the scroll path (with
+    update caps that hold the move; the room preset's 1,024 cells do
+    not); its time beside phase 7's full build; on ``animated_stage()``
+    a scroll is voxel-equal to a fresh build at the new centers (atlas
+    within 2e-6 and one u8 step, no near candidate dropped) and every
+    cell list nests in the fresh build's or holds it;
+    ``app.main(["--builtin", "animated", "--frames", "4"])`` and
+    ``app.main(["--builtin", "kitchen", "--lod", "3"])`` exit 0 and write
+    their PNGs under ``chiprun_out/``.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
@@ -132,7 +180,9 @@ H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
 single PyTorch call computes any of the seven, so ``library_ms`` is
 null.  ``raster_tiles`` and ``march_rays`` also carry their launches in
-one production frame (phase 18).
+one production frame (phase 18) and in one dynamic frame (phase 23),
+``raster_ranged`` its launches on the masked ranged tier (phase 22).
+The script prints its total seconds.
 
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -539,10 +589,26 @@ def _tagged(fn, tag: str, log: list):
     return run
 
 
-def _city(dev, card: str) -> None:
-    """bench.py's city row (``bench.py:327-343``) without LOD chains:
+def _settle(frame, label: str) -> tuple:
+    """The renderer's ladder: ``frame(caps_scale)`` at doubling
+    capacities until it reports no overflow (at most 4x).  Returns the
+    settled scale and the (scale, overflow) rungs."""
+    scale, ladder = 1, []
+    while True:
+        over = int(frame(scale).overflow)
+        ladder.append((scale, over))
+        if not over:
+            return scale, ladder
+        scale *= 2
+        _check(scale <= 4, f"{label}: overflow at 4x capacities ({ladder})")
+
+
+def _city(dev, card: str) -> dict:
+    """bench.py's city row (``bench.py:327-343``, LOD chains packed with
+    ``lod_levels=3, lod_min_faces=64``, rendered at ``lod_tau=0``):
     frustum-compacted raster frames at 1920x1080, at the capacities the
-    renderer's overflow ladder settles on."""
+    renderer's overflow ladder settles on.  Returns the stage and its
+    frame times for phase 22."""
     import torch
 
     from vri_tpu_torch import RenderConfig, SceneLimits, scenes
@@ -558,7 +624,8 @@ def _city(dev, card: str) -> None:
     lim = SceneLimits(max_instances=8192, max_vertices=1 << 22,
                       max_faces=1 << 22)
     d = RenderDelegate(RenderConfig(width=w, height=h, limits=lim,
-                                    lod_levels=0), device=dev)
+                                    lod_levels=3, lod_min_faces=64),
+                       device=dev)
     d.populate(stage)
     scene = d.sync()
     t2 = time.perf_counter()
@@ -584,16 +651,7 @@ def _city(dev, card: str) -> None:
             scene, world, fp, h, w, caps_scale=scale, lod_tau=0.0,
             cull_instances=True, compact_cap=1 << 20)
 
-    # the renderer's ladder: an overflowed frame doubles the capacities
-    scale = 1
-    ladder = []
-    while True:
-        over = int(frame(scale).overflow)
-        ladder.append((scale, over))
-        if not over:
-            break
-        scale *= 2
-        _check(scale <= 4, f"city: overflow at 4x capacities ({ladder})")
+    scale, ladder = _settle(frame, "city")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -621,7 +679,9 @@ def _city(dev, card: str) -> None:
         _check(torch.equal(getattr(hit, key), getattr(full, key)),
                f"city: compacted {key} differs from the uncompacted raster")
     cov = float((hit.tri >= 0).float().mean())
-    print(f"city: {int(scene.num_faces)} faces in a pool of {pool}, "
+    print(f"city: {int(scene.num_faces)} base faces, "
+          f"{int(scene.num_faces_total)} with the LOD chains, in a pool of "
+          f"{pool}, "
           f"{int(scene.num_instances)} instances; authoring {t1 - t0:.1f} s, "
           f"sync {t2 - t1:.1f} s (host clock); {live} live faces after the "
           f"frustum cull; longest tile list {longest} pairs, {over_4096} "
@@ -631,6 +691,7 @@ def _city(dev, card: str) -> None:
           + ", ".join(f"{t:.2f}" for t in times)
           + f" ms (CUDA events), 0 overflow, launches {launches}, peak memory "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    return dict(scene=scene, world=world, fp=fp, times=times, pool=pool)
 
 
 def _bvh_kernel(r, h: int, w: int, card: str) -> dict:
@@ -1070,7 +1131,540 @@ def _reference_preset(dev, h: int, w: int, card: str) -> None:
           f"{float(rec.hit.float().mean()):.4f} hit [{card}]")
 
 
+
+def _syncs(fn):
+    """``fn()`` with torch's sync debug mode warning on every host sync;
+    returns (its result, the number of host syncs it made)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(c.message) for c in caught)
+
+
+def _focal(fp):
+    import torch
+
+    return 1.0 / torch.clamp(fp.pixel_spread, min=1e-8)
+
+
+def _lod_city(city: dict, card: str) -> None:
+    """Phase 22 on phase 11's city: one ``_visibility_raster`` frame at
+    ``lod_tau=0.75`` (the mask is present, so the uncompacted sorted
+    tier), the capacities escalated as the renderer's ladder does; kernel
+    R held bit-equal to its plain version on that frame's lists."""
+    import torch
+
+    from vri_tpu_torch.ops import lod, rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    scene, world, fp = city["scene"], city["world"], city["fp"]
+    h, w = 1080, 1920
+    mask, levels = lod.face_mask(scene, fp.eye, _focal(fp), 0.75)
+    ni = int(scene.num_instances)
+    hist = torch.bincount(levels[:ni].long(), minlength=4).tolist()
+
+    def frame(scale):
+        return frame_mod._visibility_raster(scene, world, fp, h, w,
+                                            caps_scale=scale, lod_tau=0.75)
+
+    scale, ladder = _settle(frame, "LOD city")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times = []
+    for i in range(3):
+        start, stop = _events()
+        start.record()
+        hit = frame(scale)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        _check(int(hit.overflow) == 0, f"LOD city frame {i}: overflow")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches == _launches(raster_tiles=3),
+           f"LOD city: launch counts {launches}")
+    _check(bool(mask[hit.tri[hit.tri >= 0].long()].all()),
+           "LOD city: a face of a level not chosen won a pixel")
+    prep = rasterize.prepare_sorted(
+        world, scene.tri_vertices, scene.num_faces_total, fp.view_proj,
+        height=h, width=w, caps_scale=scale,
+        cull_sign=frame_mod._cull_sign(scene), face_mask=mask)
+    rargs = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
+    rkw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
+    got = rasterize.raster_tiles(*rargs, **rkw)
+    torch.cuda.synchronize()
+    want = rasterize.raster_tiles_reference(*rargs, **rkw)
+    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
+        _check(torch.equal(g, wv), f"LOD city: raster_tiles {name} differs "
+               "from the plain version")
+    print(f"LOD city (lod_levels=3, lod_tau=0.75, 1920x1080): "
+          f"{int(mask.sum())} faces selected of {int(scene.num_faces_total)}"
+          f" in the chains ({int(scene.num_faces)} base, pool "
+          f"{city['pool']}); instances per level {hist}; ladder (caps_scale,"
+          f" overflow) {ladder}; {int(prep['lists'].shape[0])} pairs, "
+          f"raster_tiles equal to the plain version on them; uncompacted "
+          f"sorted frames " + ", ".join(f"{t:.2f}" for t in times)
+          + " ms against phase 11's lod_tau=0 compacted frames "
+          + ", ".join(f"{t:.2f}" for t in city["times"])
+          + f" (CUDA events); launches {launches}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+
+
+def _lod_tiers(dev, card: str) -> int:
+    """Phase 22's tiers: the LOD-masked sorted and ranged tiers on
+    ``kitchen_stress(256, tess=4)`` at 1080p, and the masked sorted,
+    binned and ranged tiers on ``kitchen_stress(64, tess=4)`` at 512^2
+    (at tess 1 and 2 no mesh reaches ``lod_min_faces``, so no chain is
+    packed), each with ``lod_levels=3, lod_min_faces=64`` at the stage
+    camera and ``lod_tau=0.75``, bit-equal.  Returns the masked ranged
+    tier's ``raster_ranged`` launches at 1080p."""
+    import torch
+
+    from vri_tpu_torch import RenderConfig, scenes
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import lod, rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    k6 = 0
+    for n_obj, h, w, tiers in ((256, 1080, 1920, ("sorted", "ranged")),
+                               (64, 512, 512,
+                                ("sorted", "binned", "ranged"))):
+        d = RenderDelegate(RenderConfig(width=w, height=h, lod_levels=3,
+                                        lod_min_faces=64), device=dev)
+        t0 = time.perf_counter()
+        d.populate(scenes.kitchen_stress(num_objects=n_obj, tess=4))
+        sc = d.sync()
+        pack_s = time.perf_counter() - t0
+        fp = frame_mod.FrameParams.from_camera(d.camera, h, device=dev)
+        mask, levels = lod.face_mask(sc, fp.eye, _focal(fp), 0.75)
+        ni = int(sc.num_instances)
+        hist = torch.bincount(levels[:ni].long(), minlength=4).tolist()
+        args = (bake_world(sc), sc.tri_vertices, sc.num_faces_total,
+                fp.view_proj)
+        kw = dict(height=h, width=w, cull_sign=frame_mod._cull_sign(sc),
+                  face_mask=mask)
+        fns = {"sorted": rasterize.rasterize_sorted,
+               "binned": rasterize.rasterize_binned,
+               "ranged": rasterize.rasterize}
+        hits = {}
+        for t in tiers:
+            _reset_counts()
+            hits[t] = fns[t](*args, **kw)[0]
+            if t == "ranged":
+                torch.cuda.synchronize()
+                n = _counts()["raster_ranged"]
+                _check(n == 1, f"masked ranged tier: {n} launches")
+                if h == 1080:
+                    k6 = n
+            _check(hits[t].overflow is None or int(hits[t].overflow) == 0,
+                   f"masked {t} tier, {n_obj} objects: overflow")
+        for t in tiers[1:]:
+            for key in ("tri", "t", "u", "v"):
+                _check(torch.equal(getattr(hits[t], key),
+                                   getattr(hits["sorted"], key)),
+                       f"masked {t} tier, {n_obj} objects: {key} differs from "
+                       "the sorted tier's")
+        tri = hits["sorted"].tri
+        _check(bool(mask[tri[tri >= 0].long()].all()),
+               f"masked tiers, {n_obj} objects: a masked face won a "
+               "pixel")
+        times = {t: _time_ms(lambda fn=fns[t]: fn(*args, **kw), 5)
+                 for t in tiers}
+        print(f"LOD-masked tiers, kitchen_stress({n_obj}, tess=4) {w}x{h}: "
+              f"{int(mask.sum())} faces selected of "
+              f"{int(sc.num_faces_total)} ({int(sc.num_faces)} base; LOD "
+              f"pack and sync {pack_s:.1f} s, host clock); instances per "
+              f"level {hist}; {' = '.join(tiers)} bit-equal; "
+              + ", ".join(f"{t} {times[t]:.3f} ms" for t in tiers)
+              + f" (CUDA events, mean of 5) [{card}]")
+    return k6
+
+
+def _smallest_instance(scene) -> int:
+    ni = int(scene.num_instances)
+    ext = (scene.instance_aabb_hi - scene.instance_aabb_lo)[:ni].max(-1)
+    return int(ext.values.argmin())
+
+
+def _dirty_boxes(lo, hi, moves, dev):
+    """(64, 3) dirty boxes: the instance's box at each offset of
+    ``moves``, dead (+BIG/-BIG) rows after them."""
+    import torch
+
+    dlo = torch.full((64, 3), 3.0e38, device=dev)
+    dhi = torch.full((64, 3), -3.0e38, device=dev)
+    for j, off in enumerate(moves):
+        dlo[j], dhi[j] = lo + off, hi + off
+    return dlo, dhi
+
+
+def _voxel_equal(a, b, label: str, atol: float = 0.0) -> None:
+    """Occupancy, ESD, atlas (within ``atol`` plus one u8 step when
+    ``atol`` > 0) and albedo per voxel of two cascade sets, and their
+    march tables when ``atol`` is 0."""
+    import torch
+
+    ba, bb = a.brick_map.reshape(-1), b.brick_map.reshape(-1)
+    occ = ba >= 0
+    _check(torch.equal(occ, bb >= 0), f"{label}: occupancy differs")
+    _check(torch.equal(torch.where(occ, 0, ba), torch.where(occ, 0, bb)),
+           f"{label}: ESD differs")
+    ia, ib = ba[occ].long(), bb[occ].long()
+    if atol:
+        da = a.atlas[ia].float() / 255.0 - b.atlas[ib].float() / 255.0
+        _check(float(da.abs().max()) <= atol + 1.0 / 255.0,
+               f"{label}: atlas differs")
+        return
+    _check(torch.equal(a.atlas[ia], b.atlas[ib]), f"{label}: atlas differs")
+    _check(torch.equal(a.brick_albedo[ia], b.brick_albedo[ib]),
+           f"{label}: albedo differs")
+    for f in ("march_coarse", "march_fine0", "march_fine1"):
+        _check(torch.equal(getattr(a, f), getattr(b, f)),
+               f"{label}: {f} differs")
+
+
+def _animated(r, h: int, w: int, card: str) -> dict:
+    """Phase 23 on renderer ``r`` (phase 7's kitchen, 1080p, room preset,
+    its cascades reused): (a) ``update_for_scene`` moving the smallest
+    prop; (b) 5 frames of ``render_frame_gi_dynamic`` with the prop on
+    ``bench.py``'s oscillating path (``bench.py:220-280``); (c) kernel M
+    held to its plain version on the last partial bake's shadow rays;
+    (d) ``animated_stage()`` through ``render(time_code=t)``.  Returns
+    the launches of one dynamic frame."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from vri_tpu_torch import RenderConfig, scenes
+    from vri_tpu_torch.ops import gi
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    dev = r.device
+    eff = r._sdf_cfg_effective or r.config.sdf
+    scene = r.scene.base_view()
+    k = _smallest_instance(scene)
+    lo0, hi0 = scene.instance_aabb_lo[k], scene.instance_aabb_hi[k]
+    tf0 = scene.instance_transform
+    dirty_tri = scene.tri_instance == k
+
+    def moved(off):
+        tf = tf0.clone()
+        tf[k, :3, 3] += off
+        return scene.replace(instance_transform=tf)
+
+    def offset(i):
+        ph = 0.7 * (i + 1)
+        return torch.tensor([0.03 * math.sin(ph), 0.0, 0.03 * math.cos(ph)],
+                            device=dev)
+
+    # -- (a) the bounded update on its own ----------------------------------
+    cells = []
+    real_apply = sdf_build._apply_dirty_cells
+
+    def counted(cas, st, cell_ids, *a, **kw):
+        cells.append(int(cell_ids.shape[0]))
+        return real_apply(cas, st, cell_ids, *a, **kw)
+
+    off = offset(0)
+    s1 = moved(off)
+    world1 = bake_world(s1)
+    dlo, dhi = _dirty_boxes(lo0, hi0, (0.0, off), dev)
+
+    def update():
+        return sdf_build.update_for_scene(r.cascades, r._build_state, s1,
+                                          world1, dirty_tri, dlo, dhi, eff)
+
+    sdf_build._apply_dirty_cells = counted
+    try:
+        (_, st1, nf), n_sync = _syncs(update)
+        torch.cuda.synchronize()
+        start, stop = _events()
+        t0 = time.perf_counter()
+        start.record()
+        _, _, nf2 = update()
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        sdf_build._apply_dirty_cells = real_apply
+    upd_ms = start.elapsed_time(stop)
+    _check(int(nf) == 0 and int(nf2) == 0,
+           f"bounded update: needs_full {int(nf)}")
+    print(f"bounded SDF update (update_for_scene, the smallest prop moved by "
+          f"{float(off.norm()):.3f}; K {eff.cell_list_cap}, Kg "
+          f"{eff.global_list_cap}): needs_full 0; {cells[0]} dirty cells "
+          f"(cap {eff.update_cell_cap}), {int(dirty_tri.sum())} dirty "
+          f"triangles (cap {eff.update_tri_cap}), "
+          f"{int(st1.emit_bricks.sum())} bricks re-emitted (cap "
+          f"{eff.update_brick_cap}); {upd_ms:.1f} ms (CUDA events), "
+          f"{host_ms:.1f} ms host clock, against the full build + bake "
+          f"{r.last_build_ms:.1f} ms (phase 7, host clock); {n_sync} host "
+          f"syncs [{card}]")
+    del st1
+
+    # -- (b) 5 animated frames ------------------------------------------------
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rebake = []
+    real_partial = sdf_mod.bake_brick_lighting_partial
+
+    def recorded(cas, sc, mask, alive, **kw):
+        rebake.append(int((mask & alive).sum()))
+        return real_partial(cas, sc, mask, alive, **kw)
+
+    cas, st = r.cascades, r._build_state
+    state = frame_mod.init_temporal(h, w, 2, device=dev)
+    kw = dict(height=h, width=w, config=eff, backend="raster", samples=1,
+              use_cache=True, gi_scale=2, lod_tau=r.config.lod_tau,
+              generator=gen)
+    per_frame = _launches(raster_tiles=1, march_rays=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times, covs = [], []
+    sdf_mod.bake_brick_lighting_partial = recorded
+
+    def step(i):
+        prev = offset(i - 1) if i else torch.zeros(3, device=dev)
+        dl, dh = _dirty_boxes(lo0, hi0, (prev, offset(i)), dev)
+        s_i = moved(offset(i))
+        return frame_mod.render_frame_gi_dynamic(
+            s_i, fp, cas, st, state, dirty_tri, dl, dh, **kw), s_i, dl, dh
+
+    try:
+        for i in range(5):
+            before = _counts()
+            start, stop = _events()
+            start.record()
+            (aovs, state, cas, st, nf), s_i, dl, dh = step(i)
+            out = {key: v.cpu().numpy() for key, v in aovs.items()}
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+            got = {key: v - before[key] for key, v in _counts().items()}
+            _check(got == per_frame, f"dynamic frame {i}: launches {got}")
+            _check(int(nf) == 0, f"dynamic frame {i}: needs_full {int(nf)}")
+            _check(np.isfinite(out["color"]).all(),
+                   f"dynamic frame {i}: colour not finite")
+            covs.append(float((out["instance_id"] >= 0).mean()))
+            _check(covs[-1] > 0.5, f"dynamic frame {i}: coverage {covs[-1]}")
+        peak = torch.cuda.max_memory_allocated()
+        ((_, state, cas, st, nf), s_i, dl, dh), n_sync = _syncs(
+            lambda: step(5))
+    finally:
+        sdf_mod.bake_brick_lighting_partial = real_partial
+    print(f"dynamic frames (render_frame_gi_dynamic, gi_scale=2, 1 spp, "
+          f"use_cache, raster; kitchen 1920x1080, room; the smallest prop on "
+          f"bench.py's path): frames 1-5 "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f" ms with the host copy (CUDA events); launches per frame "
+          f"{ {n: c for n, c in per_frame.items() if c} }; needs_full 0; "
+          f"coverage {min(covs):.4f}; re-bake sets "
+          + ", ".join(str(n) for n in rebake[:5])
+          + f" bricks of cap {eff.bake_brick_cap}; {n_sync} host syncs in "
+          f"one frame (frame 6); peak memory {peak / 2 ** 30:.2f} GiB "
+          f"[{card}]")
+
+    # -- (c) kernel M on the partial bake's shadow rays -----------------------
+    mask = st.emit_bricks | sdf_mod.lighting_dirty_bricks(
+        cas, s_i, dl, dh, config=eff)
+    pos = torch.nonzero(mask & st.alive).reshape(-1)[:eff.bake_brick_cap]
+    _check(pos.shape[0] > 0, "the last dynamic frame re-baked no brick")
+    centers = sdf_mod.brick_positions(cas, eff)[0][pos]
+    nrm = cas.brick_normal[pos]
+    pts = centers + nrm * gi.surface_bias(centers, cas, eff)[:, None]
+    margs, _, got, _ = _hold_march(
+        cas, gi.shadow_rays(pts, nrm, s_i, cas, eff), eff, 32,
+        "partial bake's shadow")
+    print(f"  march_rays on the partial bake's {margs[0].shape[1]} shadow "
+          f"rays ({pos.shape[0]} bricks): equal to the plain version "
+          f"[{card}]")
+    del cas, st, state, margs, got, mask
+
+    # -- (d) animated_stage through render(time_code=) ----------------------
+    # the room preset with update capacities that hold all 8 props moving
+    # at once (the preset's 1,024 cells and 8,192 bricks hold about one
+    # prop: (a)) and 64 triangles a brick, so that no near candidate is
+    # dropped and the update is exactly a rebuild
+    acfg = dataclasses.replace(r.config.sdf, update_cell_cap=6 * 4096,
+                               update_brick_cap=1 << 18,
+                               max_triangles_per_brick=64)
+    ra = Renderer(RenderConfig(width=w, height=h, sdf=acfg), device=dev)
+    ra.load_stage(scenes.animated_stage())
+    labels, build_ms = [], []
+    cells.clear()
+    emitted = []
+
+    def counted_emit(cas_, st_, cell_ids, *a, **kw_):
+        cells.append(int(cell_ids.shape[0]))
+        out_ = real_apply(cas_, st_, cell_ids, *a, **kw_)
+        emitted.append(int(out_[1].emit_bricks.sum()))
+        return out_
+
+    sdf_build._apply_dirty_cells = counted_emit
+    try:
+        for t in (0.0, 4.0, 8.0):
+            out = ra.render(gi=True, time_code=t)
+            labels.append(ra.last_build_label)
+            build_ms.append(ra.last_build_ms)
+            _check(np.isfinite(out["color"]).all(),
+                   f"animated stage at t={t}: colour not finite")
+    finally:
+        sdf_build._apply_dirty_cells = real_apply
+    _check(labels[0] == "rebuilt"
+           and all(x.startswith("updated (") for x in labels[1:]),
+           f"animated stage: cascade paths {labels} (dirty cells {cells}, "
+           f"bricks re-emitted {emitted})")
+    fresh = Renderer(RenderConfig(width=w, height=h, sdf=acfg), device=dev)
+    fresh.load_stage(scenes.animated_stage())
+    fresh._sdf_cfg_effective = ra._sdf_cfg_effective
+    fresh.sync(time_code=8.0)
+    fresh.ensure_cascades(eye=ra.camera.eye)
+    _check(int(fresh.cascades.near_drop) == 0,
+           f"animated stage: {int(fresh.cascades.near_drop)} near "
+           "candidates dropped")
+    _voxel_equal(ra.cascades, fresh.cascades,
+                 "animated stage: update against a full build at t=8")
+    print(f"animated stage (animated_stage(), 1920x1080, room with update "
+          f"caps {acfg.update_cell_cap} cells and {acfg.update_brick_cap} "
+          f"bricks, 64 triangles a brick) through render(time_code=0, 4, "
+          f"8): {labels}; {cells} dirty cells, {emitted} bricks "
+          f"re-emitted; cascade ms (host clock, bake included) "
+          + ", ".join(f"{t:.1f}" for t in build_ms)
+          + f", a full build at t=8 {fresh.last_build_ms:.1f}; the updated "
+          f"cascades voxel-equal to it (occupancy, ESD, atlas, albedo, march "
+          f"tables), no near candidate dropped [{card}]")
+    return {n: c for n, c in per_frame.items() if c}
+
+
+def _scroll_and_app(r, h: int, w: int, card: str, out_dir: str) -> None:
+    """Phase 24: the clipmap scroll through ``ensure_cascades`` on
+    renderer ``r`` (its focus moved by two coarse voxels along x), the
+    scroll on ``animated_stage()`` against a fresh build, and the app's
+    ``--builtin animated`` and ``--lod 3``."""
+    import dataclasses
+
+    import torch
+
+    from vri_tpu_torch import RenderConfig, app, scenes
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    eff = r._sdf_cfg_effective or r.config.sdf
+    coarse = eff.voxel_size(eff.num_cascades - 1)
+    # a two-coarse-voxel move enters more cells than the room preset's
+    # update_cell_cap (1,024; about 768 in cascade 0 alone), where the
+    # renderer would rebuild: the scroll runs with capacities that hold it
+    r._sdf_cfg_effective = dataclasses.replace(
+        eff, update_cell_cap=6 * 4096, update_brick_cap=1 << 18)
+    entering, emitted = [], []
+    real_apply = sdf_build._apply_dirty_cells
+
+    def counted(cas, st, cell_ids, *a, **kw):
+        entering.append(int(cell_ids.shape[0]))
+        out = real_apply(cas, st, cell_ids, *a, **kw)
+        emitted.append(int(out[1].emit_bricks.sum()))
+        return out
+
+    # toward the room's center (the stage camera's eye lies outside the
+    # stage's box, so the focus sits on its +x face)
+    focus = r._cascade_focus - np.asarray([2.0 * coarse, 0.0, 0.0],
+                                          np.float32)
+    build_ms = r.last_build_ms
+    sdf_build._apply_dirty_cells = counted
+    try:
+        r.ensure_cascades(focus=focus)
+    finally:
+        sdf_build._apply_dirty_cells = real_apply
+    _check(r.last_build_label.startswith("scrolled "),
+           f"scroll: the cascades were {r.last_build_label} (entering "
+           f"cells {entering}, bricks re-emitted {emitted})")
+    print(f"clipmap scroll (focus moved {2.0 * coarse:.2f} along -x): "
+          f"{r.last_build_label}, {entering[0]} entering cells (the room "
+          f"preset's cap {eff.update_cell_cap}), {emitted[0]} bricks emitted "
+          f"(its cap {eff.update_brick_cap}); scroll + bake "
+          f"{r.last_build_ms:.1f} ms against the full build + bake "
+          f"{build_ms:.1f} ms (host clock) [{card}]")
+
+    # the scroll on the animated stage against a fresh build, both
+    # without scene colours (tests/test_sdf_build.py's contract)
+    ra = Renderer(RenderConfig(width=w, height=h, sdf=r.config.sdf),
+                  device=r.device)
+    ra.load_stage(scenes.animated_stage())
+    sc = ra.scene
+    world = bake_world(sc)
+    # capacities that hold the scroll, 64 triangles a brick (no near
+    # candidate dropped, so the top-k does not depend on list order)
+    cfg = dataclasses.replace(r.config.sdf, update_cell_cap=6 * 4096,
+                              update_brick_cap=1 << 18,
+                              max_triangles_per_brick=64)
+    c0 = sdf_mod.default_centers(cfg, np.zeros(3, np.float32),
+                                 device=r.device)
+    cfg = sdf_build.demand_caps(sc, world, c0, cfg)
+    c1 = sdf_mod.default_centers(
+        cfg, np.asarray([-2.0 * coarse, 0.0, 0.0], np.float32),
+        device=r.device)
+    scrolled = tuple(bool(x) for x in (c0 != c1).any(-1).tolist())
+    args = (world, sc.tri_vertices, sc.num_faces)
+    cas0, st0 = sdf_build.build_cascades_binned(*args, c0, config=cfg)
+    cas1, st1, nf = sdf_build.scroll_cascades(
+        cas0, st0, c1, *args, config=cfg, scrolled=scrolled)
+    _check(int(nf) == 0, f"animated stage scroll: needs_full {int(nf)}")
+    ref, refst = sdf_build.build_cascades_binned(*args, c1, config=cfg)
+    # with near candidates past max_triangles_per_brick the top-k choice
+    # depends on the candidates' list order, which a scroll keeps from the
+    # old window: the voxel contract holds where no candidate is dropped
+    _check(int(cas0.near_drop) == 0 and int(ref.near_drop) == 0,
+           f"animated stage scroll: near candidates dropped "
+           f"({int(cas0.near_drop)}, {int(ref.near_drop)})")
+    _voxel_equal(cas1, ref, "animated stage scroll", atol=2e-6)
+    a, b = st1.cell_tris, refst.cell_tris
+    differ = (a != b).any(-1).nonzero().tolist()
+    for n, cell in differ:
+        sa = set(a[n, cell][a[n, cell] >= 0].tolist())
+        sb = set(b[n, cell][b[n, cell] >= 0].tolist())
+        _check(sa <= sb or sb <= sa, f"animated stage scroll: the lists of "
+               f"cell {cell} of cascade {n} do not nest")
+    print(f"  animated stage scroll ({sum(scrolled)} cascades scrolled): "
+          f"voxel-equal to a fresh build at the new centers (atlas within "
+          f"2e-6 and one u8 step); {len(differ)} cell lists differ, each "
+          f"nesting [{card}]")
+    del ra, cas0, st0, cas1, st1, ref, refst
+    torch.cuda.empty_cache()
+
+    for argv, tag in ((["--builtin", "animated", "--frames", "4"],
+                       "animated"),
+                      (["--builtin", "kitchen", "--lod", "3"], "lod")):
+        d = os.path.join(out_dir, f"app_{tag}")
+        t0 = time.perf_counter()
+        rc = app.main(argv + ["--out", d])
+        pngs = sorted(f for f in os.listdir(d) if f.endswith(".png")) \
+            if os.path.isdir(d) else []
+        _check(rc == 0 and len(pngs) == (4 if tag == "animated" else 1),
+               f"app {' '.join(argv)}: exit {rc}, PNGs {pngs}")
+        print(f"app {' '.join(argv)}: exit 0, {len(pngs)} PNGs in "
+              f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1451,6 +2045,14 @@ def main() -> int:
 
     # -- 20. the SDF debug views on the main path's renderer ------------------
     _sdf_views(r2, card)
+
+    # -- 23. the bounded update and the animated frame ------------------------
+    for name, n in _animated(r2, h, w, card).items():
+        kernels[name]["launches_dynamic_frame"] = n
+    torch.cuda.empty_cache()
+
+    # -- 24. the clipmap scroll and the app's animated and LOD runs -----------
+    _scroll_and_app(r2, h, w, card, out_dir)
     del r2
     torch.cuda.empty_cache()
 
@@ -1524,7 +2126,14 @@ def main() -> int:
            f"disagree on the hits ({agree:.5f})")
 
     # -- 11. city: frustum compaction at 1.35M faces ---------------------------
-    _city(dev, card)
+    city = _city(dev, card)
+
+    # -- 22. LOD: the city's masked frame, the masked tiers -----------------
+    _lod_city(city, card)
+    del city
+    torch.cuda.empty_cache()
+    kernels["raster_ranged"]["launches_masked_ranged_tier"] = _lod_tiers(
+        dev, card)
 
     # -- 14. the direct-only frame: Cornell 512x512, raster and BVH -----------
     rd = Renderer(RenderConfig(width=512, height=512, sdf=sdf_cfg),
@@ -1565,6 +2174,8 @@ def main() -> int:
     for name, k in kernels.items():
         _check(all(key in k for key in keys),
                f"{name}: kernel entry lacks {set(keys) - set(k)}")
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all "
+          f"(host clock) [{card}]")
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in kernels.items()]}))
     print(card)

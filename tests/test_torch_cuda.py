@@ -12,9 +12,11 @@ and its plain version on the same tensors, and requires exact equality: the kern
 versions' operation order, so every output agrees bit for bit (also
 raster_ranged's per-tile tested pairs and bvh_traverse's visit counts).
 It also holds march_compact's three march_rays launches bit-equal to
-one-phase march, the trilinear SDF loop on the card against the CPU, and
+one-phase march, the trilinear SDF loop on the card against the CPU,
 the temporal frame's launches (one raster_tiles and two march_rays a
-frame).  On a host without a card every test skips.
+frame), the LOD-masked tiers bit-equal to each other, and one bounded
+update and animated frame on the card against the CPU.  On a host
+without a card every test skips.
 """
 
 import numpy as np
@@ -932,3 +934,121 @@ def test_temporal_frame_launches(frame):
         assert int(aovs["raster_overflow_tiles"]) == 0
     cov = aovs["instance_id"] >= 0
     assert float((aovs["gi_history"][cov] == 2.0).float().mean()) > 0.9
+
+
+def test_lod_masked_tiers_bit_equal_on_card():
+    """The LOD-masked sorted, binned and ranged tiers on the card
+    (``kitchen_stress(24, tess=4)`` packed with two LOD levels, 256x192,
+    the stage camera's mask at tau 0.75): tri, t, u and v bit-equal, one
+    ``raster_ranged`` launch on the ranged tier, no masked face wins a
+    pixel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import lod, rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    h, w = 192, 256
+    d = RenderDelegate(RenderConfig(width=w, height=h, lod_levels=2,
+                                    lod_min_faces=64), device="cuda")
+    d.populate(scenes.kitchen_stress(num_objects=24, tess=4))
+    s = d.sync()
+    fp = frame_mod.FrameParams.from_camera(d.camera, h, device="cuda")
+    mask, levels = lod.face_mask(s, fp.eye, 1.0 / fp.pixel_spread, 0.75)
+    assert int(levels[:int(s.num_instances)].max()) >= 1
+    args = (bake_world(s), s.tri_vertices, s.num_faces_total, fp.view_proj)
+    kw = dict(height=h, width=w, cull_sign=frame_mod._cull_sign(s),
+              face_mask=mask)
+    before = rasterize.raster_ranged.launches
+    hits = {t: fn(*args, **kw)[0] for t, fn in (
+        ("sorted", rasterize.rasterize_sorted),
+        ("binned", rasterize.rasterize_binned),
+        ("ranged", rasterize.rasterize))}
+    assert rasterize.raster_ranged.launches - before == 1
+    for t in ("sorted", "binned"):
+        assert int(hits[t].overflow) == 0, t
+    tri = hits["sorted"].tri
+    assert bool(mask[tri[tri >= 0].long()].all())
+    for t in ("binned", "ranged"):
+        for key in ("tri", "t", "u", "v"):
+            assert torch.equal(getattr(hits[t], key),
+                               getattr(hits["sorted"], key)), (t, key)
+
+
+def test_dynamic_frame_card_matches_cpu():
+    """One bounded update and one ``render_frame_gi_dynamic`` frame on
+    the card against the CPU (the kernels' plain versions) on the Cornell
+    box at 64^2, both from the same CPU build and bake, with the same GI
+    uniforms: ``needs_full`` 0 on both, occupancy equal on at least
+    99.99% of the voxels, one ``raster_tiles`` and three ``march_rays``
+    on the card (the partial bake's shadow rays, the frame's shadow and
+    GI rays); ``instance_id`` equal on at least 99.9% of the pixels and
+    colour within 2e-3 where it is (``chip_smoke.py`` phase 10's
+    tolerances)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import march_kernel, rasterize
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    cfg = SDFConfig(num_cascades=2, cascade_resolution=32,
+                    base_voxel_size=0.1, max_bricks=8192,
+                    truncation_voxels=2.0, max_triangles_per_brick=16,
+                    approx_occlusion=True, update_cell_cap=2048)
+    res = 64
+    d = RenderDelegate(RenderConfig(width=res, height=res), device="cpu")
+    d.populate(scenes.cornell_box())
+    s = d.sync()
+    centers = sdf_mod.default_centers(cfg, np.zeros(3), device="cpu")
+    cas, st = sdf_build.build_for_scene(s, bake_world(s), centers, cfg)
+    cas = sdf_mod.bake_brick_lighting(cas, s, config=cfg, alive=st.alive)
+    ni = int(s.num_instances)
+    k = int((s.instance_aabb_hi - s.instance_aabb_lo)[:ni].max(-1)
+            .values.argmin())
+    off = torch.tensor([0.15, 0.0, 0.1])
+    tf = s.instance_transform.clone()
+    tf[k, :3, 3] += off
+    dlo = torch.full((4, 3), 3.0e38)
+    dhi = torch.full((4, 3), -3.0e38)
+    dlo[0], dhi[0] = s.instance_aabb_lo[k], s.instance_aabb_hi[k]
+    dlo[1], dhi[1] = dlo[0] + off, dhi[0] + off
+    uni = torch.rand((1, res * res, 2), generator=torch.Generator()
+                     .manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mv = lambda x: x.to(dev) if torch.is_tensor(x) else x  # noqa: E731
+        s_d = type(s)(**{f.name: mv(getattr(s, f.name))
+                         for f in dataclasses.fields(s)})
+        s_d = s_d.replace(instance_transform=tf.to(dev))
+        cas_d = type(cas)(**{f.name: mv(getattr(cas, f.name))
+                             for f in dataclasses.fields(cas)})
+        st_d = type(st)(**{f.name: mv(getattr(st, f.name))
+                           for f in dataclasses.fields(st)})
+        fp = frame_mod.FrameParams.from_camera(d.camera, res, device=dev)
+        before = (rasterize.raster_tiles.launches,
+                  march_kernel.march_rays.launches)
+        aovs, _, cas1, _, nf = frame_mod.render_frame_gi_dynamic(
+            s_d, fp, cas_d, st_d,
+            frame_mod.init_temporal(res, res, 1, device=dev),
+            s_d.tri_instance == k, dlo.to(dev), dhi.to(dev), height=res,
+            width=res, config=cfg, use_cache=True, uniforms=uni.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (rasterize.raster_tiles.launches - before[0],
+                    march_kernel.march_rays.launches - before[1]) == (1, 3)
+        assert int(nf) == 0, dev
+        out[dev] = ({key: v.cpu() for key, v in aovs.items()},
+                    cas1.brick_map.cpu())
+    (a, bm_a), (b, bm_b) = out["cpu"], out["cuda"]
+    assert float(((bm_a >= 0) == (bm_b >= 0)).float().mean()) >= 0.9999
+    same = a["instance_id"] == b["instance_id"]
+    assert float(same.float().mean()) >= 0.999
+    assert float((a["color"] - b["color"]).abs().amax(-1)[same].max()) \
+        <= 2e-3
+    assert bool(torch.isfinite(b["color"]).all())

@@ -417,8 +417,8 @@ def test_direct_frame_shadows_darken(direct_frames):
     assert bool((shadowed < lit - 1e-3).any())
 
 
-@pytest.mark.parametrize("argv", [["--lod", "2"], ["--cache", "scene.cache"],
-                                  ["--multichip"], ["--builtin", "animated"]])
+@pytest.mark.parametrize("argv", [["--cache", "scene.cache"],
+                                  ["--multichip"]])
 def test_app_refuses_unported_flags(argv):
     """``python -m vri_tpu_torch.app`` exits with 2 on a flag whose path is
     not ported, before it loads anything."""
@@ -429,10 +429,11 @@ def test_app_refuses_unported_flags(argv):
 
 @pytest.mark.parametrize("argv", [["--no-gi"], ["--backend", "bvh"],
                                   ["--no-gi", "--backend", "bvh"],
-                                  ["--mode", "sdf_distance"]])
+                                  ["--mode", "sdf_distance"], ["--lod", "2"],
+                                  ["--builtin", "animated"]])
 def test_app_takes_ported_flags(argv):
-    """The direct-only frame, the BVH backend and the SDF debug views
-    parse and are ported."""
+    """The direct-only frame, the BVH backend, the SDF debug views, LOD
+    chains and the animated builtin parse and are ported."""
     from vri_tpu_torch import app
 
     args = app.parse_args(argv)
@@ -440,3 +441,5 @@ def test_app_takes_ported_flags(argv):
     assert args.no_gi == ("--no-gi" in argv)
     assert args.backend == ("bvh" if "bvh" in argv else "raster")
     assert args.mode == (argv[1] if "--mode" in argv else "none")
+    assert args.lod == (int(argv[1]) if "--lod" in argv else 0)
+    assert args.builtin == (argv[1] if "--builtin" in argv else "cornell")

@@ -6,10 +6,12 @@ has: GI frames (``--mode none``), direct-only frames (``--no-gi``) or
 G-buffer debug views through the raster tiers (``--backend raster``),
 the LBVH (``--backend bvh``) or the brute-force tracer (``--backend
 brute``), and the SDF debug views (``--mode sdf_*``), written as PNGs.
-Flags whose paths are not ported yet (``--multichip``, ``--lod``,
-``--cache``, ``--trace``, the ``animated`` builtin) exit with an error
-naming them.  It renders on the
-CUDA card.
+``--lod N`` packs N decimated levels per mesh and rasterizes each
+instance at the coarsest level within ``--lod-tau`` pixels of error; the
+``animated`` builtin advances one time code a frame, its moving props
+taking the bounded SDF update.  Flags whose paths are not ported yet
+(``--multichip``, ``--cache``, ``--trace``) exit with an error naming
+them.  It renders on the CUDA card.
 """
 
 from __future__ import annotations
@@ -54,7 +56,9 @@ def parse_args(argv=None):
     p.add_argument("--multichip", action="store_true",
                    help="shard the framebuffer (not ported)")
     p.add_argument("--lod", type=int, default=0, metavar="LEVELS",
-                   help="discrete LOD levels per mesh (not ported; 0)")
+                   help="pack N decimated LOD levels per mesh; each "
+                        "instance renders the coarsest level within "
+                        "--lod-tau pixels of geometric error (0 = off)")
     p.add_argument("--lod-tau", type=float, default=0.75,
                    help="LOD screen-space error budget in pixels")
     p.add_argument("--trace", help="profiler trace directory (not ported)")
@@ -64,12 +68,10 @@ def parse_args(argv=None):
 
 def _unported(args) -> list:
     bad = []
-    for flag, on in (("--multichip", args.multichip), ("--lod", args.lod),
+    for flag, on in (("--multichip", args.multichip),
                      ("--cache", args.cache), ("--trace", args.trace)):
         if on:
             bad.append(flag)
-    if args.builtin == "animated" and not args.stage:
-        bad.append("--builtin animated")
     return bad
 
 
@@ -92,7 +94,8 @@ def main(argv=None) -> int:
 
     mode = getattr(DebugMode, args.mode.upper())
     cfg = RenderConfig(width=args.width, height=args.height,
-                       sdf=SDFConfig.preset(args.sdf), lod_tau=args.lod_tau)
+                       sdf=SDFConfig.preset(args.sdf),
+                       lod_levels=args.lod, lod_tau=args.lod_tau)
     renderer = Renderer(cfg, device="cuda")
     t0 = time.perf_counter()
     if args.stage:
@@ -100,6 +103,7 @@ def main(argv=None) -> int:
     else:
         builder = {"cornell": scenes.cornell_box,
                    "kitchen": scenes.kitchen_stress,
+                   "animated": scenes.animated_stage,
                    "city": scenes.city_stress}[args.builtin]
         renderer.load_stage(builder())
     log.info("stage loaded in %.1f ms", 1e3 * (time.perf_counter() - t0))
@@ -118,9 +122,13 @@ def main(argv=None) -> int:
     for i in range(args.frames):
         cam = (free_cam.at_time(i / 30.0, aspect)
                if free_cam is not None else None)
+        # authored timeSamples (the "animated" builtin) advance one time
+        # code a frame
+        tc = float(i) if args.builtin == "animated" else None
         t0 = time.perf_counter()
         aovs = renderer.render(camera=cam, mode=mode, gi=not args.no_gi,
-                               samples=args.samples, backend=args.backend)
+                               samples=args.samples, backend=args.backend,
+                               time_code=tc)
         path = os.path.join(args.out, f"frame_{i:04d}.png")
         write_png(path, aovs["color"], tonemapped=mode != DebugMode.NONE)
         log.info("frame %d -> %s in %.1f ms (host clock)", i, path,

@@ -67,12 +67,15 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
                            view_proj: torch.Tensor, height: int, width: int,
                            w_eps: float = 1e-4, extra_cap: int | None = None,
                            cull_sign: torch.Tensor | None = None,
-                           src_map: torch.Tensor | None = None):
+                           src_map: torch.Tensor | None = None,
+                           face_mask: torch.Tensor | None = None):
     """Near-plane-clipped triangle setup (vectorized Sutherland-Hodgman
     against w = eps).  Each output corner carries its source-triangle
     barycentrics so hits map back to the authored triangle.  ``src_map``
     (frustum-compacted rasterization) gives each of the F faces here its
-    face id in the scene's pool.
+    face id in the scene's pool.  ``face_mask`` (F,) bool keeps only the
+    faces it marks (the LOD selection, ``ops/lod.py``): a masked face is
+    not live.
 
     Returns (tx, ty, tz, inv_w, bary1, bary2, src_id, valid,
     clip_overflow); the per-corner arrays are (S, 3) with S = F + E slots
@@ -133,6 +136,8 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
     valid2 = n_in == 2
 
     in_range = torch.arange(f, device=dev) < num_faces
+    if face_mask is not None:
+        in_range &= face_mask
     if cull_sign is not None:
         # backface culling from the homogeneous [x y w] determinant (the
         # orientation as seen, valid on both sides of the near plane)
@@ -179,13 +184,15 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
 
 
 def _padded_setup(world_verts, tri_vertices, num_faces, view_proj, *,
-                  height: int, width: int, extra_cap, cull_sign, src_map=None):
+                  height: int, width: int, extra_cap, cull_sign, src_map=None,
+                  face_mask=None):
     """Triangle setup padded to a multiple of 128 slots with at least one
     dead pad slot; dead slots carry z = 10 (culled by the depth test).
     Returns (tx, ty, tz, tw, b1, b2, src, valid, clip_overflow)."""
     tx, ty, tz, tw, b1, b2, src, valid, clip_over = triangle_setup_clipped(
         world_verts, tri_vertices, num_faces, view_proj, height, width,
-        extra_cap=extra_cap, cull_sign=cull_sign, src_map=src_map)
+        extra_cap=extra_cap, cull_sign=cull_sign, src_map=src_map,
+        face_mask=face_mask)
     f2 = tx.shape[0]
     pad = _round_up(f2 + 1, _TC) - f2
 
@@ -666,7 +673,7 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap: int = 2048,
                    pairs_cap: int | None = None, caps_scale: int = 1,
-                   cull_sign=None, src_map=None):
+                   cull_sign=None, src_map=None, face_mask=None):
     """Everything before the sorted tier's walk: setup, exact emission and
     the per-tile lists.  Returns a dict with the kernel's inputs (coef,
     lists, starts, counts, cap, num_tx), the slot-to-triangle map ``src``
@@ -683,7 +690,8 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
     extra = max(tri_vertices.shape[0] // 16, 256) * caps_scale
     tx, ty, tz, tw, b1, b2, src, valid, clip_over = _padded_setup(
         world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=extra, cull_sign=cull_sign, src_map=src_map)
+        width=width, extra_cap=extra, cull_sign=cull_sign, src_map=src_map,
+        face_mask=face_mask)
     fp = tx.shape[0]
 
     # per-slot inclusive tile span from the screen bbox
@@ -741,7 +749,7 @@ def _bin_groups(box, grid, tile_h: int, tile_w: int, cap_groups: int):
 def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap_groups: int = 64,
-                   caps_scale: int = 1, cull_sign=None):
+                   caps_scale: int = 1, cull_sign=None, face_mask=None):
     """Everything before the binned tier's walk: setup with one second
     slot per face, the Morton order, 8-slot groups and per-tile group
     lists.  Each tile's list holds the slot ids of its groups sorted to
@@ -757,7 +765,8 @@ def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
     gy, gx = hp // tile_h, wp // tile_w
     tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
         world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=None, cull_sign=cull_sign)
+        width=width, extra_cap=None, cull_sign=cull_sign,
+        face_mask=face_mask)
     order, _ = _screen_morton_order(tx, ty, valid, height, width,
                                     partition_large=False)
     groups, in_list, overflowed = _bin_groups(
@@ -782,7 +791,7 @@ def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
 
 def prepare_ranged(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
-                   tile_w: int = 128, cull_sign=None):
+                   tile_w: int = 128, cull_sign=None, face_mask=None):
     """Everything before the ranged walk: setup with one second slot per
     face (S = 2F, no clip overflow), the Morton order with screen-spanning
     slots in front, and the per-tile metadata of ``vri_tpu``'s ranged
@@ -796,7 +805,8 @@ def prepare_ranged(world_verts, tri_vertices, num_faces, view_proj, *,
     dev = world_verts.device
     tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
         world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=None, cull_sign=cull_sign)
+        width=width, extra_cap=None, cull_sign=cull_sign,
+        face_mask=face_mask)
     order, n_large = _screen_morton_order(tx, ty, valid, height, width)
     box = _bboxes(tx, ty, valid, order, _TC)
     num_chunks = box.shape[0]
@@ -860,14 +870,15 @@ def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
                      width: int, tile_h: int = 8, tile_w: int = 128,
                      cap: int = 2048, pairs_cap: int | None = None,
                      caps_scale: int = 1, cull_sign=None,
-                     walker: str = "steps", src_map=None
+                     walker: str = "steps", src_map=None, face_mask=None
                      ) -> Tuple[HitRecord, torch.Tensor]:
     """Visibility raster with sort-built exact per-tile lists.  ``cap``
     bounds one tile's list, ``pairs_cap`` the emitted pair stream (default
     6x the slot count, 4x with culling); both scale with ``caps_scale``
     (the renderer's overflow response).  Any capacity overflow sets
     ``HitRecord.overflow``.  ``src_map`` maps compacted face indices to
-    the scene's face ids.  ``walker`` names the JAX package's two list
+    the scene's face ids; ``face_mask`` (F,) keeps only the faces it marks
+    (the LOD selection).  ``walker`` names the JAX package's two list
     walkers, K1 ("steps") and K7 ("tileloop", one grid step per tile);
     both run kernel R, whose schedule is K7's.  Returns (HitRecord, depth
     image)."""
@@ -877,7 +888,7 @@ def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
                           height=height, width=width, tile_h=tile_h,
                           tile_w=tile_w, cap=cap, pairs_cap=pairs_cap,
                           caps_scale=caps_scale, cull_sign=cull_sign,
-                          src_map=src_map)
+                          src_map=src_map, face_mask=face_mask)
     return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
                        tile_w=tile_w)
 
@@ -886,16 +897,19 @@ def rasterize_binned(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
                      num_faces, view_proj: torch.Tensor, *, height: int,
                      width: int, tile_h: int = 8, tile_w: int = 128,
                      cap_groups: int = 64, caps_scale: int = 1,
-                     cull_sign=None) -> Tuple[HitRecord, torch.Tensor]:
+                     cull_sign=None, face_mask=None
+                     ) -> Tuple[HitRecord, torch.Tensor]:
     """Visibility raster with per-tile lists of 8-slot Morton groups
     (``vri_tpu``'s ``rasterize_binned``), walked by kernel R.  A tile
     holding more than ``cap_groups * caps_scale`` groups walks only the
-    first and is counted in ``HitRecord.overflow``.  Returns (HitRecord,
+    first and is counted in ``HitRecord.overflow``; ``face_mask`` as in
+    :func:`rasterize_sorted`.  Returns (HitRecord,
     depth image)."""
     prep = prepare_binned(world_verts, tri_vertices, num_faces, view_proj,
                           height=height, width=width, tile_h=tile_h,
                           tile_w=tile_w, cap_groups=cap_groups,
-                          caps_scale=caps_scale, cull_sign=cull_sign)
+                          caps_scale=caps_scale, cull_sign=cull_sign,
+                          face_mask=face_mask)
     return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
                        tile_w=tile_w)
 
@@ -903,14 +917,17 @@ def rasterize_binned(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
 def rasterize(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
               num_faces, view_proj: torch.Tensor, *, height: int,
               width: int, tile_h: int = 8, tile_w: int = 128,
-              cull_sign=None) -> Tuple[HitRecord, torch.Tensor]:
+              cull_sign=None, face_mask=None
+              ) -> Tuple[HitRecord, torch.Tensor]:
     """The capacity-free ranged raster (``vri_tpu``'s ``rasterize``,
     kernel K6), walked by ``raster_ranged``.  It reports no overflow
-    (``HitRecord.overflow`` is None).  Returns (HitRecord, depth
+    (``HitRecord.overflow`` is None); ``face_mask`` as in
+    :func:`rasterize_sorted`.  Returns (HitRecord, depth
     image)."""
     prep = prepare_ranged(world_verts, tri_vertices, num_faces, view_proj,
                           height=height, width=width, tile_h=tile_h,
-                          tile_w=tile_w, cull_sign=cull_sign)
+                          tile_w=tile_w, cull_sign=cull_sign,
+                          face_mask=face_mask)
     out = raster_ranged(prep["coef"], prep["order"], prep["ranges"],
                         prep["words"], n_global=prep["n_global"],
                         num_tx=prep["num_tx"], tile_h=tile_h, tile_w=tile_w)

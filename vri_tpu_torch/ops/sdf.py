@@ -1,8 +1,9 @@
 """Sparse-brick SDF cascades (counterpart of ``vri_tpu/ops/sdf.py``):
 the cascade data model, the march-kernel tables and the radiance bake.
 
-The cell-binned builder that fills these tensors is
-``ops/sdf_build.py``; the dense builder of the JAX package
+The cell-binned builder that fills these tensors, and updates them, is
+``ops/sdf_build.py``; ``bake_brick_lighting_partial`` re-bakes the
+bricks an update touched.  The dense builder of the JAX package
 (``sdf.build_cascades``) is not ported yet (ROADMAP.md, "What comes
 next", item 3).
 """
@@ -163,15 +164,22 @@ def bake_brick_lighting(cascades: SDFCascades, scene, *, config: SDFConfig,
     irr, vis = gi_mod.direct_radiance(pts, nrm, scene, cascades, config,
                                       shadow_steps=shadow_steps,
                                       return_visibility=True)
+    live = (torch.arange(cascades.atlas.shape[0], device=nrm.device)
+            < cascades.num_bricks if alive is None else alive)
+    return _with_lighting(cascades, irr, vis, live)
+
+
+def _with_lighting(cascades: SDFCascades, irr, vis, live) -> SDFCascades:
+    """``cascades`` with the baked irradiance and visibility of every brick
+    (zero and one on dead slots) and the voxel-indexed shading table built
+    from them."""
     nb = cascades.atlas.shape[0]
-    live = (torch.arange(nb, device=nrm.device) < cascades.num_bricks
-            if alive is None else alive)
     irr = torch.where(live[:, None], irr, 0.0)
     vis = torch.where(live[:, None], vis, 1.0)
     shade = torch.cat(
         [cascades.brick_albedo, cascades.brick_normal, irr,
          cascades.brick_emissive,
-         torch.zeros((nb, 4), dtype=torch.float32, device=nrm.device)],
+         torch.zeros((nb, 4), dtype=torch.float32, device=irr.device)],
         dim=1)
     shade = torch.where(live[:, None], shade, 0.0)
     bm = cascades.brick_map.reshape(-1)
@@ -182,6 +190,91 @@ def bake_brick_lighting(cascades: SDFCascades, scene, *, config: SDFConfig,
                          0.0).to(torch.bfloat16)
     return cascades.replace(brick_irradiance=irr, brick_light_vis=vis,
                             voxel_shade=vshade)
+
+
+#: length of a distant light's shadow segment in ``lighting_dirty_bricks``
+_DISTANT_REACH = 1.0e3
+
+
+def lighting_dirty_bricks(cascades: SDFCascades, scene, dirty_lo, dirty_hi,
+                          *, config: SDFConfig) -> torch.Tensor:
+    """Conservative (max_bricks,) mask of the bricks whose baked direct
+    lighting can change when geometry inside the ``dirty_lo/hi`` AABBs
+    moved: the brick's shadow segment (its voxel center to each light;
+    ``_DISTANT_REACH`` along a distant light's direction) crosses a dirty
+    box inflated by the brick's own cascade's truncation distance (moved
+    geometry reshapes the field that far).  A dead pad box (+BIG lo,
+    -BIG hi) flags nothing.  One box at a time, so the peak stays at
+    (bricks, lights, 3)."""
+    from vri_tpu_torch.ops import gi as gi_mod
+
+    centers, cas_i = brick_positions(cascades, config)
+    lp, _, _, lt = gi_mod._light_arrays(scene)
+    b, l = centers.shape[0], lp.shape[0]
+    is_distant = (lt == 1)[None, :, None]
+    p0 = centers[:, None, :]                                # (B, 1, 3)
+    end = torch.where(is_distant, p0 + lp[None, :, :] * _DISTANT_REACH,
+                      lp[None, :, :].expand(b, l, 3))
+    d = end - p0
+    inv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12)
+    reach = (config.truncation_voxels
+             * cascades.voxel_size[cas_i])[:, None, None]   # (B, 1, 1)
+    mask = torch.zeros((b,), dtype=torch.bool, device=centers.device)
+    for lo_k, hi_k in zip(dirty_lo, dirty_hi):
+        # the per-axis min/max below would turn an inverted (dead) box
+        # into an everything-box: test validity explicitly
+        ok_box = (lo_k <= hi_k).all()
+        t1 = (lo_k[None, None, :] - reach - p0) * inv
+        t2 = (hi_k[None, None, :] + reach - p0) * inv
+        tmin = torch.minimum(t1, t2).max(dim=-1).values     # (B, L)
+        tmax = torch.maximum(t1, t2).min(dim=-1).values
+        hit = (tmax >= torch.clamp(tmin, min=0.0)) & (tmin <= 1.0) & ok_box
+        mask |= hit.any(dim=-1)
+    return mask
+
+
+def bake_brick_lighting_partial(cascades: SDFCascades, scene, mask, alive, *,
+                                config: SDFConfig, cap: int = 16384,
+                                shadow_steps: int = 32):
+    """Re-bake the irradiance and visibility of only the live bricks in
+    ``mask`` (the animated frame's payload-dirty and lighting-dirty sets);
+    every other brick keeps its baked values, so the shadow march scales
+    with the dirty set.  The first ``cap`` of them (in brick order) are
+    re-baked and the rest counted.  Returns (cascades, dropped): a
+    non-zero ``dropped`` means the caller must fall back to the full
+    bake.  The voxel-indexed shading table is rebuilt from the merged
+    rows as the full bake builds it."""
+    from vri_tpu_torch.ops import gi as gi_mod
+
+    pos = torch.nonzero(mask & alive).reshape(-1)
+    dropped = max(pos.shape[0] - cap, 0)
+    pos = pos[:cap]
+    irr_all = cascades.brick_irradiance.clone()
+    vis_all = cascades.brick_light_vis.clone()
+    if pos.shape[0]:
+        centers, _ = brick_positions(cascades, config)
+        c = centers[pos]
+        nrm = cascades.brick_normal[pos]
+        bias = gi_mod.surface_bias(c, cascades, config)[:, None]
+        irr, vis = gi_mod.direct_radiance(c + nrm * bias, nrm, scene,
+                                          cascades, config,
+                                          shadow_steps=shadow_steps,
+                                          return_visibility=True)
+        irr_all[pos] = irr
+        vis_all[pos] = vis
+    return _with_lighting(cascades, irr_all, vis_all, alive), dropped
+
+
+def build_state_from_numpy(arrays, device):
+    """Numpy arrays keyed by ``sdf_build.BuildState`` field name -> a
+    BuildState on ``device`` (the carry-across of a ``vri_tpu`` build
+    state read out with ``np.asarray``)."""
+    from vri_tpu_torch.ops.sdf_build import BuildState
+
+    return BuildState(**{
+        f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
+        for f in dataclasses.fields(BuildState)
+        if arrays.get(f.name) is not None})
 
 
 def cascades_from_numpy(arrays, device) -> SDFCascades:

@@ -14,8 +14,18 @@
      AABB distance feed the exact texel distance pass.
 
 ``demand_caps`` measures the exact list demand first so production builds
-drop no reference.  The bounded incremental update and the clipmap
-scroll are not ported yet (ROADMAP.md, "What comes next", item 5).
+drop no reference.
+
+Because the work is per cell, updates are bounded: ``update_cascades``
+re-bins only the cells the dirty instances' boxes touch, re-allocates
+bricks through a free-slot pool and re-emits only the bricks within reach
+of the changed geometry; ``scroll_cascades`` recenters a cascade by
+shifting its maps a whole cell at a time and treats the entering cells as
+dirty.  Where the JAX package keeps the first ``cap`` hits of a
+fixed-size ``nonzero`` and counts the rest, the port takes the hits in
+the same index order, keeps as many and counts the rest the same way
+(each such count reads a size back to the host); a capacity breach makes
+``needs_full`` non-zero and the caller rebuilds.
 """
 
 from __future__ import annotations
@@ -151,11 +161,15 @@ def _pair_emission(tri_lo, tri_hi, valid, origin, vs, r):
     return tri_of, cell, j, total, pairs_cap, large
 
 
-def _bin_one_cascade(tri_lo, tri_hi, valid, origin, vs, r, K, Kg):
-    """(cell_tris (4096,K), count (4096,), glob (Kg,), overflow ())."""
+def _bin_one_cascade(tri_lo, tri_hi, valid, origin, vs, r, K, Kg,
+                     tri_ids=None):
+    """(cell_tris (4096,K), count (4096,), glob (Kg,), overflow ()).
+    ``tri_ids`` maps the working set to global triangle ids when binning
+    a compacted dirty subset (the incremental update)."""
     f = tri_lo.shape[0]
     dev = tri_lo.device
-    tri_ids = torch.arange(f, dtype=torch.int32, device=dev)
+    if tri_ids is None:
+        tri_ids = torch.arange(f, dtype=torch.int32, device=dev)
     tri_of, cell, j, total, pairs_cap, large = _pair_emission(
         tri_lo, tri_hi, valid, origin, vs, r)
     overflow = torch.clamp(total - pairs_cap, min=0)
@@ -211,27 +225,37 @@ def _cell_voxel_centers(origin, vs, r):
 def _occupancy_cells(rows, grows, centers, vs):
     """Cell-list occupancy test: (cells, s^3) bool — voxel center within
     the triangle AABB expanded by one voxel, refined by |plane distance|
-    <= voxel + half diagonal.  Chunked over cells to bound memory."""
+    <= voxel + half diagonal.  ``vs`` is one voxel size or one per cell,
+    ``grows`` one global list (Kg, ROW) or one per cell (cells, Kg, ROW).
+    Chunked over cells to bound memory."""
+    per_cell = vs.dim() == 1
     width = centers.shape[1] * max(rows.shape[1],
-                                   0 if grows is None else grows.shape[0])
+                                   0 if grows is None else grows.shape[-2])
     chunk = max(1, _WORK_ELEMS // (8 * width))
-    def test(rws, p):                               # (c, K, ROW), (c, s3, 3)
-        lo = rws[:, None, :, 0:3] - vs
-        hi = rws[:, None, :, 3:6] + vs
+
+    def test(rws, p, v):                            # (c, K, ROW), (c, s3, 3)
+        v4 = v[:, None, None, None] if per_cell else v
+        lo = rws[:, None, :, 0:3] - v4
+        hi = rws[:, None, :, 3:6] + v4
         q = p[:, :, None, :]
         box = ((q >= lo) & (q <= hi)).all(-1)
         d = dot3(q, rws[:, None, :, 6:9]) - rws[:, None, :, 9]
-        near = torch.abs(d) <= (1.8660254 * vs)
+        near = torch.abs(d) <= (1.8660254 * (v[:, None, None] if per_cell
+                                             else v))
         return (box & near).any(-1)                 # (c, s3)
 
     out = []
     for c0 in range(0, rows.shape[0], chunk):
         p = centers[c0:c0 + chunk]
-        occ = test(rows[c0:c0 + chunk], p)
+        v = vs[c0:c0 + chunk] if per_cell else vs
+        occ = test(rows[c0:c0 + chunk], p, v)
         if grows is not None:
-            occ |= test(grows[None].expand((p.shape[0],) + grows.shape), p)
+            g = (grows[c0:c0 + chunk] if grows.dim() == 3
+                 else grows[None].expand((p.shape[0],) + grows.shape))
+            occ |= test(g, p, v)
         out.append(occ)
-    return torch.cat(out)
+    return torch.cat(out) if out else torch.zeros(
+        (0, centers.shape[1]), dtype=torch.bool, device=centers.device)
 
 
 def _cells_to_grid(occ_cells, r):
@@ -355,6 +379,33 @@ def _emit_block(bids, blive, brick_voxel, state: BuildState, origins, vs,
             near_drop.sum())
 
 
+def _emit_bricks(bids, brick_voxel, state: BuildState, origins, vs, tris,
+                 config: SDFConfig):
+    """Emit the live bricks ``bids`` (1-D) in blocks sized to the
+    candidate count (27 cell lists + the global list per brick); per-brick
+    results do not depend on the blocking.  ``tris`` is (a, b, c, valid,
+    tri_albedo, tri_emissive, tri_n).  Returns (atlas rows, albedo,
+    emissive, normal, near_drop)."""
+    K = state.cell_tris.shape[-1]
+    Kg = state.glob_tris.shape[-1]
+    n = bids.shape[0]
+    block = max(1, min(1024, n, _WORK_ELEMS // (ROW * (27 * K + Kg))))
+    outs = [_emit_block(bids[b0:b0 + block],
+                        torch.ones_like(bids[b0:b0 + block], dtype=torch.bool),
+                        brick_voxel, state, origins, vs, *tris, config)
+            for b0 in range(0, n, block)]
+    if not outs:
+        bsz = config.brick_size
+        empty = torch.zeros((0, 3), dtype=torch.float32, device=bids.device)
+        return (torch.zeros((0, bsz, bsz, bsz),
+                            dtype=torch.uint8 if config.atlas_u8
+                            else torch.float32, device=bids.device),
+                empty, empty, empty,
+                torch.zeros((), dtype=torch.int64, device=bids.device))
+    return (*(torch.cat([o[k] for o in outs]) for k in range(4)),
+            sum(o[4] for o in outs))
+
+
 def _prep_tris(world_verts, tri_vertices, num_faces, tri_albedo,
                tri_emissive):
     f = tri_vertices.shape[0]
@@ -440,7 +491,7 @@ def build_cascades_binned(world_verts, tri_vertices, num_faces, centers, *,
                        glob_rows=glob_rows, alive=alive,
                        list_overflow=overflow, emit_bricks=alive)
 
-    # -- 4. emit (live blocks only: a dead brick's payload is constant) -----
+    # -- 4. emit (live bricks only: a dead brick's payload is constant) -----
     n_live = int(num_bricks)
     atlas = torch.full((max_bricks, bsz, bsz, bsz),
                        255 if config.atlas_u8 else 1.0,
@@ -449,20 +500,11 @@ def build_cascades_binned(world_verts, tri_vertices, num_faces, centers, *,
     albs = torch.zeros((max_bricks, 3), dtype=torch.float32, device=dev)
     emis = torch.zeros_like(albs)
     nrms = torch.zeros_like(albs)
-    near_drop = torch.zeros((), dtype=torch.int64, device=dev)
-    bids_all = torch.arange(max_bricks, dtype=torch.int64, device=dev)
-    # emit in blocks of bricks sized to the candidate count (27 cell lists
-    # + the global list per brick); per-brick results do not depend on it
-    brick_block = max(1, min(1024, n_live,
-                             _WORK_ELEMS // (ROW * (27 * K + Kg))))
-    for b0 in range(0, n_live, brick_block):
-        bids = bids_all[b0:b0 + brick_block]
-        d01, alb, emi, nrm, nd = _emit_block(
-            bids, bids < n_live, brick_voxel, state, origins, vs, a, b, c,
-            valid, tri_albedo, tri_emissive, tri_n, config)
-        sl = slice(b0, b0 + bids.shape[0])
-        atlas[sl], albs[sl], emis[sl], nrms[sl] = d01, alb, emi, nrm
-        near_drop = near_drop + nd
+    bids = torch.arange(n_live, dtype=torch.int64, device=dev)
+    (atlas[:n_live], albs[:n_live], emis[:n_live], nrms[:n_live],
+     near_drop) = _emit_bricks(bids, brick_voxel, state, origins, vs,
+                               (a, b, c, valid, tri_albedo, tri_emissive,
+                                tri_n), config)
 
     mc, mf0, mf1 = build_march_tables(brick_map, atlas, config=config)
     cascades = SDFCascades(
@@ -538,3 +580,418 @@ def build_for_scene(scene, world_verts, centers, config: SDFConfig, **kw):
     return build_cascades_binned(world_verts, scene.tri_vertices,
                                  scene.num_faces, centers, tri_albedo=alb,
                                  tri_emissive=emi, config=config, **kw)
+
+
+def update_for_scene(cascades, state, scene, world_verts, dirty_tri_mask,
+                     dirty_lo, dirty_hi, config: SDFConfig):
+    alb, emi = _scene_colors(scene)
+    return update_cascades(cascades, state, world_verts, scene.tri_vertices,
+                           scene.num_faces, dirty_tri_mask, dirty_lo,
+                           dirty_hi, tri_albedo=alb, tri_emissive=emi,
+                           config=config)
+
+
+def scroll_for_scene(cascades, state, scene, world_verts, new_centers,
+                     scrolled, config: SDFConfig):
+    alb, emi = _scene_colors(scene)
+    return scroll_cascades(cascades, state, new_centers, world_verts,
+                           scene.tri_vertices, scene.num_faces,
+                           tri_albedo=alb, tri_emissive=emi, config=config,
+                           scrolled=scrolled)
+
+
+# ---------------------------------------------------------------------------
+# Bounded incremental updates
+# ---------------------------------------------------------------------------
+
+def _first(mask: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` True entries of a 1-D mask, in index
+    order, and how many True entries lie beyond them (the counted part of
+    the JAX package's ``nonzero(..., size=cap)``)."""
+    pos = torch.nonzero(mask).reshape(-1)
+    return pos[:cap], max(pos.shape[0] - cap, 0)
+
+
+def _set_drop(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """A copy of ``dst`` with ``dst[idx] = val`` where ``idx`` is in range,
+    other indices dropped (the JAX package's ``.at[].set(mode="drop")``),
+    without a host sync: out-of-range writes land in a spare row."""
+    n = dst.shape[0]
+    ext = torch.cat([dst, dst[:1]])
+    idx = idx.reshape(-1).long()
+    if torch.is_tensor(val):
+        val = val.reshape((-1,) + tuple(dst.shape[1:]))
+    ext[torch.where((idx >= 0) & (idx < n), idx, n)] = val
+    return ext[:n]
+
+
+def _stable_front(lists: torch.Tensor) -> torch.Tensor:
+    """Each row's entries >= 0 moved to its front in their order, the -1
+    pads behind (the stable sort of the JAX package's list merges)."""
+    order = torch.sort((lists < 0).to(torch.uint8), dim=-1,
+                       stable=True).indices
+    return torch.gather(lists, -1, order)
+
+
+def _cell_meta(cell_ids, origins, vs, r):
+    """Per cell: cascade index, voxel flat ids (C, s^3) and voxel world
+    centers (C, s^3, 3); ``cell_ids`` are global (n * 4096 + cell)."""
+    s = r // 16
+    s3 = s ** 3
+    cid = cell_ids.long()
+    n = cid // 4096
+    rem = cid % 4096
+    cz, cy, cx = rem // 256, (rem // 16) % 16, rem % 16
+    loc = torch.arange(s3, dtype=torch.int64, device=cid.device)
+    lz, ly, lx = loc // (s * s), (loc // s) % s, loc % s
+    vx = cx[:, None] * s + lx[None, :]                    # (C, s3)
+    vy = cy[:, None] * s + ly[None, :]
+    vz = cz[:, None] * s + lz[None, :]
+    vox = n[:, None] * (r ** 3) + (vz * r + vy) * r + vx
+    vsz = vs[n]                                           # (C,)
+    centers = origins[n][:, None, :] + (
+        torch.stack([vx, vy, vz], -1).float() + 0.5) * vsz[:, None, None]
+    return n, vox, centers
+
+
+def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
+                       new_tris, new_count, tris, table, origins, vs,
+                       config: SDFConfig, dirty_lo=None, dirty_hi=None):
+    """Shared bounded-update core: install the new lists of ``cell_ids``
+    (global cell ids (C,), every one live), diff the cells' occupancy,
+    re-allocate bricks through the free-slot pool, re-emit the affected
+    bricks and refresh the ESD and the march tables.  ``dirty_lo/hi``
+    (D, 3), when given, trim the re-emit set to the voxels within reach
+    of the changed geometry.  Returns (cascades, state, emit_overflow).
+
+    The JAX function pads the cells to ``update_cell_cap`` and the emit
+    set to ``update_brick_cap``; pad lanes change nothing, so the port
+    works on the live cells and emits the live bricks only."""
+    r = config.cascade_resolution
+    s3 = (r // 16) ** 3
+    max_bricks = config.max_bricks
+    n_cas, _, K = state.cell_tris.shape
+    cid = cell_ids.long()
+    C = cid.shape[0]
+
+    # 1. install the new lists
+    rows_new = _rows_from_lists(new_tris, table)          # (C, K, ROW)
+    ct = state.cell_tris.reshape(n_cas * 4096, K).clone()
+    ct[cid] = new_tris
+    cc = state.cell_count.reshape(-1).clone()
+    cc[cid] = new_count
+    cr = state.cell_rows.clone()
+    cr[cid] = rows_new
+    state = dataclasses.replace(state, cell_tris=ct.reshape(n_cas, 4096, K),
+                                cell_count=cc.reshape(n_cas, 4096),
+                                cell_rows=cr)
+
+    # 2. occupancy of the dirty cells (each at its cascade's voxel size)
+    n_idx, vox, centers = _cell_meta(cid, origins, vs, r)
+    vs_c = vs[n_idx]
+    occ_new = _occupancy_cells(rows_new, state.glob_rows[n_idx], centers,
+                               vs_c)                      # (C, s3)
+    bm_flat = cascades.brick_map.reshape(-1)
+    old_ids = bm_flat[vox]                                # (C, s3)
+    old_occ = old_ids >= 0
+
+    # 3. allocation diff through the free-slot pool (ascending free ids,
+    #    handed out to the new voxels in cell-major order)
+    freed = old_occ & ~occ_new
+    alive = _set_drop(state.alive, torch.where(freed, old_ids, -1), False)
+    new_vox = ~old_occ & occ_new
+    free_ids = torch.nonzero(~alive).reshape(-1)
+    n_free = free_ids.shape[0]
+    order = (torch.cumsum(new_vox.reshape(-1).to(torch.int64), 0)
+             - 1).reshape(C, s3)
+    slot = torch.full((C, s3), -1, dtype=torch.int64, device=cid.device)
+    if n_free:
+        slot = torch.where(new_vox & (order < n_free),
+                           free_ids[torch.clamp(order, 0, n_free - 1)], slot)
+    brick_overflow = torch.clamp(new_vox.sum() - n_free, min=0)
+    alive = _set_drop(alive, slot, True)
+    brick_voxel = _set_drop(cascades.brick_voxel, slot, vox.to(torch.int32))
+    state = dataclasses.replace(state, alive=alive)
+
+    # 4. brick map scatter (freed -> placeholder, new -> slot), then ESD
+    new_map_val = torch.where(occ_new, torch.where(old_occ, old_ids.long(),
+                                                   slot), -1)
+    bm_flat = bm_flat.clone()
+    bm_flat[vox.reshape(-1)] = new_map_val.reshape(-1).to(torch.int32)
+    occ_grid = (bm_flat >= 0).reshape(cascades.brick_map.shape)
+    bm_flat = torch.where(occ_grid.reshape(-1), bm_flat, -esd_map(occ_grid))
+    brick_map = bm_flat.reshape(cascades.brick_map.shape)
+    num_bricks = alive.sum().to(torch.int32)
+
+    # 5. re-emit every (still or newly) occupied brick of a dirty cell that
+    #    lies within reach of the changed geometry: max(truncation, 1.5)
+    #    voxels (atlas texels see triangles within the truncation; the
+    #    occupancy box reaches 1 voxel past a triangle's AABB from the
+    #    voxel center, 1.5 voxels from the voxel's box)
+    emit_mask = occ_new
+    if dirty_lo is not None:
+        e = max(config.truncation_voxels, 1.5) * vs_c      # (C,)
+        half = 0.5 * vs_c[:, None, None]
+        vlo, vhi = centers - half, centers + half          # (C, s3, 3)
+        e4 = e[:, None, None, None]
+        near = ((vlo[:, :, None, :] <= dirty_hi[None, None] + e4)
+                & (vhi[:, :, None, :] >= dirty_lo[None, None] - e4)
+                ).all(-1).any(-1)                          # (C, s3)
+        emit_mask = emit_mask & near
+    epos, emit_overflow = _first(emit_mask.reshape(-1),
+                                 config.update_brick_cap)
+    ebrick = bm_flat[vox.reshape(-1)[epos]].long()
+    ebrick = ebrick[ebrick >= 0]
+    emit_bricks = torch.zeros((max_bricks,), dtype=torch.bool,
+                              device=cid.device)
+    emit_bricks[ebrick] = True
+    state = dataclasses.replace(state, emit_bricks=emit_bricks)
+
+    blocks, albs, emis, nrms, near_drop = _emit_bricks(
+        ebrick, brick_voxel, state, origins, vs, tris, config)
+    atlas = cascades.atlas.clone()
+    atlas[ebrick] = blocks
+    brick_albedo = cascades.brick_albedo.clone()
+    brick_albedo[ebrick] = albs
+    brick_emissive = cascades.brick_emissive.clone()
+    brick_emissive[ebrick] = emis
+    brick_normal = cascades.brick_normal.clone()
+    brick_normal[ebrick] = nrms
+
+    mc, mf0, mf1 = build_march_tables(brick_map, atlas, config=config)
+    cascades = cascades.replace(
+        brick_map=brick_map, brick_voxel=brick_voxel, num_bricks=num_bricks,
+        overflow=(cascades.overflow + brick_overflow).to(torch.int32),
+        atlas=atlas,
+        brick_albedo=brick_albedo, brick_emissive=brick_emissive,
+        brick_normal=brick_normal, march_coarse=mc, march_fine0=mf0,
+        march_fine1=mf1, near_drop=cascades.near_drop + near_drop)
+    return cascades, state, emit_overflow
+
+
+def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
+                    tri_vertices, num_faces, dirty_tri_mask, dirty_lo,
+                    dirty_hi, *, tri_albedo=None, tri_emissive=None,
+                    config: SDFConfig):
+    """Bounded incremental cascade update.
+
+    ``dirty_tri_mask`` (F,) marks the triangles whose data changed;
+    ``dirty_lo/hi`` (D, 3) are world AABBs covering all changed geometry
+    at its old and new positions (unused rows +BIG/-BIG).  The work
+    scales with the dirty region, not the stage.  Returns (cascades,
+    state, needs_full): a non-zero ``needs_full`` counts capacity
+    breaches (dirty triangles past ``update_tri_cap``, dirty cells past
+    ``update_cell_cap``, re-binned or global references dropped, bricks to
+    emit past ``update_brick_cap``) and the caller must rebuild with
+    ``build_cascades_binned``.  A merged cell list longer than K keeps K
+    and counts the rest in ``list_overflow``, as a full build does."""
+    n_cas = config.num_cascades
+    r = config.cascade_resolution
+    K = config.cell_list_cap
+    Kg = config.global_list_cap
+    ucap = config.update_tri_cap
+    dev = world_verts.device
+
+    a, b, c, valid, tri_n, tri_albedo, tri_emissive = _prep_tris(
+        world_verts, tri_vertices, num_faces, tri_albedo, tri_emissive)
+    tri_lo, tri_hi = geometry.tri_aabb(a, b, c)
+    table = _tri_table(a, b, c, valid)
+    vs = cascades.voxel_size
+    origins = cascade_origin(cascades.center, vs, r)
+
+    dirty = dirty_tri_mask & valid
+    # the dirty triangle set, padded to update_tri_cap as the JAX package
+    # pads it (the re-bin's pair capacity derives from that size)
+    dpos, needs_full = _first(dirty, ucap)
+    n_d = dpos.shape[0]
+    dsafe = torch.zeros((ucap,), dtype=torch.int64, device=dev)
+    dsafe[:n_d] = dpos
+    dvalid = torch.arange(ucap, device=dev) < n_d
+    d_ids = torch.where(dvalid, dsafe, -1).to(torch.int32)
+    dlo, dhi = tri_lo[dsafe], tri_hi[dsafe]
+
+    # dirty cells: the cells each (expanded) dirty box overlaps, per cascade
+    cw = vs * (r // 16)
+    dirty_cells = []
+    ar = torch.arange(16, dtype=torch.float32, device=dev)
+    for n in range(n_cas):
+        e = config.truncation_voxels * vs[n] + vs[n]
+        ax = origins[n][None, :] + ar[:, None] * cw[n]      # (16, 3)
+
+        def ov(k):                                          # (16, D)
+            return ((ax[:, k][:, None] <= dirty_hi[None, :, k] + e)
+                    & ((ax[:, k] + cw[n])[:, None]
+                       >= dirty_lo[None, :, k] - e))
+        mx, my, mz = ov(0), ov(1), ov(2)
+        m = (mz[:, None, None, :] & my[None, :, None, :]
+             & mx[None, None, :, :]).any(-1)                # (16,16,16) zyx
+        dirty_cells.append(m.reshape(4096))
+    cell_ids, over = _first(torch.cat(dirty_cells), config.update_cell_cap)
+    needs_full += over
+    cid = cell_ids.long()
+
+    # fresh bin of the dirty subset, and the global lists merged in place
+    # (a moved global triangle only affects cells inside the dirty region)
+    add_tris, globs = [], []
+    needs_full = torch.as_tensor(needs_full, device=dev)
+    for n in range(n_cas):
+        ct, _, gt, rebin_ov = _bin_one_cascade(
+            dlo, dhi, dvalid, origins[n], vs[n], r, K, Kg, tri_ids=d_ids)
+        # a reference dropped at the re-bin's capacity would vanish from
+        # the merged lists: escalate
+        needs_full = needs_full + rebin_ov
+        add_tris.append(ct)
+        old_g = state.glob_tris[n]
+        old_g = torch.where((old_g >= 0)
+                            & ~dirty[torch.clamp(old_g, min=0).long()],
+                            old_g, -1)
+        gm = torch.cat([old_g, gt])                          # (2 Kg,)
+        needs_full = needs_full + torch.clamp((gm >= 0).sum() - Kg, min=0)
+        globs.append(_stable_front(gm)[:Kg])
+    add_tris = torch.stack(add_tris).reshape(n_cas * 4096, K)
+    glob_tris = torch.stack(globs)
+    state = dataclasses.replace(state, glob_tris=glob_tris,
+                                glob_rows=_rows_from_lists(glob_tris, table))
+
+    # merge per dirty cell: (old minus dirty) ++ new, compacted to K
+    old = state.cell_tris.reshape(n_cas * 4096, K)[cid]   # (C, K)
+    keep = (old >= 0) & ~dirty[torch.clamp(old, min=0).long()]
+    merged = torch.cat([torch.where(keep, old, -1), add_tris[cid]], dim=1)
+    new_tris = _stable_front(merged)[:, :K].contiguous()
+    new_count = (merged >= 0).sum(1)
+    state = dataclasses.replace(
+        state, list_overflow=state.list_overflow
+        + torch.clamp(new_count - K, min=0).sum())
+    new_count = torch.clamp(new_count, max=K).to(torch.int32)
+
+    cascades, state, emit_overflow = _apply_dirty_cells(
+        cascades, state, cid, new_tris, new_count,
+        (a, b, c, valid, tri_albedo, tri_emissive, tri_n), table, origins,
+        vs, config, dirty_lo=dirty_lo, dirty_hi=dirty_hi)
+    return cascades, state, needs_full + emit_overflow
+
+
+def _roll3(grid, d, fill):
+    """Shift a volume whose leading axes are (z, y, x) so that new[z, y, x]
+    = old[z + dz, y + dy, x + dx], filling the entries that come from
+    outside; ``d`` is (dx, dy, dz) host ints.  Returns (shifted, entering
+    (R, R, R) bool)."""
+    r = grid.shape[0]
+
+    def span(k):                       # (destination, source) slices
+        k = max(-r, min(r, k))
+        return ((slice(0, r - k), slice(k, r)) if k >= 0
+                else (slice(-k, r), slice(0, r + k)))
+    (zd, zs), (yd, ys), (xd, xs) = span(d[2]), span(d[1]), span(d[0])
+    out = torch.full_like(grid, fill)
+    out[zd, yd, xd] = grid[zs, ys, xs]
+    entering = torch.ones((r, r, r), dtype=torch.bool, device=grid.device)
+    entering[zd, yd, xd] = False
+    return out, entering
+
+
+def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
+                    world_verts, tri_vertices, num_faces, *, tri_albedo=None,
+                    tri_emissive=None, config: SDFConfig, scrolled: tuple):
+    """Clipmap scroll: recenter the cascades flagged in ``scrolled``
+    reusing every surviving brick.  ``new_centers`` must be snapped to
+    whole cells (s voxels) per cascade.  Surviving bricks keep their atlas
+    content (world voxel positions are absolute, only the map window
+    moves); only the entering slab re-bins and re-emits.  Returns
+    (cascades, state, needs_full)."""
+    n_cas = config.num_cascades
+    r = config.cascade_resolution
+    s = r // 16
+    r3 = r ** 3
+    K = config.cell_list_cap
+    Kg = config.global_list_cap
+    dev = world_verts.device
+
+    a, b, c, valid, tri_n, tri_albedo, tri_emissive = _prep_tris(
+        world_verts, tri_vertices, num_faces, tri_albedo, tri_emissive)
+    tri_lo, tri_hi = geometry.tri_aabb(a, b, c)
+    table = _tri_table(a, b, c, valid)
+    vs = cascades.voxel_size
+    new_origins = cascade_origin(new_centers, vs, r)
+    old_origins = cascade_origin(cascades.center, vs, r)
+    # whole-voxel shifts (xyz); snapping makes them multiples of s
+    dvox = torch.round((new_origins - old_origins) / vs[:, None]).to(
+        torch.int32).tolist()
+
+    brick_map = cascades.brick_map.clone()
+    alive = state.alive
+    brick_voxel = cascades.brick_voxel
+    cell_tris = state.cell_tris.clone()
+    cell_count = state.cell_count.clone()
+    cell_rows = state.cell_rows.reshape(n_cas, 4096, K, ROW).clone()
+    entering = torch.zeros((n_cas, 4096), dtype=torch.bool, device=dev)
+    needs_full = torch.zeros((), dtype=torch.int64, device=dev)
+    for n in range(n_cas):
+        if not scrolled[n]:
+            continue
+        d = dvox[n]
+        # free the bricks whose voxels scroll out; shift the survivors'
+        bn = brick_voxel // r3 == n
+        rem = brick_voxel % r3
+        nz = rem // (r * r) - d[2]
+        ny = (rem // r) % r - d[1]
+        nx = rem % r - d[0]
+        in_r = ((nz >= 0) & (nz < r) & (ny >= 0) & (ny < r)
+                & (nx >= 0) & (nx < r))
+        keep = bn & alive & in_r
+        alive = alive & ~(bn & alive & ~in_r)
+        new_bv = n * r3 + (torch.clamp(nz, 0, r - 1) * r
+                           + torch.clamp(ny, 0, r - 1)) * r \
+            + torch.clamp(nx, 0, r - 1)
+        brick_voxel = torch.where(keep, new_bv, brick_voxel)
+        brick_map[n] = _roll3(brick_map[n], d, -1)[0]
+        # the cell tables shift by d / s cells
+        dc = [k // s for k in d]
+        ct3, ent = _roll3(cell_tris[n].reshape(16, 16, 16, K), dc, -1)
+        cell_tris[n] = ct3.reshape(4096, K)
+        cell_count[n] = _roll3(cell_count[n].reshape(16, 16, 16), dc,
+                               0)[0].reshape(4096)
+        cell_rows[n] = _roll3(cell_rows[n].reshape(16, 16, 16, K, ROW), dc,
+                              0.0)[0].reshape(4096, K, ROW)
+        entering[n] = ent.reshape(4096)
+
+    state = dataclasses.replace(
+        state, cell_tris=cell_tris, cell_count=cell_count,
+        cell_rows=cell_rows.reshape(n_cas * 4096, K, ROW), alive=alive)
+    cascades = cascades.replace(center=new_centers, brick_map=brick_map,
+                                brick_voxel=brick_voxel)
+
+    # a fresh bin at the new origin gives the entering cells' lists and
+    # the global lists of each scrolled cascade
+    glob_tris = state.glob_tris.clone()
+    fresh = {}
+    list_overflow = state.list_overflow
+    for n in range(n_cas):
+        if not scrolled[n]:
+            continue
+        ct, cnt, gt, ov = _bin_one_cascade(
+            tri_lo, tri_hi, valid, new_origins[n], vs[n], r, K, Kg)
+        fresh[n] = (ct, cnt)
+        glob_tris[n] = gt
+        list_overflow = list_overflow + ov
+        needs_full = needs_full + ov    # references dropped on a scrolled bin
+    state = dataclasses.replace(
+        state, glob_tris=glob_tris, list_overflow=list_overflow,
+        glob_rows=_rows_from_lists(glob_tris, table))
+
+    cell_ids, over = _first(entering.reshape(-1), config.update_cell_cap)
+    needs_full = needs_full + over
+    cid = cell_ids.long()
+    new_tris = torch.full((cid.shape[0], K), -1, dtype=torch.int32,
+                          device=dev)
+    new_count = torch.zeros((cid.shape[0],), dtype=torch.int32, device=dev)
+    for n, (ct, cnt) in fresh.items():
+        in_n = cid // 4096 == n
+        new_tris[in_n] = ct[cid[in_n] % 4096]
+        new_count[in_n] = cnt[cid[in_n] % 4096]
+
+    cascades, state, emit_overflow = _apply_dirty_cells(
+        cascades, state, cid, new_tris, new_count,
+        (a, b, c, valid, tri_albedo, tri_emissive, tri_n), table,
+        new_origins, vs, config)
+    return cascades, state, needs_full + emit_overflow

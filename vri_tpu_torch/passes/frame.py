@@ -6,20 +6,22 @@ G-buffer -> Lambertian direct light with brute-force hard shadows.
 
 ``render_frame_gi_temporal`` is the production GI frame: the indirect
 term gathered at GI resolution and accumulated over frames through a
-reprojected history.
+reprojected history; ``render_frame_gi_dynamic`` is its animated form,
+which first updates the SDF cascades over the moved geometry and
+re-bakes the radiance of the bricks that changed.
 
 Ported: every mode of ``render_frame_gi`` at every ``gi_scale`` (the SDF
-debug views march camera rays with the trilinear loop) and the temporal
-frame without bands; visibility through every raster tier with the JAX
-package's dispatch (frustum compaction for face pools of 2^19 slots or
-more, the binned tier for small pools at small frames, the sorted tier
-otherwise, the ranged tier on request), through the LBVH
-(``backend="bvh"``, one ``bvh_traverse`` launch; like the reference's, it
-does no backface culling) and through the brute-force tracer.  The
-dispatch thresholds were tuned for the TPU; the port keeps them so that
-it takes the reference's tier at every shape.  Not ported yet, each
-raising ``NotImplementedError`` that names its ROADMAP.md item: LOD masks
-(item 6) and the band arguments of the temporal frame (item 7).
+debug views march camera rays with the trilinear loop), the temporal and
+dynamic frames without bands; visibility through every raster tier with
+the JAX package's dispatch (frustum compaction for face pools of 2^19
+slots or more, the binned tier for small pools at small frames, the
+sorted tier otherwise, the ranged tier on request) and its LOD face
+masks, through the LBVH (``backend="bvh"``, one ``bvh_traverse`` launch;
+like the reference's, it does no backface culling) and through the
+brute-force tracer.  The dispatch thresholds were tuned for the TPU; the
+port keeps them so that it takes the reference's tier at every shape.
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+item: the band arguments of the temporal frame (item 7).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from vri_tpu_torch.config import DebugMode
 from vri_tpu_torch.ops import gi as gi_mod
 from vri_tpu_torch.ops import intersect, raygen, sdf_trace, shading
+from vri_tpu_torch.ops import lod as lod_mod
 from vri_tpu_torch.ops import trace as trace_mod
 from vri_tpu_torch.ops import rasterize as raster_mod
 from vri_tpu_torch.ops.geometry import norm3
@@ -179,15 +182,25 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
     ranged tier; pools of at most 2^14 faces at frames at most 512 rows
     high take the binned tier; everything else the sorted tier.
     ``caps_scale`` multiplies the list capacities and the compaction
-    budget (the renderer's overflow response)."""
+    budget (the renderer's overflow response).
+
+    On a scene packed with LOD chains (``lod_levels`` > 0) each instance
+    rasterizes the coarsest level whose deviation projects below
+    ``lod_tau`` pixels (``ops/lod.py``): the face mask goes to the tier
+    with ``num_faces_total`` as the face count, and the frustum
+    compaction is skipped (its face ranges cover base geometry only).
+    ``lod_tau=0`` keeps full-rate geometry."""
+    num_faces = scene.num_faces
+    kw = {}
     if scene.tri_lod is not None and lod_tau > 0:
-        raise NotImplementedError(
-            "LOD face masks are not ported; see ROADMAP.md 'What comes "
-            "next', item 6")
+        focal_px = 1.0 / torch.clamp(frame.pixel_spread, min=1e-8)
+        kw["face_mask"], _ = lod_mod.face_mask(scene, frame.eye, focal_px,
+                                               lod_tau)
+        num_faces = scene.num_faces_total
     f = scene.tri_vertices.shape[0]
     if cull_instances is None:
         cull_instances = f >= _CULL_COMPACT_MIN_POOL
-    if cull_instances and variant != "ranged":
+    if cull_instances and variant != "ranged" and "face_mask" not in kw:
         ccap = compact_cap if compact_cap is not None \
             else max(f // 4, 1 << 10)
         ccap = min(raster_mod._round_up(ccap, 128) * caps_scale, f)
@@ -206,7 +219,7 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
             caps_scale=caps_scale, src_map=face_ids)
         hit.overflow = hit.overflow + (c_over > 0).to(torch.int32)
         return hit
-    kw = dict(height=height, width=width, cull_sign=_cull_sign(scene))
+    kw.update(height=height, width=width, cull_sign=_cull_sign(scene))
     if variant == "ranged":
         fn = raster_mod.rasterize
     elif f <= (1 << 14) and height <= 512:
@@ -215,7 +228,7 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
     else:
         fn = raster_mod.rasterize_sorted
         kw["caps_scale"] = caps_scale
-    hit, _ = fn(world_verts, scene.tri_vertices, scene.num_faces,
+    hit, _ = fn(world_verts, scene.tri_vertices, num_faces,
                 frame.view_proj, **kw)
     return hit
 
@@ -632,3 +645,49 @@ def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
     if hit.overflow is not None:
         aovs["raster_overflow_tiles"] = hit.overflow
     return aovs, new_state
+
+
+def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
+                            cascades, build_state, state: TemporalState,
+                            dirty_tri, dirty_lo, dirty_hi, *, height: int,
+                            width: int, config, backend: str = "raster",
+                            samples: int = 1, use_cache: bool = False,
+                            gi_scale: int = 1, history_cap: float = 16.0,
+                            lod_tau: float = 0.75,
+                            generator: torch.Generator | None = None,
+                            uniforms: torch.Tensor | None = None):
+    """One animated production frame: the bounded SDF cascade update over
+    the moved geometry, the radiance re-bake of the bricks it re-emitted
+    and of those whose shadow segment crosses a dirty box, then the
+    temporal GI frame.
+
+    ``scene`` already carries this frame's transforms; ``dirty_tri`` (F,)
+    marks the moved triangles and ``dirty_lo/hi`` (D, 3) cover their old
+    and new world AABBs (unused rows +BIG/-BIG).  GI samples come from
+    ``uniforms`` or ``generator``, as in :func:`render_frame_gi_temporal`
+    (whole frames only: the JAX function's ``band``, ``rebake=False`` and
+    ``shard_proxy`` are not ported).  Returns (aovs, new_temporal,
+    cascades, build_state, needs_full); a non-zero ``needs_full`` means a
+    capacity was exceeded (a re-bake set past ``bake_brick_cap``
+    included) and the caller must rebuild the cascades."""
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+
+    world_verts = bake_world(scene)
+    mat = scene.instance_material[scene.tri_instance.long()].long()
+    cascades, build_state, needs_full = sdf_build.update_cascades(
+        cascades, build_state, world_verts, scene.tri_vertices,
+        scene.num_faces, dirty_tri, dirty_lo, dirty_hi,
+        tri_albedo=scene.mat_base_color[mat],
+        tri_emissive=scene.mat_emissive[mat], config=config)
+    light_dirty = sdf_mod.lighting_dirty_bricks(
+        cascades, scene, dirty_lo, dirty_hi, config=config)
+    cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
+        cascades, scene, build_state.emit_bricks | light_dirty,
+        build_state.alive, config=config, cap=config.bake_brick_cap)
+    aovs, new_state = render_frame_gi_temporal(
+        scene, frame, cascades, state, height=height, width=width,
+        config=config, backend=backend, samples=samples,
+        use_cache=use_cache, gi_scale=gi_scale, history_cap=history_cap,
+        lod_tau=lod_tau, generator=generator, uniforms=uniforms)
+    return aovs, new_state, cascades, build_state, needs_full + bake_drop

@@ -1,11 +1,13 @@
 """High-level renderer facade (counterpart of ``vri_tpu/renderer.py``).
 
-Owns the delegate, builds the SDF cascades when the scene or the focus
-changes (full cell-binned build with demand-scaled list caps, then the
-radiance bake), and renders GI frames, direct-only frames with
-``gi=False``, SDF debug views and temporal flythroughs on ``device``
-(the CUDA card unless the caller asks for the CPU).  GI samples come from a
-``torch.Generator`` seeded with the frame index.
+Owns the delegate, keeps the SDF cascades in step with the scene and the
+focus (a full cell-binned build with demand-scaled list caps, the
+bounded update of a transforms-only edit, or the clipmap scroll of a
+moved focus, then the radiance bake), and renders GI frames, direct-only
+frames with ``gi=False``, SDF debug views, frames at a stage time code
+and temporal flythroughs on ``device`` (the CUDA card unless the caller
+asks for the CPU).  GI samples come from a ``torch.Generator`` seeded
+with the frame index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
 later frames use 2x, then 4x list capacities, and after an overflow at
@@ -53,8 +55,11 @@ class Renderer:
         self._scene_version = -1
         self._sync_count = 0
         self.frame_index = 0
-        #: wall milliseconds of the last cascade (re)build + bake
+        #: wall milliseconds of the last cascade build, update or scroll
+        #: with its bake, and which of them it was ("rebuilt", "updated (n
+        #: dirty instances)", "scrolled n cascades", "unchanged center")
         self.last_build_ms: float | None = None
+        self.last_build_label: str | None = None
         # list-raster overflow escalation: 1 -> 2x -> 4x list capacities
         # -> the ranged tier (any scale above 4)
         self._raster_caps_scale = 1
@@ -67,11 +72,13 @@ class Renderer:
         self.delegate.populate(stage)
         self.sync()
 
-    def sync(self) -> SceneBuffers:
-        """Sync dirty prims (Hydra sync phase analog)."""
+    def sync(self, time_code: float | None = None) -> SceneBuffers:
+        """Sync dirty prims (Hydra sync phase analog); ``time_code``
+        first advances the stage's authored animation.  A sync that
+        changed the scene makes the cascades stale."""
         dirty = self.delegate.tracker.any_dirty
-        self.scene = self.delegate.sync()
-        if dirty:
+        self.scene = self.delegate.sync(time_code=time_code)
+        if dirty or self.delegate.registry.last_update["kind"] != "none":
             self._sync_count += 1
         return self.scene
 
@@ -82,9 +89,14 @@ class Renderer:
     # -- SDF cascades -----------------------------------------------------------
 
     def ensure_cascades(self, eye=None, focus=None, force: bool = False):
-        """(Re)build the cascades when geometry changed or the focus moved
-        more than one coarse voxel: a full cell-binned build with list caps
-        scaled to the measured demand, then the radiance bake."""
+        """Bring the cascades up to date when geometry changed or the focus
+        moved more than one coarse voxel, then bake the radiance.  A
+        transforms-only edit of at most 32 instances runs the bounded
+        ``sdf_build.update_cascades`` over the dirty cells; a moved focus
+        on an unchanged scene runs ``sdf_build.scroll_cascades``, which
+        keeps every surviving brick; anything else, or a capacity breach
+        of either (``needs_full``), is a full build with list caps scaled
+        to the measured demand."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         cfg = self._sdf_cfg_effective or self.config.sdf
@@ -110,19 +122,33 @@ class Renderer:
                 "ROADMAP.md 'What comes next', item 3")
 
         t0 = time.perf_counter()
+        # the SDF paths read the base geometry only (no LOD chains)
         scene_b = self.scene.base_view()
         world = bake_world(scene_b)
-        centers = sdf_mod.default_centers(cfg, focus, device=self.device)
-        # demand pre-pass: scale the list caps so the build drops no ref
-        cfg2 = sdf_build.demand_caps(scene_b, world, centers, cfg)
-        if cfg2 is not cfg:
-            log.info("SDF list caps demand-scaled: cell %d -> %d, global "
-                     "%d -> %d", cfg.cell_list_cap, cfg2.cell_list_cap,
-                     cfg.global_list_cap, cfg2.global_list_cap)
-            cfg = cfg2
-            self._sdf_cfg_effective = cfg
-        cascades, state = sdf_build.build_for_scene(scene_b, world, centers,
-                                                    cfg)
+        done = None  # (cascades, state, label)
+        if not force and self.cascades is not None \
+                and self._build_state is not None:
+            upd = self.delegate.registry.last_update
+            if (stale and not moved and upd.get("kind") == "transforms"
+                    and len(upd["dirty_instances"]) <= 32):
+                done = self._try_incremental(scene_b, world, upd, cfg)
+            elif moved and not stale:
+                done = self._try_scroll(scene_b, world, focus, cfg)
+        if done is None:
+            centers = sdf_mod.default_centers(cfg, focus, device=self.device)
+            # demand pre-pass: scale the list caps so the build drops no
+            # ref (sticky: the build state's list shapes derive from them)
+            cfg2 = sdf_build.demand_caps(scene_b, world, centers, cfg)
+            if cfg2 is not cfg:
+                log.info("SDF list caps demand-scaled: cell %d -> %d, "
+                         "global %d -> %d", cfg.cell_list_cap,
+                         cfg2.cell_list_cap, cfg.global_list_cap,
+                         cfg2.global_list_cap)
+                cfg = cfg2
+                self._sdf_cfg_effective = cfg
+            done = (*sdf_build.build_for_scene(scene_b, world, centers, cfg),
+                    "rebuilt")
+        cascades, state, label = done
         self.cascades = sdf_mod.bake_brick_lighting(
             cascades, self.scene, config=cfg, alive=state.alive)
         self._build_state = state
@@ -130,14 +156,54 @@ class Renderer:
         self._scene_version = self._sync_count
         list_ov = int(state.list_overflow)
         self.last_build_ms = 1e3 * (time.perf_counter() - t0)
-        log.info("SDF cascades rebuilt in %.1f ms (%d bricks, %d brick "
-                 "overflow, %d list-ref drops)", self.last_build_ms,
+        self.last_build_label = label
+        log.info("SDF cascades %s in %.1f ms (%d bricks, %d brick "
+                 "overflow, %d list-ref drops)", label, self.last_build_ms,
                  int(self.cascades.num_bricks), int(self.cascades.overflow),
                  list_ov)
         if list_ov:
             log.warning("SDF cell/glob list capacity dropped %d refs",
                         list_ov)
         return self.cascades
+
+    def _try_incremental(self, scene_b, world, upd, cfg):
+        """Bounded update over the dirty instances' old and new boxes;
+        None when a capacity overflowed."""
+        ids = upd["dirty_instances"]
+        dirty_inst = torch.zeros((scene_b.instance_transform.shape[0],),
+                                 dtype=torch.bool, device=self.device)
+        dirty_inst[ids] = True
+        dirty_tri = dirty_inst[scene_b.tri_instance.long()]
+        cap = 64
+        dlo = np.full((cap, 3), 3.0e38, np.float32)
+        dhi = np.full((cap, 3), -3.0e38, np.float32)
+        n = len(ids)
+        dlo[:n], dhi[:n] = upd["old_lo"], upd["old_hi"]
+        dlo[n:2 * n], dhi[n:2 * n] = upd["new_lo"], upd["new_hi"]
+        cascades, state, needs_full = sdf_build.update_for_scene(
+            self.cascades, self._build_state, scene_b, world, dirty_tri,
+            torch.as_tensor(dlo, device=self.device),
+            torch.as_tensor(dhi, device=self.device), cfg)
+        if int(needs_full):
+            log.info("bounded SDF update overflowed; full rebuild")
+            return None
+        return cascades, state, f"updated ({n} dirty instances)"
+
+    def _try_scroll(self, scene_b, world, focus, cfg):
+        """Clipmap scroll to the focus's centers; None when a capacity
+        overflowed."""
+        new_centers = sdf_mod.default_centers(cfg, focus, device=self.device)
+        delta = (new_centers - self.cascades.center).cpu().numpy()
+        scrolled = tuple(bool(np.any(d != 0.0)) for d in delta)
+        if not any(scrolled):
+            return self.cascades, self._build_state, "unchanged center"
+        cascades, state, needs_full = sdf_build.scroll_for_scene(
+            self.cascades, self._build_state, scene_b, world, new_centers,
+            scrolled, cfg)
+        if int(needs_full):
+            log.info("SDF scroll overflowed; full rebuild")
+            return None
+        return cascades, state, f"scrolled {sum(scrolled)} cascades"
 
     @property
     def list_overflow(self) -> int:
@@ -151,15 +217,19 @@ class Renderer:
                mode: int = DebugMode.NONE, gi: bool = True,
                samples: int = 1, backend: str = "raster",
                gi_scale: int = 1, to_numpy: bool = True,
-               uniforms: torch.Tensor | None = None
-               ) -> Dict[str, np.ndarray]:
+               uniforms: torch.Tensor | None = None,
+               time_code: float | None = None) -> Dict[str, np.ndarray]:
         """One frame: the GI frame, or with ``gi=False`` the direct-only
         frame (brute-force hard shadows, no SDF cascades); an SDF debug
         ``mode`` marches the cascades whatever ``gi`` says.  ``uniforms``
         (samples, GI pixels, 2) replaces the generator draws of the GI
-        frame (parity tests hand in the reference's samples)."""
+        frame (parity tests hand in the reference's samples).
+        ``time_code`` first syncs the stage's authored animation at that
+        time; transform-only motion then takes the bounded SDF update."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
+        if time_code is not None:
+            self.sync(time_code=time_code)
         cam = camera or self.camera
         if cam is None:
             raise RuntimeError("no camera")
