@@ -10,13 +10,17 @@ default frame, a city-scale stage and the direct-only frame; then the
 work-list micro-benchmarks' kernels, each through its tool's own row at
 the tool's full shape; the production frame (the temporal GI frame at
 ``gi_scale=2``), the reference preset's frame, the SDF debug views and
-the compacted march; and the LOD and animated-stage paths: the LOD face
+the compacted march; the LOD and animated-stage paths: the LOD face
 mask through the three raster tiers, the bounded SDF update, the
 animated frame, the clipmap scroll and the app's ``--lod`` and
-``--builtin animated``.  The JAX package and JAX itself are blocked
-before the port is imported, so any import of either is fatal.  Phases
-(run in the order 1-6, 21, 7, 8, 12, 13, 18, 20, 23, 24, 19, 9-11, 22,
-14-17; phase 20's small input runs in phase 10), each fatal on failure:
+``--builtin animated``; and the single-device remainder: band frames,
+the dense SDF build of the "tiny" preset, the scene cache and checks,
+and the app's ``--sdf tiny``, ``--cache`` and ``--trace``.  The JAX
+package and JAX itself are blocked before the port is imported, so any
+import of either is fatal.  Phases (run in the order 1-6, 21, 7, 8, 12,
+13, 18, 25, 20, 23, 24, 27, 26, 19, 9, 28, 10, 11, 22, 14-17; phase
+20's small input runs in phase 10, phase 25's dynamic band frame in
+phase 23), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -172,6 +176,40 @@ before the port is imported, so any import of either is fatal.  Phases
     ``app.main(["--builtin", "animated", "--frames", "4"])`` and
     ``app.main(["--builtin", "kitchen", "--lod", "3"])`` exit 0 and write
     their PNGs under ``chiprun_out/``.
+25. bands, on phase 7's renderer and cascades: 10 frames of
+    ``render_frame_gi_temporal(height=136, band=(472, 1080),
+    gi_scale=2, use_cache=True)`` (``bench.py``'s ``gi_band135_ms``),
+    each exactly one ``raster_tiles`` and two ``march_rays``, timed
+    beside phase 18's full frame; the band's instance ids and depth
+    against rows 472-607 of a full production frame (differences counted,
+    at most 0.5%); a Cornell 512^2 band through the binned tier and the
+    kitchen band through ``raster_ranged``, each bit-equal to the sorted
+    tier's band, the dispatch taking the binned tier on the Cornell band
+    and the sorted on the kitchen's; ``raster_tiles`` bit-equal to its
+    plain version on each band's sorted lists and the Cornell band's
+    binned lists, ``raster_ranged`` on the kitchen band's chunks, and
+    ``march_rays`` on the band frame's shadow and GI rays; and, in phase
+    23, two ``render_frame_gi_dynamic(band=...)`` frames on its state
+    (one ``raster_tiles``, three ``march_rays`` each;
+    ``gi_anim_band_ms``), ``march_rays`` bit-equal to its plain version
+    on the last one's three ray sets;
+26. the dense SDF build: ``Renderer.render(gi=True)`` at 1080p under
+    ``SDFConfig.preset("tiny")`` on the Cornell box and the kitchen
+    ("rebuilt (dense)"): the build's time, bricks and overflow (the
+    occupied voxels past the preset's 8,192 bricks), one ``raster_tiles``
+    and two ``march_rays`` (the bake's and the frame's shadow rays), and
+    ``march_rays`` bit-equal to its plain version on the frame's shadow
+    rays;
+27. the scene cache and checks on phase 7's kitchen: saved, loaded into
+    a fresh renderer, the scene equal field by field (positions within
+    one uint16 step, uvs within float16 rounding), a 1080p GI frame of
+    the loaded scene with phase 7's cascades agreeing on at least 99.5%
+    of the instance ids, the load time against the stage load, the
+    file's bytes; ``validate_scene`` without errors;
+28. the app on Cornell 512^2: ``--sdf tiny``, ``--cache`` written then
+    read (no stage load), and ``--trace``, whose Chrome trace holds the
+    ``frame0`` span and the names of kernel R's and M's CUDA functions;
+    ``device_memory_stats()`` reports ``cuda:0``.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
@@ -187,7 +225,8 @@ The script prints its total seconds.
 Prints the per-kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.  Exits non-zero, printing no result, when any phase
-fails or no card is present.
+fails, no card is present, or the port's package is not importable
+beside it (the script alone, outside the repository).
 """
 
 from __future__ import annotations
@@ -785,6 +824,108 @@ def _hold_march(cas, rays, cfg, steps: int, label: str) -> tuple:
     return margs, mkw, got, err
 
 
+def _hold_raster_tiles(prep, label: str) -> tuple:
+    """Holds ``raster_tiles`` on one prep's tile lists (sorted or binned)
+    to its plain version: z, slot, u and v exactly equal.  Returns the
+    launch's arguments, keywords and outputs and the largest
+    difference."""
+    import torch
+
+    from vri_tpu_torch.ops import rasterize
+
+    rargs = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
+    rkw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
+    got = rasterize.raster_tiles(*rargs, **rkw)
+    torch.cuda.synchronize()
+    want = rasterize.raster_tiles_reference(*rargs, **rkw)
+    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
+        _check(torch.equal(g, wv), f"raster_tiles {name} differs from the "
+               f"plain version on {label}")
+    err = max(float((g.float() - wv.float()).abs().max())
+              for g, wv in zip(got, want))
+    return rargs, rkw, got, err
+
+
+def _hold_raster_ranged(rprep, counts, label: str) -> tuple:
+    """Holds ``raster_ranged`` on one ranged prep's chunks to its plain
+    version: z, slot, u, v and the (tile, slot) pairs tested per tile
+    exactly equal, and those pairs equal to the sorted prep's list
+    lengths ``counts`` on the same inputs.  Returns the launch's
+    arguments, keywords and outputs and the largest difference."""
+    import torch
+
+    from vri_tpu_torch.ops import rasterize
+
+    kargs = (rprep["coef"], rprep["order"], rprep["ranges"], rprep["words"])
+    kkw = dict(n_global=rprep["n_global"], num_tx=rprep["num_tx"])
+    got = rasterize.raster_ranged(*kargs, **kkw, pairs=True)
+    torch.cuda.synchronize()
+    want = rasterize.raster_ranged_reference(*kargs, **kkw, pairs=True)
+    for name, g, wv in zip(("z", "slot", "u", "v", "pairs"), got, want):
+        _check(torch.equal(g, wv), f"raster_ranged {name} differs from the "
+               f"plain version on {label}")
+    _check(torch.equal(got[4], counts), f"raster_ranged on {label}: the "
+           "(tile, slot) pairs tested per tile differ from the sorted "
+           "prep's lists")
+    err = max(float((g.float() - wv.float()).abs().max())
+              for g, wv in zip(got[:4], want[:4]))
+    return kargs, kkw, got, err
+
+
+def _frame_rays(scene, fp, cas, cfg, h: int, w: int, gen, lod_tau: float,
+                what: str, y0: int = 0, proj_height=None) -> dict:
+    """Holds ``march_rays`` to its plain version on one GI frame's own
+    rays at ``gi_scale=2``, built as the frame builds them from its
+    raster G-buffer (rows [y0, y0 + h) of a ``proj_height``-row frame on
+    a band): the shadow rays of the ``shadow_scale`` subsample and the GI
+    rays of the GI-resolution view.  Returns label -> (arguments,
+    keywords, outputs)."""
+    import torch
+
+    from vri_tpu_torch.ops import gi
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    _, gb = frame_mod._gbuffer(scene, fp, h, w, "raster", lod_tau, y0=y0,
+                               proj_height=proj_height)
+    sub_s, _ = frame_mod._subsample_pn(gb, h, w, cfg.shadow_scale)
+    sub_g, _ = frame_mod._subsample_pn(gb, h, w, 2)
+    u = torch.rand((sub_g.position.shape[0], 2), generator=gen,
+                   device=sub_g.position.device)
+    held = {}
+    for label, rays, steps in (
+            ("shadow", gi.shadow_rays(sub_s.position, sub_s.normal, scene,
+                                      cas, cfg), cfg.shadow_steps),
+            ("gi", gi.gi_rays(sub_g.position, sub_g.normal, u, cas, cfg),
+             cfg.gi_steps)):
+        margs, mkw, got, _ = _hold_march(cas, rays, cfg, steps,
+                                         f"{what}'s {label}")
+        held[label] = (margs, mkw, got)
+    return held
+
+
+def _hold_partial_bake(cas, st, scene, dlo, dhi, cfg, what: str) -> tuple:
+    """Holds ``march_rays`` to its plain version on the shadow rays of a
+    dynamic frame's partial bake (its re-emitted bricks and those whose
+    lighting the dirty boxes touch, up to ``bake_brick_cap``).  Returns
+    the rays and bricks held."""
+    import torch
+
+    from vri_tpu_torch.ops import gi
+    from vri_tpu_torch.ops import sdf as sdf_mod
+
+    mask = st.emit_bricks | sdf_mod.lighting_dirty_bricks(
+        cas, scene, dlo, dhi, config=cfg)
+    pos = torch.nonzero(mask & st.alive).reshape(-1)[:cfg.bake_brick_cap]
+    _check(pos.shape[0] > 0, f"{what}: no brick re-baked")
+    centers = sdf_mod.brick_positions(cas, cfg)[0][pos]
+    nrm = cas.brick_normal[pos]
+    pts = centers + nrm * gi.surface_bias(centers, cas, cfg)[:, None]
+    margs, _, _, _ = _hold_march(
+        cas, gi.shadow_rays(pts, nrm, scene, cas, cfg), cfg, 32,
+        f"{what}'s partial bake's shadow")
+    return int(margs[0].shape[1]), int(pos.shape[0])
+
+
 def _stages(call, targets: dict, reps: int) -> dict:
     """Host milliseconds of each stage of ``call()``, a mean over
     ``reps`` calls after one warm-up: each ``targets`` entry, name ->
@@ -882,7 +1023,7 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
     its plain version on one frame's shadow and GI rays; the frame's
     stages; then 5 frames of ``render_flythrough(temporal=True,
     gi_scale=2)`` on an orbit that starts at the stage camera.  Returns
-    the launches of one frame."""
+    the launches of one frame and the 10 frames' times."""
     import torch
 
     from vri_tpu_torch.hydra.camera import FreeCamera
@@ -900,25 +1041,13 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
     gen = torch.Generator(device=r.device)
     gen.manual_seed(18)
 
-    # kernel M on one frame's own rays, built as the frame builds them:
-    # the shadow rays of the shadow_scale subsample, the GI rays of the
-    # GI-resolution view
-    _, gb = frame_mod._gbuffer(r.scene, fp, h, w, "raster",
-                               r.config.lod_tau)
-    sub_s, _ = frame_mod._subsample_pn(gb, h, w, cfg.shadow_scale)
-    sub_g, _ = frame_mod._subsample_pn(gb, h, w, 2)
-    u = torch.rand((sub_g.position.shape[0], 2), generator=gen,
-                   device=r.device)
+    # kernel M on one frame's own rays, built as the frame builds them
+    held = _frame_rays(r.scene, fp, cas, cfg, h, w, gen, r.config.lod_tau,
+                       "production frame")
     m_ms = {}
-    for label, at, rays, steps in (
-            ("shadow", f"shadow_scale {cfg.shadow_scale}",
-             gi.shadow_rays(sub_s.position, sub_s.normal, r.scene, cas,
-                            cfg), cfg.shadow_steps),
-            ("gi", "gi_scale 2",
-             gi.gi_rays(sub_g.position, sub_g.normal, u, cas, cfg),
-             cfg.gi_steps)):
-        margs, mkw, got, _ = _hold_march(cas, rays, cfg, steps,
-                                         f"production frame's {label}")
+    for label, at in (("shadow", f"shadow_scale {cfg.shadow_scale}"),
+                      ("gi", "gi_scale 2")):
+        margs, mkw, got = held[label]
         m_ms[label] = _time_ms(lambda: march_kernel.march_rays(
             *margs, **mkw), 10)
         print(f"  march_rays on the production frame's {label} rays ({at}): "
@@ -927,7 +1056,7 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
               f"{float(got[2].float().mean()):.2f}, max "
               f"{int(got[2].max())}; equal to the plain version; "
               f"{m_ms[label]:.3f} ms (CUDA events, mean of 10) [{card}]")
-    del gb, sub_s, sub_g, u, margs, got
+    del held, margs, got
 
     state = frame_mod.init_temporal(h, w, 2, device=r.device)
     torch.cuda.synchronize()
@@ -1022,7 +1151,7 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
           + f"; {1e3 * fly_s / 5:.1f} ms a frame (host clock, host copy "
           f"included); SDF rebuilds: {int(r.last_build_ms != builds)} "
           f"[{card}]")
-    return {name: n for name, n in per_frame.items() if n}
+    return {name: n for name, n in per_frame.items() if n}, times
 
 
 def _sdf_views(r, card: str) -> None:
@@ -1198,14 +1327,7 @@ def _lod_city(city: dict, card: str) -> None:
         world, scene.tri_vertices, scene.num_faces_total, fp.view_proj,
         height=h, width=w, caps_scale=scale,
         cull_sign=frame_mod._cull_sign(scene), face_mask=mask)
-    rargs = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
-    rkw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
-    got = rasterize.raster_tiles(*rargs, **rkw)
-    torch.cuda.synchronize()
-    want = rasterize.raster_tiles_reference(*rargs, **rkw)
-    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
-        _check(torch.equal(g, wv), f"LOD city: raster_tiles {name} differs "
-               "from the plain version")
+    _hold_raster_tiles(prep, "the LOD city's lists")
     print(f"LOD city (lod_levels=3, lod_tau=0.75, 1920x1080): "
           f"{int(mask.sum())} faces selected of {int(scene.num_faces_total)}"
           f" in the chains ({int(scene.num_faces)} base, pool "
@@ -1347,7 +1469,6 @@ def _animated(r, h: int, w: int, card: str) -> dict:
     import torch
 
     from vri_tpu_torch import RenderConfig, scenes
-    from vri_tpu_torch.ops import gi
     from vri_tpu_torch.ops import sdf as sdf_mod
     from vri_tpu_torch.ops import sdf_build
     from vri_tpu_torch.passes import frame as frame_mod
@@ -1481,21 +1602,44 @@ def _animated(r, h: int, w: int, card: str) -> dict:
           f"one frame (frame 6); peak memory {peak / 2 ** 30:.2f} GiB "
           f"[{card}]")
 
+    # -- phase 25's dynamic band frames on this state -------------------------
+    bstate = [frame_mod.init_temporal(BAND_H, w, 2, device=dev), cas, st]
+    last = {}
+
+    def band_frame(j):
+        dl7, dh7 = _dirty_boxes(lo0, hi0, (offset(5 + j), offset(6 + j)),
+                                dev)
+        s7 = moved(offset(6 + j))
+        last.update(scene=s7, dlo=dl7, dhi=dh7)
+        aovs_, bstate[0], bstate[1], bstate[2], nf_ = \
+            frame_mod.render_frame_gi_dynamic(
+                s7, fp, bstate[1], bstate[2], bstate[0],
+                dirty_tri, dl7, dh7, band=(BAND_Y0, h),
+                **dict(kw, height=BAND_H))
+        return aovs_, nf_
+
+    _band_dynamic(band_frame, per_frame, times, card)
+    # kernel M on the last dynamic band frame's three ray sets: its
+    # partial bake's shadow rays and its band's shadow and GI rays
+    n_rays, n_bricks = _hold_partial_bake(
+        bstate[1], bstate[2], last["scene"], last["dlo"], last["dhi"], eff,
+        "the last dynamic band frame")
+    held = _frame_rays(last["scene"], fp, bstate[1], eff, BAND_H, w, gen,
+                       r.config.lod_tau, "dynamic band frame", y0=BAND_Y0,
+                       proj_height=h)
+    print(f"  march_rays on the last dynamic band frame's partial bake "
+          f"({n_rays} shadow rays, {n_bricks} bricks), its "
+          f"{held['shadow'][0][0].shape[1]} shadow rays and "
+          f"{held['gi'][0][0].shape[1]} GI rays: equal to the plain version"
+          f" [{card}]")
+    del bstate, held, last
+
     # -- (c) kernel M on the partial bake's shadow rays -----------------------
-    mask = st.emit_bricks | sdf_mod.lighting_dirty_bricks(
-        cas, s_i, dl, dh, config=eff)
-    pos = torch.nonzero(mask & st.alive).reshape(-1)[:eff.bake_brick_cap]
-    _check(pos.shape[0] > 0, "the last dynamic frame re-baked no brick")
-    centers = sdf_mod.brick_positions(cas, eff)[0][pos]
-    nrm = cas.brick_normal[pos]
-    pts = centers + nrm * gi.surface_bias(centers, cas, eff)[:, None]
-    margs, _, got, _ = _hold_march(
-        cas, gi.shadow_rays(pts, nrm, s_i, cas, eff), eff, 32,
-        "partial bake's shadow")
-    print(f"  march_rays on the partial bake's {margs[0].shape[1]} shadow "
-          f"rays ({pos.shape[0]} bricks): equal to the plain version "
-          f"[{card}]")
-    del cas, st, state, margs, got, mask
+    n_rays, n_bricks = _hold_partial_bake(cas, st, s_i, dl, dh, eff,
+                                          "the last dynamic frame")
+    print(f"  march_rays on the partial bake's {n_rays} shadow rays "
+          f"({n_bricks} bricks): equal to the plain version [{card}]")
+    del cas, st, state
 
     # -- (d) animated_stage through render(time_code=) ----------------------
     # the room preset with update capacities that hold all 8 props moving
@@ -1663,6 +1807,447 @@ def _scroll_and_app(r, h: int, w: int, card: str, out_dir: str) -> None:
         print(f"app {' '.join(argv)}: exit 0, {len(pngs)} PNGs in "
               f"{time.perf_counter() - t0:.1f} s (host clock) [{card}]")
 
+#: the band of ``bench.py``'s ``gi_band135_ms`` (``bench.py:286-287``):
+#: 136 rows at y0 = 472 of the 1080-row frame
+BAND_Y0, BAND_H = 472, 136
+
+
+def _bands(r, h: int, w: int, cfg, card: str, prod_ms: list) -> dict:
+    """Phase 25 on renderer ``r`` (phase 7's kitchen, room preset, its
+    cascades reused): (a) ``bench.py``'s ``gi_band135_ms`` frame, 10
+    frames of ``render_frame_gi_temporal(band=(472, 1080))`` at
+    ``gi_scale=2`` from an empty band history, each one ``raster_tiles``
+    and two ``march_rays``, beside phase 18's full frame; (b) the band's
+    instance ids and depth against rows 472-607 of a full production
+    frame; (c) a Cornell 512^2 band through the binned tier and the
+    kitchen band through ``raster_ranged``, each bit-equal to the sorted
+    tier's band, the dispatch taking the binned tier on the Cornell band
+    and the sorted tier on the kitchen's, and ``raster_tiles`` and
+    ``raster_ranged`` held to their plain versions on each band's own
+    lists and chunks; (d) ``march_rays`` held to its plain version on the
+    band frame's shadow and GI rays.  Returns the launches of one band
+    frame."""
+    import torch
+
+    from vri_tpu_torch import RenderConfig, scenes
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    dev = r.device
+    cas = r.ensure_cascades(eye=r.camera.eye)
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
+    kw = dict(width=w, config=cfg, backend="raster", samples=1,
+              use_cache=True, gi_scale=2, lod_tau=r.config.lod_tau)
+    band = dict(height=BAND_H, band=(BAND_Y0, h))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+
+    # -- (a) the band frame --------------------------------------------------
+    state = frame_mod.init_temporal(BAND_H, w, 2, device=dev)
+    per_frame = _launches(raster_tiles=1, march_rays=2)
+    _reset_counts()
+    times = []
+    for i in range(10):
+        before = _counts()
+        start, stop = _events()
+        start.record()
+        aovs, state = frame_mod.render_frame_gi_temporal(
+            r.scene, fp, cas, state, generator=gen, **band, **kw)
+        out = {k: v.cpu().numpy() for k, v in aovs.items()}
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        step = {k: v - before[k] for k, v in _counts().items()}
+        _check(step == per_frame, f"band frame {i}: launches {step}")
+        _check(out["color"].shape == (BAND_H, w, 3),
+               f"band frame {i}: colour shape {out['color'].shape}")
+        _check(int(out["raster_overflow_tiles"]) == 0,
+               f"band frame {i}: raster overflow")
+        _check(np.isfinite(out["color"]).all(),
+               f"band frame {i}: colour not finite")
+        cov = out["instance_id"] >= 0
+        _check(cov.mean() > 0.5, f"band frame {i}: coverage {cov.mean():.3f}")
+        _check(out["gi_history"].max() <= 17.0,
+               f"band frame {i}: gi_history beyond the cap")
+    launches = _counts()
+    dev_ms = _time_ms(lambda: frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, state, generator=gen, **band, **kw), 5)
+    from vri_tpu_torch.ops import gi, march_kernel
+
+    st = _stages(lambda: frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, state, generator=gen, **band, **kw), {
+            "gbuffer": (frame_mod, "_gbuffer"),
+            "visibility": (frame_mod, "_visibility"),
+            "direct": (frame_mod, "_direct_lighting"),
+            "indirect": (gi, "indirect_radiance"),
+            "march": (march_kernel, "march"),
+            "reproject": (frame_mod, "_reproject")}, 5)
+    print(f"band frame (render_frame_gi_temporal(height=136, band=(472, "
+          f"1080)), gi_scale=2, 1 spp, use_cache, raster; kitchen 1920 wide, "
+          f"room; bench.py's gi_band135_ms): frames 1-10 "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms with the host copy (CUDA events); {dev_ms:.2f} ms without "
+          f"(mean of 5); the full 1080-row production frame (phase 18): "
+          f"{float(np.mean(prod_ms)):.2f} ms with the host copy (mean of "
+          f"10); launches {launches}; coverage {cov.mean():.4f} [{card}]")
+    rest = st["frame"] - sum(st[k] for k in ("gbuffer", "direct",
+                                            "indirect", "reproject"))
+    print(f"  band frame's stages (host clock between synchronizes, mean of "
+          f"5 frames, ms): frame {st['frame']:.2f} = G-buffer "
+          f"{st['gbuffer']:.2f} (visibility {st['visibility']:.2f}) + direct "
+          f"{st['direct']:.2f} + indirect {st['indirect']:.2f} + reproject "
+          f"{st['reproject']:.2f} + blend, pack and compose {rest:.2f}; "
+          f"march_kernel.march {st['march']:.2f} [{card}]")
+
+    # -- (b) against the rows of a full production frame ---------------------
+    full, _ = frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, frame_mod.init_temporal(h, w, 2, device=dev),
+        height=h, generator=gen, **kw)
+    rows = slice(BAND_Y0, BAND_Y0 + BAND_H)
+    ids_f, dep_f = full["instance_id"][rows], full["depth"][rows]
+    ids_b, dep_b = aovs["instance_id"], aovs["depth"]
+    diff = (ids_b != ids_f) | ((ids_b >= 0)
+                               & ((dep_b - dep_f).abs()
+                                  > 1e-5 * dep_f.abs()))
+    n_diff = int(diff.sum())
+    print(f"  band against rows 472-607 of a full production frame: "
+          f"instance id or depth (rtol 1e-5) differ on {n_diff} of "
+          f"{diff.numel()} pixels; bound 0.5% [{card}]")
+    _check(n_diff <= 0.005 * diff.numel(),
+           f"band frame: {n_diff} pixels differ from the full frame's rows")
+    del full, aovs, state
+
+    # -- (c) the binned and ranged tiers on a band ----------------------------
+    rc = Renderer(RenderConfig(width=512, height=512, sdf=cfg), device=dev)
+    rc.load_stage(scenes.cornell_box())
+    cases = {"Cornell 512x512, rows [192, 328)": (
+                 rc.scene, rc.camera, 512, 512, 192, "binned",
+                 rasterize.rasterize_binned, "raster_tiles"),
+             "kitchen 1920x1080, rows [472, 608)": (
+                 r.scene, r.camera, h, w, BAND_Y0, "ranged",
+                 rasterize.rasterize, "raster_ranged")}
+    real = {"binned": rasterize.rasterize_binned,
+            "sorted": rasterize.rasterize_sorted}
+    for label, (sc, cam, fh, fw, y0, tier, fn, kernel) in cases.items():
+        fpc = frame_mod.FrameParams.from_camera(cam, fh, device=dev)
+        world = bake_world(sc)
+        args = (world, sc.tri_vertices, sc.num_faces, fpc.view_proj)
+        bkw = dict(height=BAND_H, width=fw, proj_height=fh,
+                   y_offset=float(y0), cull_sign=frame_mod._cull_sign(sc))
+        ran = []
+        rasterize.rasterize_binned = _tagged(real["binned"], "binned", ran)
+        rasterize.rasterize_sorted = _tagged(real["sorted"], "sorted", ran)
+        try:
+            frame_mod._visibility_raster(sc, world, fpc, BAND_H, fw, y0=y0,
+                                         proj_height=fh)
+        finally:
+            rasterize.rasterize_binned = real["binned"]
+            rasterize.rasterize_sorted = real["sorted"]
+        want_tier = "binned" if tier == "binned" else "sorted"
+        _check(ran == [want_tier], f"{label}: the dispatch ran {ran}")
+        _reset_counts()
+        got = fn(*args, **bkw)[0]
+        n = _counts()[kernel]
+        want = rasterize.rasterize_sorted(*args, **bkw)[0]
+        _check(n == 1, f"{label}: {n} {kernel} launches")
+        _check(want.overflow is not None and int(want.overflow) == 0
+               and (got.overflow is None or int(got.overflow) == 0),
+               f"{label}: a tier overflowed")
+        for key in ("tri", "t", "u", "v"):
+            _check(torch.equal(getattr(got, key), getattr(want, key)),
+                   f"{label}: the {tier} band's {key} differs from the "
+                   "sorted band's")
+        # each kernel on the band's own lists and chunks (band-local
+        # slots, ty offset by the band's first row) against its plain
+        # version
+        sprep = rasterize.prepare_sorted(*args, **bkw)
+        _hold_raster_tiles(sprep, f"{label}'s sorted lists")
+        if tier == "binned":
+            _hold_raster_tiles(rasterize.prepare_binned(*args, **bkw),
+                               f"{label}'s binned lists")
+        else:
+            _hold_raster_ranged(rasterize.prepare_ranged(*args, **bkw),
+                                sprep["counts"], f"{label}'s chunks")
+        t_ms = _time_ms(lambda: fn(*args, **bkw), 5)
+        s_ms = _time_ms(lambda: rasterize.rasterize_sorted(*args, **bkw), 5)
+        print(f"  {label}: the dispatch takes the {want_tier} tier; the "
+              f"{tier} tier ({kernel}) bit-equal to the sorted tier on the "
+              f"band; raster_tiles on the band's sorted"
+              + (" and binned lists" if tier == "binned" else
+                 " lists and raster_ranged on its chunks")
+              + f" equal to their plain versions; whole raster {tier} "
+              f"{t_ms:.3f} ms, sorted {s_ms:.3f} ms (CUDA events, mean of "
+              f"5) [{card}]")
+    del rc, sprep
+
+    # -- (d) kernel M on the band frame's own shadow and GI rays ---------------
+    held = _frame_rays(r.scene, fp, cas, cfg, BAND_H, w, gen,
+                       r.config.lod_tau, "band frame", y0=BAND_Y0,
+                       proj_height=h)
+    print(f"  march_rays on the band frame's "
+          f"{held['shadow'][0][0].shape[1]} shadow rays (shadow_scale "
+          f"{cfg.shadow_scale}) and {held['gi'][0][0].shape[1]} GI rays "
+          f"(gi_scale 2): equal to the plain version [{card}]")
+    del held
+    return {name: c for name, c in per_frame.items() if c}
+
+
+def _band_dynamic(frame_fn, per_frame: dict, anim_ms: list, card: str):
+    """Phase 25's last step, on phase 23's state: two
+    ``render_frame_gi_dynamic(band=(472, 1080))`` frames (``frame_fn(i)``
+    runs frame i and returns its AOVs and ``needs_full``), each one
+    ``raster_tiles`` and three ``march_rays`` launches, beside phase
+    23's whole dynamic frames."""
+    import torch
+
+    times = []
+    for i in range(2):
+        before = _counts()
+        start, stop = _events()
+        start.record()
+        aovs, nf = frame_fn(i)
+        out = {k: v.cpu().numpy() for k, v in aovs.items()}
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        step = {k: v - before[k] for k, v in _counts().items()}
+        _check(step == per_frame, f"dynamic band frame {i}: launches {step}")
+        _check(int(nf) == 0, f"dynamic band frame {i}: needs_full {int(nf)}")
+        _check(out["color"].shape[0] == BAND_H
+               and np.isfinite(out["color"]).all(),
+               f"dynamic band frame {i}: colour shape or values")
+        cov = float((out["instance_id"] >= 0).mean())
+        _check(cov > 0.5, f"dynamic band frame {i}: coverage {cov:.3f}")
+    print(f"dynamic band frames (phase 25; render_frame_gi_dynamic(height="
+          f"136, band=(472, 1080)) on phase 23's state; bench.py's "
+          f"gi_anim_band_ms): "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + " ms with the host copy (CUDA events) against the whole "
+          f"frames' " + ", ".join(f"{t:.1f}" for t in anim_ms)
+          + f"; launches per frame {per_frame}; needs_full 0; coverage "
+          f"{cov:.4f} [{card}]")
+
+
+def _dense(dev, card: str) -> dict:
+    """Phase 26: the dense SDF build under ``SDFConfig.preset("tiny")``
+    (r 16, truncation past one cell), through ``Renderer.render(gi=True)``
+    on the Cornell box and on ``kitchen_stress(256, tess=4)`` at 1080p:
+    the build's label, time, bricks and the occupied voxels past the
+    preset's 8,192 bricks (counted, not raised), the frame's launches (one
+    ``raster_tiles``, ``march_rays`` for the bake's and the frame's
+    shadow rays; the preset marches GI rays with the trilinear loop), and
+    kernel M bit-equal to its plain version on the frame's shadow rays.
+    The build's time is also taken alone (CUDA events).  Returns the
+    launches of the kitchen's frame."""
+    import torch
+
+    from vri_tpu_torch import RenderConfig, SDFConfig, scenes
+    from vri_tpu_torch.ops import gi
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    tiny = SDFConfig.preset("tiny")
+    h, w = 1080, 1920
+    launches = {}
+    for label, make in (("Cornell", scenes.cornell_box),
+                        ("kitchen_stress(256, tess=4)",
+                         lambda: scenes.kitchen_stress(num_objects=256,
+                                                       tess=4))):
+        rd = Renderer(RenderConfig(width=w, height=h, sdf=tiny), device=dev)
+        rd.load_stage(make())
+        _reset_counts()
+        start, stop = _events()
+        start.record()
+        out = rd.render(gi=True)
+        stop.record()
+        torch.cuda.synchronize()
+        launches = _counts()
+        cas = rd.cascades
+        lights = int(rd.scene.num_lights)
+        want = _launches(raster_tiles=1, march_rays=2 if lights else 0)
+        _check(rd.last_build_label == "rebuilt (dense)",
+               f"{label}, tiny: cascades {rd.last_build_label}")
+        _check(launches == want, f"{label}, tiny: launches {launches}")
+        _check(np.isfinite(out["color"]).all(),
+               f"{label}, tiny: colour not finite")
+        cov = float((out["instance_id"] >= 0).mean())
+        _check(cov > 0.5, f"{label}, tiny: coverage {cov:.3f}")
+        _check(int(out["raster_overflow_tiles"]) == 0,
+               f"{label}, tiny: raster overflow")
+        fp = frame_mod.FrameParams.from_camera(rd.camera, h, device=dev)
+        _, gb = frame_mod._gbuffer(rd.scene, fp, h, w, "raster",
+                                   rd.config.lod_tau)
+        margs, _, got, _ = _hold_march(
+            cas, gi.shadow_rays(gb.position, gb.normal, rd.scene, cas, tiny),
+            tiny, tiny.shadow_steps, f"{label} tiny-preset shadow")
+        scene_b = rd.scene.base_view()
+        world = bake_world(scene_b)
+        focus = rd._cascade_focus
+        build_ms = _time_ms(lambda: sdf_mod.build_for_scene(
+            scene_b, world, focus=focus, config=tiny), 2)
+        print(f"dense SDF build ({label}, 1920x1080, preset tiny: "
+              f"{tiny.num_cascades} cascades of {tiny.cascade_resolution}^3, "
+              f"truncation {tiny.truncation_voxels} voxels): "
+              f"{rd.last_build_label}, {int(cas.num_bricks)} bricks, "
+              f"{int(cas.overflow)} occupied voxels past max_bricks "
+              f"{tiny.max_bricks}; build {build_ms:.1f} ms (CUDA events, "
+              f"mean of 2), build + bake {rd.last_build_ms:.1f} ms (host "
+              f"clock); first frame {start.elapsed_time(stop):.1f} ms with "
+              f"the build and the host copy; launches {launches}; "
+              f"march_rays on the frame's {margs[0].shape[1]} shadow rays "
+              f"equal to the plain version; coverage {cov:.4f} [{card}]")
+        del rd, cas, gb, margs, got
+        torch.cuda.empty_cache()
+    return {name: c for name, c in launches.items() if c}
+
+
+def _cache_and_checks(r, h: int, w: int, card: str, out_dir: str,
+                      stage_s: float) -> None:
+    """Phase 27 on renderer ``r`` (phase 7's kitchen): the scene cache
+    saved and loaded into a fresh renderer, the scene equal field by
+    field (positions within one uint16 quantization step, uvs within
+    float16 rounding, textures within one u8 step, every other field
+    exactly), a 1080p GI frame of the loaded scene against the original's
+    with the same cascades and uniforms (instance ids on at least 99.5% of
+    the pixels), the load time against the stage load, the file's bytes,
+    and ``validate_scene`` on the kitchen without errors."""
+    import dataclasses
+
+    import torch
+
+    from vri_tpu_torch import RenderConfig
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.renderer import Renderer
+    from vri_tpu_torch.runtime import checks
+
+    path = os.path.join(out_dir, "smoke_scene_cache.npz")
+    t0 = time.perf_counter()
+    r.save_cache(path)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    r3 = Renderer(RenderConfig(width=w, height=h, sdf=r.config.sdf),
+                  device=r.device)
+    t0 = time.perf_counter()
+    r3.load_cache(path, camera=r.camera)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    a, b = r.scene, r3.scene
+    pos = a.positions
+    step = float((pos.max(0).values - pos.min(0).values).max()) / 65535.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "mip_atlas" or not torch.is_tensor(x):
+            _check(f.name == "mip_atlas" or x == y,
+                   f"cache: {f.name} {x} against {y}")
+            continue
+        _check(torch.is_tensor(y) and x.shape == y.shape
+               and x.dtype == y.dtype,
+               f"cache: {f.name} shape or type differs")
+        if x.numel() == 0:
+            ok = True
+        elif f.name == "positions":
+            ok = float((x - y).abs().max()) <= 1.01 * step
+        elif f.name == "tri_uv":
+            ok = bool(((x - y).abs() <= 2.0 ** -11
+                       * torch.clamp(x.abs(), min=1.0)).all())
+        elif f.name == "textures":
+            ok = float((x - y).abs().max()) <= 1.0 / 255.0 + 1e-6
+        else:
+            ok = torch.equal(x, y)
+        _check(ok, f"cache: {f.name} differs after the round trip")
+    cfg = r._sdf_cfg_effective or r.config.sdf
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=r.device)
+    gen = torch.Generator(device=r.device)
+    gen.manual_seed(27)
+    uni = torch.rand((1, h * w, 2), generator=gen, device=r.device)
+    kw = dict(height=h, width=w, config=cfg, use_cache=True, uniforms=uni,
+              lod_tau=r.config.lod_tau)
+    fa = frame_mod.render_frame_gi(a, fp, r.cascades, **kw)
+    fb = frame_mod.render_frame_gi(b, fp, r.cascades, **kw)
+    same = float((fa["instance_id"] == fb["instance_id"]).float().mean())
+    _check(same >= 0.995, f"cache: the loaded scene's frame agrees on "
+           f"{same:.4f} of pixels")
+    _check(bool(torch.isfinite(fb["color"]).all()),
+           "cache: the loaded scene's colour is not finite")
+    t0 = time.perf_counter()
+    findings = checks.validate_scene(a)
+    check_ms = 1e3 * (time.perf_counter() - t0)
+    _check(not [x for x in findings if x.severity == "error"],
+           f"validate_scene: {[str(x) for x in findings]}")
+    print(f"scene cache (kitchen_stress(256, tess=4)): {nbytes} bytes, "
+          f"saved in {save_s:.2f} s, loaded into a fresh renderer in "
+          f"{load_s:.2f} s against the stage load's {stage_s:.2f} s (host "
+          f"clock); the scene equal field by field (positions within "
+          f"{step:.2e}); the 1080p GI frame of the loaded scene with the "
+          f"same cascades agrees on {same:.4f} of pixels; validate_scene "
+          f"{[str(x) for x in findings]} in {check_ms:.1f} ms [{card}]")
+    del r3, fa, fb, uni
+
+
+def _app_runtime(card: str, out_dir: str) -> None:
+    """Phase 28: ``python -m vri_tpu_torch.app`` on Cornell 512^2 with
+    ``--sdf tiny``, with ``--cache`` (written, then read without loading
+    the stage) and with ``--trace`` (at the tiny preset, which keeps the
+    trace of the first frame's SDF build small): each exits 0 with its
+    PNG; the trace holds the ``frame0`` span and the names of kernel R's
+    and kernel M's CUDA functions, and ``device_memory_stats()`` reports
+    ``cuda:0``."""
+    import glob
+
+    from vri_tpu_torch import app
+    from vri_tpu_torch import renderer as renderer_mod
+    from vri_tpu_torch.runtime import profiler
+
+    root = os.path.join(out_dir, "app_runtime")
+    cpath = os.path.join(root, "cornell.cache.npz")
+    tdir = os.path.join(root, "trace")
+    os.makedirs(root, exist_ok=True)
+    real_load = renderer_mod.Renderer.load_stage
+    for tag, extra in (("tiny", ["--sdf", "tiny"]),
+                       ("cache_write", ["--cache", cpath]),
+                       ("cache_read", ["--cache", cpath]),
+                       ("trace", ["--sdf", "tiny", "--trace", tdir])):
+        d = os.path.join(root, tag)
+        loads = []
+        renderer_mod.Renderer.load_stage = (
+            lambda self, *a: loads.append(a) or real_load(self, *a))
+        t0 = time.perf_counter()
+        try:
+            rc = app.main(["--builtin", "cornell", "--width", "512",
+                           "--height", "512", "--out", d, *extra])
+        finally:
+            renderer_mod.Renderer.load_stage = real_load
+        pngs = glob.glob(os.path.join(d, "*.png"))
+        _check(rc == 0 and len(pngs) == 1, f"app {tag}: exit {rc}, {pngs}")
+        _check(len(loads) == (0 if tag == "cache_read" else 1),
+               f"app {tag}: {len(loads)} stage loads")
+        if tag == "cache_write":
+            _check(os.path.exists(cpath), "app --cache wrote no file")
+        print(f"app {' '.join(extra)} (Cornell 512x512): exit 0, 1 PNG, "
+              f"{len(loads)} stage loads, {time.perf_counter() - t0:.1f} s "
+              f"(host clock) [{card}]")
+    (trace,) = glob.glob(os.path.join(tdir, "*.json"))
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    tbytes = os.path.getsize(trace)
+    os.remove(trace)
+    os.remove(cpath)
+    kernels = {k: any(k in n for n in names)
+               for k in ("raster_tiles_kernel", "march_rays_kernel")}
+    _check("frame0" in names and all(kernels.values()),
+           f"app --trace: frame0 {'frame0' in names}, kernels {kernels}")
+    mem = profiler.device_memory_stats()
+    _check("cuda:0" in mem, f"device_memory_stats: {mem}")
+    print(f"  app --trace: a {tbytes}-byte Chrome trace holding the frame0 "
+          f"span, raster_tiles_kernel and march_rays_kernel; "
+          f"device_memory_stats {mem} [{card}]")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -1671,6 +2256,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    try:
+        import vri_tpu_torch  # noqa: F401
+    except ImportError as e:
+        # run from a directory without the repository (the script alone)
+        _fail(f"the port's package is not importable beside this script "
+              f"({e}); run it from the repository's root")
     card = _card_line()
     print(f"card: {card}")
 
@@ -1723,16 +2314,7 @@ def main() -> int:
     prep = rasterize.prepare_sorted(
         world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
         height=h, width=w, cull_sign=frame_mod._cull_sign(r.scene))
-    rargs = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
-    rkw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
-    got = rasterize.raster_tiles(*rargs, **rkw)
-    torch.cuda.synchronize()
-    want = rasterize.raster_tiles_reference(*rargs, **rkw)
-    for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
-        _check(torch.equal(g, wv), f"raster_tiles {name} differs from the "
-               "plain version")
-    r_err = max(float((g.float() - wv.float()).abs().max())
-                for g, wv in zip(got, want))
+    rargs, rkw, got, r_err = _hold_raster_tiles(prep, "the frame's lists")
     kernels["raster_tiles"] = dict(
         route="cuda", source="vri_tpu_torch/csrc/raster_tiles.cu",
         replaces="vri_tpu/ops/rasterize.py:1550",
@@ -1761,22 +2343,12 @@ def main() -> int:
     rprep = rasterize.prepare_ranged(
         world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
         height=h, width=w, cull_sign=cull)
-    kargs = (rprep["coef"], rprep["order"], rprep["ranges"], rprep["words"])
-    kkw = dict(n_global=rprep["n_global"], num_tx=rprep["num_tx"])
-    got = rasterize.raster_ranged(*kargs, **kkw, pairs=True)
-    torch.cuda.synchronize()
-    want = rasterize.raster_ranged_reference(*kargs, **kkw, pairs=True)
-    for name, g, wv in zip(("z", "slot", "u", "v", "pairs"), got, want):
-        _check(torch.equal(g, wv), f"raster_ranged {name} differs from the "
-               "plain version")
-    _check(torch.equal(got[4], prep["counts"]),
-           "raster_ranged: the (tile, slot) pairs tested per tile differ "
-           "from the sorted prep's lists")
+    kargs, kkw, got, k_err = _hold_raster_ranged(rprep, prep["counts"],
+                                                 "the frame's chunks")
     kernels["raster_ranged"] = dict(
         route="cuda", source="vri_tpu_torch/csrc/raster_ranged.cu",
         replaces="vri_tpu/ops/rasterize.py:400",
-        max_abs_err=max(float((g.float() - wv.float()).abs().max())
-                        for g, wv in zip(got[:4], want[:4])),
+        max_abs_err=k_err,
         ms=_time_ms(lambda: rasterize.raster_ranged(*kargs, **kkw), 10),
         plain_ms=_time_ms(lambda: rasterize.raster_ranged_reference(
             *kargs, **kkw), 1),
@@ -1797,7 +2369,7 @@ def main() -> int:
           f"{kernels['raster_ranged']['plain_ms']:.1f} ms, bound "
           f"{kernels['raster_ranged']['bound_ms']:.4f} ms by "
           f"{kernels['raster_ranged']['bound_by']} [{card}]")
-    del rprep, kargs, got, want
+    del rprep, kargs, got
 
     # -- 5. the tiers agree on the card; each tier's whole raster time ---------
     small_stage = RenderDelegate(RenderConfig(width=512, height=512),
@@ -1840,15 +2412,8 @@ def main() -> int:
             continue
         # kernel R on the binned tier's lists (K5's walk)
         bprep = rasterize.prepare_binned(*args, **kw)
-        bargs = (bprep["coef"], bprep["lists"], bprep["starts"],
-                 bprep["counts"])
-        bkw = dict(num_tx=bprep["num_tx"], cap=bprep["cap"])
-        got = rasterize.raster_tiles(*bargs, **bkw)
-        torch.cuda.synchronize()
-        want = rasterize.raster_tiles_reference(*bargs, **bkw)
-        for name, g, wv in zip(("z", "slot", "u", "v"), got, want):
-            _check(torch.equal(g, wv), f"raster_tiles on the binned lists: "
-                   f"{name} differs from the plain version")
+        bargs, bkw, got, _ = _hold_raster_tiles(
+            bprep, f"the binned lists, {label}")
         k_ms = _time_ms(lambda: rasterize.raster_tiles(*bargs, **bkw), 20)
         p_ms = _time_ms(lambda: rasterize.raster_tiles_reference(
             *bargs, **bkw), 2)
@@ -1867,7 +2432,7 @@ def main() -> int:
               f"({int(sprep['counts'].sum())} overlapping pairs, "
               f"{k5['ops'] / 1e9:.3f} GFLOP, {k5['bytes'] / 1e6:.1f} MB) "
               f"[{card}]")
-    del small_stage, s_scene, shapes, hits, bprep, sprep, bargs, got, want
+    del small_stage, s_scene, shapes, hits, bprep, sprep, bargs, got
 
     # -- 6. kernel M on the frame's real shadow and GI rays ------------------------
     cas = r.ensure_cascades(eye=cam.eye)
@@ -1927,7 +2492,9 @@ def main() -> int:
 
     # -- 7. main path ------------------------------------------------------------
     r2 = Renderer(RenderConfig(width=w, height=h, sdf=sdf_cfg), device=dev)
+    t0 = time.perf_counter()
     r2.load_stage(scenes.kitchen_stress(num_objects=256, tess=4))
+    stage_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -2040,8 +2607,13 @@ def main() -> int:
     del ranged, plain, uni, bvh_frame
 
     # -- 18. the production frame: the temporal GI frame at gi_scale 2 --------
-    for name, n in _production(r2, h, w, sdf_cfg, card, dev_ms).items():
+    prod_launches, prod_ms = _production(r2, h, w, sdf_cfg, card, dev_ms)
+    for name, n in prod_launches.items():
         kernels[name]["launches_production_frame"] = n
+
+    # -- 25. bands: bench.py's gi_band135_ms frame, the tiers on a band ------
+    for name, n in _bands(r2, h, w, sdf_cfg, card, prod_ms).items():
+        kernels[name]["launches_band_frame"] = n
 
     # -- 20. the SDF debug views on the main path's renderer ------------------
     _sdf_views(r2, card)
@@ -2053,8 +2625,15 @@ def main() -> int:
 
     # -- 24. the clipmap scroll and the app's animated and LOD runs -----------
     _scroll_and_app(r2, h, w, card, out_dir)
+
+    # -- 27. the scene cache and the checks on the main path's stage ----------
+    _cache_and_checks(r2, h, w, card, out_dir, stage_s)
     del r2
     torch.cuda.empty_cache()
+
+    # -- 26. the dense SDF build: the tiny preset at 1080p --------------------
+    for name, n in _dense(dev, card).items():
+        kernels[name]["launches_dense_tiny_frame"] = n
 
     # -- 19. the reference preset's GI frame: Cornell at 1920x1080 ------------
     _reference_preset(dev, h, w, card)
@@ -2090,6 +2669,9 @@ def main() -> int:
           f"{float((app['instance_id'] >= 0).mean()):.4f}; {app_ms:.2f} ms "
           f"without the host copy (CUDA events, mean of 3) [{card}]")
     del ra, app
+
+    # -- 28. the app's --sdf tiny, --cache and --trace --------------------------
+    _app_runtime(card, out_dir)
 
     # -- 10. small-input agreement with the plain versions on the CPU --------------
     small = SDFConfig(num_cascades=2, cascade_resolution=64, brick_size=8,

@@ -417,11 +417,11 @@ def test_direct_frame_shadows_darken(direct_frames):
     assert bool((shadowed < lit - 1e-3).any())
 
 
-@pytest.mark.parametrize("argv", [["--cache", "scene.cache"],
-                                  ["--multichip"]])
+@pytest.mark.parametrize("argv", [["--multichip"]])
 def test_app_refuses_unported_flags(argv):
     """``python -m vri_tpu_torch.app`` exits with 2 on a flag whose path is
-    not ported, before it loads anything."""
+    not ported (the sharded frame, ROADMAP.md item 7(b)), before it loads
+    anything."""
     from vri_tpu_torch import app
 
     assert app.main(argv) == 2
@@ -430,10 +430,14 @@ def test_app_refuses_unported_flags(argv):
 @pytest.mark.parametrize("argv", [["--no-gi"], ["--backend", "bvh"],
                                   ["--no-gi", "--backend", "bvh"],
                                   ["--mode", "sdf_distance"], ["--lod", "2"],
-                                  ["--builtin", "animated"]])
+                                  ["--builtin", "animated"],
+                                  ["--cache", "scene.cache"],
+                                  ["--trace", "trace_dir"],
+                                  ["--sdf", "tiny"]])
 def test_app_takes_ported_flags(argv):
     """The direct-only frame, the BVH backend, the SDF debug views, LOD
-    chains and the animated builtin parse and are ported."""
+    chains, the animated builtin, the scene cache, the profiler trace and
+    the tiny preset's dense SDF build parse and are ported."""
     from vri_tpu_torch import app
 
     args = app.parse_args(argv)

@@ -26,6 +26,10 @@ render_frame_gi_temporal``) and reduced-rate GI (``render_frame_gi`` at
   ``voxel_shade``) and ``gi_history`` within 1e-5 where the ids agree; the
   packed state (indirect, depth, normal, count per GI pixel) within 1e-4
   on the GI pixels whose ids agree.
+* One band frame: rows [16, 48) of the first camera's 64^2 frame at
+  ``gi_scale=2`` (``band=(16, 64)``), against the JAX band frame with its
+  uniforms, held as the whole frame is; ``gi_band_inputs`` with the same
+  ``y0`` / ``proj_height`` gives the band frame's G-buffer.
 * Port-only checks, after ``tests/test_temporal.py``: history survives a
   slow orbit through ``Renderer.render_flythrough(temporal=True)``, and a
   teleport resets far more pixels than a small step.
@@ -212,6 +216,16 @@ def _reference():
             jax.random.fold_in(jax.random.PRNGKey(0), 0), height=RES,
             width=RES, config=cfg, use_cache=True, gi_scale=GS)
         out.update({f"gi2/{k}": np.asarray(v) for k, v in aovs.items()})
+        # the band frame: rows [RES / 4, 3 RES / 4) of the first camera's
+        key = jax.random.fold_in(jax.random.PRNGKey(0), FRAMES)
+        aovs, _ = jframe.render_frame_gi_temporal(
+            jr.scene, jframe.FrameParams.from_camera(cams[0], RES), cas,
+            key, jframe.init_temporal(RES // 2, RES, GS), height=RES // 2,
+            width=RES, config=cfg, use_cache=True, gi_scale=GS,
+            band=(RES // 4, RES))
+        out.update({f"band/{k}": np.asarray(v) for k, v in aovs.items()})
+        out["band/uniforms"] = np.asarray(jax.random.uniform(
+            jax.random.fold_in(key, 0), ((RES // 2 // GS) * (RES // GS), 2)))
     return out
 
 
@@ -261,6 +275,13 @@ def temporal_frames(tmp_path_factory):
         cas, height=RES, width=RES, config=cfg, use_cache=True, gi_scale=GS,
         uniforms=torch.as_tensor(ref["0/uniforms"])[None])
     got.update({f"gi2/{k}": v.numpy() for k, v in aovs.items()})
+    aovs, _ = tframe.render_frame_gi_temporal(
+        tr.scene, tframe.FrameParams.from_camera(cams[0], RES, device="cpu"),
+        cas, tframe.init_temporal(RES // 2, RES, GS, device="cpu"),
+        height=RES // 2, width=RES, config=cfg, use_cache=True, gi_scale=GS,
+        band=(RES // 4, RES),
+        uniforms=torch.as_tensor(ref["band/uniforms"])[None])
+    got.update({f"band/{k}": v.numpy() for k, v in aovs.items()})
     return ref, got, tr
 
 
@@ -312,18 +333,28 @@ def test_gi_scale_2_frame_matches(temporal_frames):
 
 
 def test_gi_band_inputs_refuses_bands(temporal_frames):
-    """The band arguments wait for the raster's band arguments."""
-    _, _, tr = temporal_frames
-    fp = tframe.FrameParams.from_camera(tr.camera, RES, device="cpu")
-    state = tframe.init_temporal(RES, RES, GS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tframe.render_frame_gi_temporal(
-            tr.scene, fp, tr.cascades, state, height=RES // 2, width=RES,
-            config=tr.config.sdf, gi_scale=GS, band=(0, RES))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tframe.gi_band_inputs(tr.scene, fp, tr.cascades, height=RES // 2,
-                              width=RES, config=tr.config.sdf, y0=RES // 2,
-                              proj_height=RES)
+    """The band arguments are ported: the band frame (rows [RES / 4,
+    3 RES / 4) at the first camera, ``gi_scale=2``) matches the JAX band
+    frame with its uniforms, as ``test_gi_scale_2_frame_matches`` holds
+    the whole frame, and ``gi_band_inputs`` with ``y0`` / ``proj_height``
+    gives the same G-buffer.  (The name is kept from when the band
+    arguments raised.)"""
+    ref, got, tr = temporal_frames
+    same = _agreeing(ref, got, "band/")
+    err = np.abs(got["band/color"] - ref["band/color"]).max(-1)[same]
+    print(f"  colour max {err.max():.2e} where they agree")
+    assert got["band/color"].shape == (RES // 2, RES, 3)
+    assert np.isfinite(got["band/color"]).all()
+    np.testing.assert_array_less(err, 2e-3)
+    assert (got["band/gi_history"] == 1.0).all()
+    cam = FreeCamera(**ORBIT).at_time(0.0, 1.0)
+    fp = tframe.FrameParams.from_camera(cam, RES, device="cpu")
+    _, gb, _, _, _, _ = tframe.gi_band_inputs(
+        tr.scene, fp, tr.cascades, height=RES // 2, width=RES,
+        config=tr.config.sdf, gi_scale=GS, y0=RES // 4, proj_height=RES,
+        use_cache=True, uniforms=torch.as_tensor(ref["band/uniforms"])[None])
+    np.testing.assert_array_equal(
+        gb.instance.reshape(RES // 2, RES).numpy(), got["band/instance_id"])
 
 
 # -- port-only checks after tests/test_temporal.py ----------------------------

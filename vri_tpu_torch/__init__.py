@@ -6,8 +6,11 @@ an explicit device: USD stage -> packed scene tensors (``registry``) ->
 visibility through the raster tiers (CUDA kernels ``raster_tiles`` and
 ``raster_ranged``), the LBVH (CUDA kernel ``bvh_traverse``) or the
 brute-force tracer -> G-buffer -> direct light, and for the GI frame
-cell-binned SDF cascades with SDF-shadowed direct light and one GI bounce
-marched through them (CUDA kernel ``march_rays``).  The kernels live in
+SDF cascades (cell-binned, or dense where the cell binning cannot hold
+the configuration) with SDF-shadowed direct light and one GI bounce
+marched through them (CUDA kernel ``march_rays``), on whole frames or on
+bands of rows.  ``runtime`` holds the scene cache, scene validation and
+the profiler.  The kernels live in
 ``csrc/`` and are built with ``nvcc`` at first use; on CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 

@@ -9,9 +9,12 @@ brute``), and the SDF debug views (``--mode sdf_*``), written as PNGs.
 ``--lod N`` packs N decimated levels per mesh and rasterizes each
 instance at the coarsest level within ``--lod-tau`` pixels of error; the
 ``animated`` builtin advances one time code a frame, its moving props
-taking the bounded SDF update.  Flags whose paths are not ported yet
-(``--multichip``, ``--cache``, ``--trace``) exit with an error naming
-them.  It renders on the CUDA card.
+taking the bounded SDF update.  ``--cache PATH`` loads the scene cache
+when the file exists and writes it after the stage loads otherwise;
+``--trace DIR`` records a ``torch.profiler`` trace of the frames.  Every
+tenth frame logs the frame rate and the card's allocated bytes.
+``--multichip`` (ROADMAP.md, "What comes next", item 7(b)) is not ported
+yet and exits with an error naming it.  It renders on the CUDA card.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ import argparse
 import logging
 import os
 import sys
-import time
 
 
 def parse_args(argv=None):
@@ -50,29 +52,28 @@ def parse_args(argv=None):
                    help="orbit the camera over --frames frames")
     p.add_argument("--out", default="frames",
                    help="output directory for PNG frames")
-    p.add_argument("--cache", help="scene cache path (not ported)")
+    p.add_argument("--cache", help="scene cache path: loads it when present, "
+                                   "writes it after the stage loads "
+                                   "otherwise")
     p.add_argument("--progressive", action="store_true",
                    help="accumulate frames instead of re-rendering")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the framebuffer (not ported)")
+                   help="shard the framebuffer over several devices (not "
+                        "ported: ROADMAP.md item 7(b))")
     p.add_argument("--lod", type=int, default=0, metavar="LEVELS",
                    help="pack N decimated LOD levels per mesh; each "
                         "instance renders the coarsest level within "
                         "--lod-tau pixels of geometric error (0 = off)")
     p.add_argument("--lod-tau", type=float, default=0.75,
                    help="LOD screen-space error budget in pixels")
-    p.add_argument("--trace", help="profiler trace directory (not ported)")
+    p.add_argument("--trace", help="write a torch.profiler trace of the "
+                                   "frames (Chrome JSON) into this directory")
     p.add_argument("-v", "--verbose", action="store_true")
     return p.parse_args(argv)
 
 
 def _unported(args) -> list:
-    bad = []
-    for flag, on in (("--multichip", args.multichip),
-                     ("--cache", args.cache), ("--trace", args.trace)):
-        if on:
-            bad.append(flag)
-    return bad
+    return ["--multichip"] if args.multichip else []
 
 
 def main(argv=None) -> int:
@@ -88,6 +89,7 @@ def main(argv=None) -> int:
 
     from vri_tpu_torch.config import DebugMode, RenderConfig, SDFConfig
     from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.runtime import profiler
     from vri_tpu_torch.usd import scenes
     from vri_tpu_torch.utils.image import write_png
     from vri_tpu_torch.renderer import Renderer
@@ -97,42 +99,57 @@ def main(argv=None) -> int:
                        sdf=SDFConfig.preset(args.sdf),
                        lod_levels=args.lod, lod_tau=args.lod_tau)
     renderer = Renderer(cfg, device="cuda")
-    t0 = time.perf_counter()
-    if args.stage:
-        renderer.load_stage(args.stage)
+    if args.cache and os.path.exists(args.cache):
+        with profiler.span("load_cache", log_ms=True):
+            renderer.load_cache(args.cache)
+        # a cache holds no camera: the orbit camera below stands in
+    elif args.stage:
+        with profiler.span("load_stage", log_ms=True):
+            renderer.load_stage(args.stage)
     else:
         builder = {"cornell": scenes.cornell_box,
                    "kitchen": scenes.kitchen_stress,
                    "animated": scenes.animated_stage,
                    "city": scenes.city_stress}[args.builtin]
-        renderer.load_stage(builder())
-    log.info("stage loaded in %.1f ms", 1e3 * (time.perf_counter() - t0))
+        with profiler.span("build_stage", log_ms=True):
+            renderer.load_stage(builder())
+    if args.cache and not os.path.exists(args.cache):
+        renderer.save_cache(args.cache)
 
     os.makedirs(args.out, exist_ok=True)
+    stats = profiler.FrameStats()
     free_cam = FreeCamera() if (args.orbit or renderer.camera is None) \
         else None
     aspect = args.width / args.height
+    if args.trace:
+        profiler.start_trace(args.trace)
     if args.progressive:
         img = renderer.render_progressive(args.frames, samples=args.samples,
                                           backend=args.backend)
         path = os.path.join(args.out, "progressive.png")
         write_png(path, img)
         log.info("wrote %s", path)
-        return 0
-    for i in range(args.frames):
-        cam = (free_cam.at_time(i / 30.0, aspect)
-               if free_cam is not None else None)
-        # authored timeSamples (the "animated" builtin) advance one time
-        # code a frame
-        tc = float(i) if args.builtin == "animated" else None
-        t0 = time.perf_counter()
-        aovs = renderer.render(camera=cam, mode=mode, gi=not args.no_gi,
-                               samples=args.samples, backend=args.backend,
-                               time_code=tc)
-        path = os.path.join(args.out, f"frame_{i:04d}.png")
-        write_png(path, aovs["color"], tonemapped=mode != DebugMode.NONE)
-        log.info("frame %d -> %s in %.1f ms (host clock)", i, path,
-                 1e3 * (time.perf_counter() - t0))
+    else:
+        for i in range(args.frames):
+            cam = (free_cam.at_time(i / 30.0, aspect)
+                   if free_cam is not None else None)
+            stats.tick()
+            # authored timeSamples (the "animated" builtin) advance one
+            # time code a frame
+            tc = float(i) if args.builtin == "animated" else None
+            with profiler.span(f"frame{i}"):
+                aovs = renderer.render(camera=cam, mode=mode,
+                                       gi=not args.no_gi,
+                                       samples=args.samples,
+                                       backend=args.backend, time_code=tc)
+            path = os.path.join(args.out, f"frame_{i:04d}.png")
+            write_png(path, aovs["color"], tonemapped=mode != DebugMode.NONE)
+            if i % 10 == 0 or i == args.frames - 1:
+                log.info("frame %d -> %s | %s | device memory %s", i, path,
+                         stats.summary(),
+                         profiler.device_memory_stats() or "n/a")
+    if args.trace:
+        profiler.stop_trace()
     log.info("scene device bytes: %d",
              renderer.delegate.registry.device_bytes())
     return 0

@@ -20,7 +20,14 @@ def norm3(u):
 
 
 def cross(u, v):
-    return torch.linalg.cross(*torch.broadcast_tensors(u, v), dim=-1)
+    """Cross product over the last axis, each component one rounded
+    product minus another, for the SDF builders' parity with the JAX
+    build (``torch.linalg.cross`` may fuse them into a multiply-add,
+    which leaves a rounding residue where they cancel)."""
+    u0, u1, u2 = u[..., 0], u[..., 1], u[..., 2]
+    v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([u1 * v2 - u2 * v1, u2 * v0 - u0 * v2,
+                        u0 * v1 - u1 * v0], dim=-1)
 
 
 def closest_point_on_triangle(p, a, b, c):

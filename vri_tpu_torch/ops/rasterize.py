@@ -68,14 +68,17 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
                            w_eps: float = 1e-4, extra_cap: int | None = None,
                            cull_sign: torch.Tensor | None = None,
                            src_map: torch.Tensor | None = None,
-                           face_mask: torch.Tensor | None = None):
+                           face_mask: torch.Tensor | None = None,
+                           y_offset=None):
     """Near-plane-clipped triangle setup (vectorized Sutherland-Hodgman
     against w = eps).  Each output corner carries its source-triangle
     barycentrics so hits map back to the authored triangle.  ``src_map``
     (frustum-compacted rasterization) gives each of the F faces here its
     face id in the scene's pool.  ``face_mask`` (F,) bool keeps only the
     faces it marks (the LOD selection, ``ops/lod.py``): a masked face is
-    not live.
+    not live.  ``y_offset`` (band rendering) is subtracted from the
+    pixel-space y after the projection with the whole frame's ``height``,
+    so the slots come out in the band's own rows.
 
     Returns (tx, ty, tz, inv_w, bary1, bary2, src_id, valid,
     clip_overflow); the per-corner arrays are (S, 3) with S = F + E slots
@@ -175,6 +178,8 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
     ndc = cpos[..., :3] * inv_w[..., None]
     tx = (ndc[..., 0] * 0.5 + 0.5) * width
     ty = (0.5 - ndc[..., 1] * 0.5) * height
+    if y_offset is not None:
+        ty = ty - y_offset
     tz = ndc[..., 2]
     area = ((tx[:, 1] - tx[:, 0]) * (ty[:, 2] - ty[:, 0])
             - (ty[:, 1] - ty[:, 0]) * (tx[:, 2] - tx[:, 0]))
@@ -185,14 +190,15 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
 
 def _padded_setup(world_verts, tri_vertices, num_faces, view_proj, *,
                   height: int, width: int, extra_cap, cull_sign, src_map=None,
-                  face_mask=None):
+                  face_mask=None, y_offset=None):
     """Triangle setup padded to a multiple of 128 slots with at least one
     dead pad slot; dead slots carry z = 10 (culled by the depth test).
+    ``height`` is the projection's (the whole frame's on a band).
     Returns (tx, ty, tz, tw, b1, b2, src, valid, clip_overflow)."""
     tx, ty, tz, tw, b1, b2, src, valid, clip_over = triangle_setup_clipped(
         world_verts, tri_vertices, num_faces, view_proj, height, width,
         extra_cap=extra_cap, cull_sign=cull_sign, src_map=src_map,
-        face_mask=face_mask)
+        face_mask=face_mask, y_offset=y_offset)
     f2 = tx.shape[0]
     pad = _round_up(f2 + 1, _TC) - f2
 
@@ -673,11 +679,15 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap: int = 2048,
                    pairs_cap: int | None = None, caps_scale: int = 1,
-                   cull_sign=None, src_map=None, face_mask=None):
+                   cull_sign=None, src_map=None, face_mask=None,
+                   proj_height: int | None = None, y_offset=None):
     """Everything before the sorted tier's walk: setup, exact emission and
-    the per-tile lists.  Returns a dict with the kernel's inputs (coef,
-    lists, starts, counts, cap, num_tx), the slot-to-triangle map ``src``
-    and the ``overflow`` flag (0-d int32)."""
+    the per-tile lists.  On a band (rows [y_offset, y_offset + height) of
+    a ``proj_height``-row frame) the setup projects with ``proj_height``
+    and the tiles, lists and outputs cover the band.  Returns a dict with
+    the kernel's inputs (coef, lists, starts, counts, cap, num_tx), the
+    slot-to-triangle map ``src`` and the ``overflow`` flag (0-d
+    int32)."""
     cap = _round_up(cap * caps_scale, _TC)
     if pairs_cap is not None:
         pairs_cap = pairs_cap * caps_scale
@@ -689,9 +699,10 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
 
     extra = max(tri_vertices.shape[0] // 16, 256) * caps_scale
     tx, ty, tz, tw, b1, b2, src, valid, clip_over = _padded_setup(
-        world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=extra, cull_sign=cull_sign, src_map=src_map,
-        face_mask=face_mask)
+        world_verts, tri_vertices, num_faces, view_proj,
+        height=proj_height or height, width=width, extra_cap=extra,
+        cull_sign=cull_sign, src_map=src_map, face_mask=face_mask,
+        y_offset=y_offset)
     fp = tx.shape[0]
 
     # per-slot inclusive tile span from the screen bbox
@@ -749,7 +760,8 @@ def _bin_groups(box, grid, tile_h: int, tile_w: int, cap_groups: int):
 def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap_groups: int = 64,
-                   caps_scale: int = 1, cull_sign=None, face_mask=None):
+                   caps_scale: int = 1, cull_sign=None, face_mask=None,
+                   proj_height: int | None = None, y_offset=None):
     """Everything before the binned tier's walk: setup with one second
     slot per face, the Morton order, 8-slot groups and per-tile group
     lists.  Each tile's list holds the slot ids of its groups sorted to
@@ -757,16 +769,17 @@ def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
     setup-order rule.  Returns the dict of :func:`prepare_sorted`; its
     ``overflow`` counts the tiles with more than ``cap_groups *
     caps_scale`` overlapping groups (0-d int32), as ``vri_tpu``'s binned
-    tier does."""
+    tier does.  ``proj_height`` and ``y_offset`` as in
+    :func:`prepare_sorted`."""
     group = 8
     cap_groups = cap_groups * caps_scale
     hp = _round_up(height, tile_h)
     wp = _round_up(width, tile_w)
     gy, gx = hp // tile_h, wp // tile_w
     tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
-        world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=None, cull_sign=cull_sign,
-        face_mask=face_mask)
+        world_verts, tri_vertices, num_faces, view_proj,
+        height=proj_height or height, width=width, extra_cap=None,
+        cull_sign=cull_sign, face_mask=face_mask, y_offset=y_offset)
     order, _ = _screen_morton_order(tx, ty, valid, height, width,
                                     partition_large=False)
     groups, in_list, overflowed = _bin_groups(
@@ -791,22 +804,24 @@ def prepare_binned(world_verts, tri_vertices, num_faces, view_proj, *,
 
 def prepare_ranged(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
-                   tile_w: int = 128, cull_sign=None, face_mask=None):
+                   tile_w: int = 128, cull_sign=None, face_mask=None,
+                   proj_height: int | None = None, y_offset=None):
     """Everything before the ranged walk: setup with one second slot per
     face (S = 2F, no clip overflow), the Morton order with screen-spanning
     slots in front, and the per-tile metadata of ``vri_tpu``'s ranged
     tier: ``n_global`` front chunks every tile walks, each tile's local
     chunk range [lo, hi) and its chunk overlap bits packed in 32-bit
     words.  Returns a dict with the kernel's inputs (coef, order, ranges,
-    words, n_global, num_tx), ``grid`` and ``src``."""
+    words, n_global, num_tx), ``grid`` and ``src``; ``proj_height`` and
+    ``y_offset`` as in :func:`prepare_sorted`."""
     hp = _round_up(height, tile_h)
     wp = _round_up(width, tile_w)
     gy, gx = hp // tile_h, wp // tile_w
     dev = world_verts.device
     tx, ty, tz, tw, b1, b2, src, valid, _ = _padded_setup(
-        world_verts, tri_vertices, num_faces, view_proj, height=height,
-        width=width, extra_cap=None, cull_sign=cull_sign,
-        face_mask=face_mask)
+        world_verts, tri_vertices, num_faces, view_proj,
+        height=proj_height or height, width=width, extra_cap=None,
+        cull_sign=cull_sign, face_mask=face_mask, y_offset=y_offset)
     order, n_large = _screen_morton_order(tx, ty, valid, height, width)
     box = _bboxes(tx, ty, valid, order, _TC)
     num_chunks = box.shape[0]
@@ -870,7 +885,8 @@ def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
                      width: int, tile_h: int = 8, tile_w: int = 128,
                      cap: int = 2048, pairs_cap: int | None = None,
                      caps_scale: int = 1, cull_sign=None,
-                     walker: str = "steps", src_map=None, face_mask=None
+                     walker: str = "steps", src_map=None, face_mask=None,
+                     proj_height: int | None = None, y_offset=None
                      ) -> Tuple[HitRecord, torch.Tensor]:
     """Visibility raster with sort-built exact per-tile lists.  ``cap``
     bounds one tile's list, ``pairs_cap`` the emitted pair stream (default
@@ -880,15 +896,17 @@ def rasterize_sorted(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
     the scene's face ids; ``face_mask`` (F,) keeps only the faces it marks
     (the LOD selection).  ``walker`` names the JAX package's two list
     walkers, K1 ("steps") and K7 ("tileloop", one grid step per tile);
-    both run kernel R, whose schedule is K7's.  Returns (HitRecord, depth
-    image)."""
+    both run kernel R, whose schedule is K7's.  A band renders rows
+    [y_offset, y_offset + height) of a ``proj_height``-row frame.  Returns
+    (HitRecord, depth image)."""
     if walker not in ("steps", "tileloop"):
         raise ValueError(f"unknown walker {walker!r}")
     prep = prepare_sorted(world_verts, tri_vertices, num_faces, view_proj,
                           height=height, width=width, tile_h=tile_h,
                           tile_w=tile_w, cap=cap, pairs_cap=pairs_cap,
                           caps_scale=caps_scale, cull_sign=cull_sign,
-                          src_map=src_map, face_mask=face_mask)
+                          src_map=src_map, face_mask=face_mask,
+                          proj_height=proj_height, y_offset=y_offset)
     return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
                        tile_w=tile_w)
 
@@ -897,19 +915,21 @@ def rasterize_binned(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
                      num_faces, view_proj: torch.Tensor, *, height: int,
                      width: int, tile_h: int = 8, tile_w: int = 128,
                      cap_groups: int = 64, caps_scale: int = 1,
-                     cull_sign=None, face_mask=None
+                     cull_sign=None, face_mask=None,
+                     proj_height: int | None = None, y_offset=None
                      ) -> Tuple[HitRecord, torch.Tensor]:
     """Visibility raster with per-tile lists of 8-slot Morton groups
     (``vri_tpu``'s ``rasterize_binned``), walked by kernel R.  A tile
     holding more than ``cap_groups * caps_scale`` groups walks only the
     first and is counted in ``HitRecord.overflow``; ``face_mask`` as in
-    :func:`rasterize_sorted`.  Returns (HitRecord,
-    depth image)."""
+    :func:`rasterize_sorted`, and so are the band arguments.  Returns
+    (HitRecord, depth image)."""
     prep = prepare_binned(world_verts, tri_vertices, num_faces, view_proj,
                           height=height, width=width, tile_h=tile_h,
                           tile_w=tile_w, cap_groups=cap_groups,
                           caps_scale=caps_scale, cull_sign=cull_sign,
-                          face_mask=face_mask)
+                          face_mask=face_mask, proj_height=proj_height,
+                          y_offset=y_offset)
     return _walk_lists(prep, height=height, width=width, tile_h=tile_h,
                        tile_w=tile_w)
 
@@ -917,17 +937,19 @@ def rasterize_binned(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
 def rasterize(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
               num_faces, view_proj: torch.Tensor, *, height: int,
               width: int, tile_h: int = 8, tile_w: int = 128,
-              cull_sign=None, face_mask=None
+              cull_sign=None, face_mask=None,
+              proj_height: int | None = None, y_offset=None
               ) -> Tuple[HitRecord, torch.Tensor]:
     """The capacity-free ranged raster (``vri_tpu``'s ``rasterize``,
     kernel K6), walked by ``raster_ranged``.  It reports no overflow
-    (``HitRecord.overflow`` is None); ``face_mask`` as in
-    :func:`rasterize_sorted`.  Returns (HitRecord, depth
+    (``HitRecord.overflow`` is None); ``face_mask`` and the band
+    arguments as in :func:`rasterize_sorted`.  Returns (HitRecord, depth
     image)."""
     prep = prepare_ranged(world_verts, tri_vertices, num_faces, view_proj,
                           height=height, width=width, tile_h=tile_h,
                           tile_w=tile_w, cull_sign=cull_sign,
-                          face_mask=face_mask)
+                          face_mask=face_mask, proj_height=proj_height,
+                          y_offset=y_offset)
     out = raster_ranged(prep["coef"], prep["order"], prep["ranges"],
                         prep["words"], n_global=prep["n_global"],
                         num_tx=prep["num_tx"], tile_h=tile_h, tile_w=tile_w)

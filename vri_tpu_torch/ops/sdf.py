@@ -1,11 +1,15 @@
 """Sparse-brick SDF cascades (counterpart of ``vri_tpu/ops/sdf.py``):
-the cascade data model, the march-kernel tables and the radiance bake.
+the cascade data model, the dense builder, the march-kernel tables and
+the radiance bake.
 
-The cell-binned builder that fills these tensors, and updates them, is
+The dense builder (:func:`build_cascades`) serves the configurations the
+cell-binned builder cannot (``sdf_build.supports``: truncation past one
+16^3 cell, as the "tiny" preset's): a dense occupancy test of every voxel
+against every triangle, a cumulative-sum allocation, and an emit of each
+live brick from its K nearest triangles over the whole pool.  The
+cell-binned builder that fills the same tensors, and updates them, is
 ``ops/sdf_build.py``; ``bake_brick_lighting_partial`` re-bakes the
-bricks an update touched.  The dense builder of the JAX package
-(``sdf.build_cascades``) is not ported yet (ROADMAP.md, "What comes
-next", item 3).
+bricks an update touched.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from vri_tpu_torch.config import SDFConfig
+from vri_tpu_torch.ops import geometry
+from vri_tpu_torch.ops.geometry import cross, dot3, norm3
 
 BIG = 3.0e38
 
@@ -78,6 +84,171 @@ def _min_pool_iter(d: torch.Tensor, iters: int) -> torch.Tensor:
         pooled = -F.max_pool3d(-d, kernel_size=3, stride=1, padding=1)
         d = torch.minimum(d, pooled + 1.0)
     return d
+
+
+def _occupancy_one_cascade(a, b, c, valid, origin, vs,
+                           config: SDFConfig) -> torch.Tensor:
+    """(R, R, R) bool occupancy (z, y, x) of one cascade: a voxel is
+    occupied when its center lies in a triangle's AABB grown by one voxel
+    and within one voxel plus the half diagonal of the triangle's plane.
+    The plane distance is ((dz + dy) + dx) - n.a at the voxel centers, the
+    JAX package's order.  The test is an OR over triangle chunks of at
+    most ``_WORK_ELEMS`` (voxel, triangle) pairs."""
+    from vri_tpu_torch.ops.sdf_build import _WORK_ELEMS
+
+    r = config.cascade_resolution
+    expand = vs
+    lo, hi = geometry.tri_aabb(a, b, c)
+    lo = (lo - expand - origin) / vs           # voxel coordinates
+    hi = (hi + expand - origin) / vs
+    n = cross(b - a, c - a)
+    n = n / torch.clamp(norm3(n), min=1e-20)[:, None]
+    n_dot_a = dot3(n, a)
+    ax_ids = torch.arange(r, dtype=torch.float32, device=a.device) + 0.5
+    # voxel centers per axis: separate product and sum, as XLA without FMA
+    vxyz = [origin[k] + ax_ids * vs for k in range(3)]
+    half_diag = 0.8660254 * vs
+    reach = expand + half_diag
+    chunk = max(1, _WORK_ELEMS // (r ** 3))
+    occ = torch.zeros((r, r, r), dtype=torch.bool, device=a.device)
+    for s in range(0, a.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        m = [(ax_ids[:, None] >= lo[None, sl, k])
+             & (ax_ids[:, None] <= hi[None, sl, k]) for k in range(3)]
+        dx, dy, dz = (vxyz[k][:, None] * n[None, sl, k] for k in range(3))
+        d = ((dz[:, None, None, :] + dy[None, :, None, :])
+             + dx[None, None, :, :]) - n_dot_a[None, None, None, sl]
+        box = (m[2][:, None, None, :] & m[1][None, :, None, :]
+               & m[0][None, None, :, :])
+        occ |= (box & (torch.abs(d) <= reach)
+                & valid[None, None, None, sl]).any(-1)
+    return occ
+
+
+def _emit_dense(bids, brick_voxel, origins, vs, tris, config: SDFConfig):
+    """Atlas rows and nearest-surface albedo, emissive and normal of the
+    live bricks ``bids`` (1-D): the K nearest triangles of the whole pool
+    by distance from the brick center to their AABBs (ties to the lower
+    triangle index, ``lax.top_k``'s rule), then the texel emit of the
+    cell-binned build on those K.  Blocks of bricks hold at most a
+    quarter of ``_WORK_ELEMS`` (brick, triangle) distances."""
+    from vri_tpu_torch.ops.sdf_build import (_WORK_ELEMS, _brick_frame,
+                                             _emit_texels)
+
+    a, b, c, valid, tri_lo, tri_hi, tri_albedo, tri_emissive, tri_n = tris
+    k_tris = min(config.max_triangles_per_brick, a.shape[0])
+    f = a.shape[0]
+    idx = torch.arange(f, dtype=torch.int64, device=a.device)
+    block = max(1, min(1024, _WORK_ELEMS // (4 * f)))
+    outs = []
+    for b0 in range(0, bids.shape[0], block):
+        blk = bids[b0:b0 + block]
+        _, _, vsz, _, vmin, bc, trunc_w = _brick_frame(
+            blk, brick_voxel, origins, vs, config)
+        dlo = torch.clamp(tri_lo[None, :, :] - bc[:, None, :], min=0.0)
+        dhi = torch.clamp(bc[:, None, :] - tri_hi[None, :, :], min=0.0)
+        dm = torch.maximum(dlo, dhi)
+        d2 = torch.where(valid[None, :], dot3(dm, dm), BIG)
+        # d2 >= 0 orders like its bit pattern; the index in the low 24
+        # bits makes every key unique and breaks ties to the lower index
+        keys = (d2.view(torch.int32).to(torch.int64) << 24) | idx[None, :]
+        knn = torch.topk(keys, k_tris, dim=1, largest=False,
+                         sorted=True).indices                  # (block, K)
+        live = torch.ones_like(blk, dtype=torch.bool)
+        outs.append(_emit_texels(
+            vmin, vsz, trunc_w, knn, torch.ones_like(knn, dtype=torch.bool),
+            live, a, b, c, valid, tri_albedo, tri_emissive, tri_n, config))
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(4))
+
+
+def build_cascades(world_verts: torch.Tensor, tri_vertices: torch.Tensor,
+                   num_faces, centers: torch.Tensor, *,
+                   tri_albedo: torch.Tensor | None = None,
+                   tri_emissive: torch.Tensor | None = None,
+                   config: SDFConfig) -> SDFCascades:
+    """Dense cascade build from the world-space triangle soup (``vri_tpu``'s
+    ``sdf.build_cascades``): occupancy, allocation by a cumulative sum in
+    (cascade, z, y, x) order with the voxels past ``max_bricks`` counted
+    in ``overflow``, the Chebyshev empty-space distance of every empty
+    voxel, and the emit of the live bricks.  Dead atlas rows hold distance
+    1 and zero shading, as the JAX build leaves them."""
+    from vri_tpu_torch.ops.sdf_build import (_cascade_geometry, _prep_tris,
+                                             esd_map)
+
+    n_cas = config.num_cascades
+    r = config.cascade_resolution
+    bsz = config.brick_size
+    max_bricks = config.max_bricks
+    f = tri_vertices.shape[0]
+    dev = world_verts.device
+    if f >= (1 << 24):
+        raise ValueError(f"face pool {f} exceeds the 24-bit index of the "
+                         "dense emit's top-k keys")
+    a, b, c, valid, tri_n, tri_albedo, tri_emissive = _prep_tris(
+        world_verts, tri_vertices, num_faces, tri_albedo, tri_emissive)
+    vs, origins = _cascade_geometry(config, centers)
+
+    # -- 1. occupancy ------------------------------------------------------
+    occ = torch.stack([
+        _occupancy_one_cascade(a, b, c, valid, origins[i], vs[i], config)
+        for i in range(n_cas)])                        # (N, R, R, R)
+
+    # -- 2. allocation (cumsum compaction) ------------------------------------
+    occ_flat = occ.reshape(-1)
+    ids = torch.cumsum(occ_flat.to(torch.int64), 0) - 1
+    total_occ = occ_flat.sum()
+    alloc = occ_flat & (ids < max_bricks)
+    num_bricks = torch.clamp(total_occ, max=max_bricks).to(torch.int32)
+    overflow = (total_occ - num_bricks).to(torch.int32)
+    brick_voxel = torch.zeros((max_bricks,), dtype=torch.int32, device=dev)
+    vox_ids = torch.nonzero(alloc).reshape(-1)
+    brick_voxel[ids[vox_ids]] = vox_ids.to(torch.int32)
+    brick_map = torch.where(alloc, ids.to(torch.int32),
+                            -esd_map(occ)).reshape(n_cas, r, r, r)
+
+    # -- 3. emit (live bricks only: a dead brick's rows are constant) -------
+    n_live = int(num_bricks)
+    atlas = torch.full((max_bricks, bsz, bsz, bsz),
+                       255 if config.atlas_u8 else 1.0,
+                       dtype=torch.uint8 if config.atlas_u8
+                       else torch.float32, device=dev)
+    albs = torch.zeros((max_bricks, 3), dtype=torch.float32, device=dev)
+    emis = torch.zeros_like(albs)
+    nrms = torch.zeros_like(albs)
+    if n_live:
+        tri_lo, tri_hi = geometry.tri_aabb(a, b, c)
+        tri_lo = torch.where(valid[:, None], tri_lo, BIG)
+        tri_hi = torch.where(valid[:, None], tri_hi, -BIG)
+        (atlas[:n_live], albs[:n_live], emis[:n_live],
+         nrms[:n_live]) = _emit_dense(
+            torch.arange(n_live, device=dev), brick_voxel, origins, vs,
+            (a, b, c, valid, tri_lo, tri_hi, tri_albedo, tri_emissive,
+             tri_n), config)
+
+    mc, mf0, mf1 = build_march_tables(brick_map, atlas, config=config)
+    return SDFCascades(
+        center=centers, voxel_size=vs, brick_map=brick_map, atlas=atlas,
+        brick_voxel=brick_voxel, brick_albedo=albs, brick_emissive=emis,
+        brick_normal=nrms,
+        brick_irradiance=torch.zeros((max_bricks, 3), dtype=torch.float32,
+                                     device=dev),
+        brick_light_vis=torch.ones((max_bricks, 1), dtype=torch.float32,
+                                   device=dev),
+        num_bricks=num_bricks, overflow=overflow,
+        march_coarse=mc, march_fine0=mf0, march_fine1=mf1,
+        near_drop=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def build_for_scene(scene, world_verts, focus, config: SDFConfig
+                    ) -> SDFCascades:
+    """Dense build of ``scene``'s cascades centered on ``focus``, with each
+    triangle's material albedo and emission."""
+    centers = default_centers(config, focus, device=world_verts.device)
+    mat = scene.instance_material[scene.tri_instance.long()].long()
+    return build_cascades(world_verts, scene.tri_vertices, scene.num_faces,
+                          centers, tri_albedo=scene.mat_base_color[mat],
+                          tri_emissive=scene.mat_emissive[mat],
+                          config=config)
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:

@@ -284,33 +284,69 @@ def _texel_unit(bsz, device):
     return torch.stack([txx, ty, tz], dim=-1).reshape(-1, 3)
 
 
+def _brick_frame(bids, brick_voxel, origins, vs, config: SDFConfig):
+    """Placement of the bricks ``bids``: cascade, voxel (x, y, z), voxel
+    size, cascade origin, min corner, center and truncation width."""
+    r = config.cascade_resolution
+    r3 = r ** 3
+    bv = brick_voxel[bids]
+    n_idx = bv // r3
+    rem = bv % r3
+    vxyz = torch.stack([rem % r, (rem // r) % r, rem // (r * r)], -1)
+    vsz = vs[n_idx.long()]
+    org = origins[n_idx.long()]
+    vmin = org + vxyz.float() * vsz[:, None]
+    bc = vmin + 0.5 * vsz[:, None]
+    return n_idx, vxyz, vsz, org, vmin, bc, config.truncation_voxels * vsz
+
+
+def _emit_texels(vmin, vsz, trunc_w, knn, knn_ok, blive, a, b, c, valid,
+                 tri_albedo, tri_emissive, tri_n, config: SDFConfig):
+    """Atlas rows of the bricks with min corners ``vmin`` from the exact
+    distance of every texel to their candidate triangles ``knn`` (block,
+    K), nearest first, those with ``knn_ok`` false ignored; and the
+    nearest candidate's albedo, emissive and normal.  Bricks not
+    ``blive`` hold distance 1 and zero shading."""
+    bsz = config.brick_size
+    dev = vmin.device
+    texels = vmin[:, None, :] + _texel_unit(bsz, dev)[None] * vsz[:, None, None]
+    dmin = torch.full((vmin.shape[0], bsz ** 3), BIG, dtype=torch.float32,
+                      device=dev)
+    for kk in range(knn.shape[1]):
+        tri = torch.clamp(knn[:, kk], min=0).long()
+        ta, tb, tc = a[tri], b[tri], c[tri]
+        dk = geometry.point_triangle_distance(
+            texels, ta[:, None, :], tb[:, None, :], tc[:, None, :])
+        ok = knn_ok[:, kk] & valid[tri]
+        dmin = torch.minimum(dmin, torch.where(ok[:, None], dk, BIG))
+    d01 = torch.clamp(dmin / trunc_w[:, None], 0.0, 1.0)
+    d01 = torch.where(blive[:, None], d01, 1.0)
+    if config.atlas_u8:
+        d01 = torch.round(d01 * 255.0).to(torch.uint8)
+    nearest = torch.clamp(knn[:, 0], min=0).long()
+    ok0 = (blive & knn_ok[:, 0])[:, None]
+    alb = torch.where(ok0, tri_albedo[nearest], 0.0)
+    emi = torch.where(ok0, tri_emissive[nearest], 0.0)
+    nrm = torch.where(ok0, tri_n[nearest], 0.0)
+    return d01.reshape(-1, bsz, bsz, bsz), alb, emi, nrm
+
+
 def _emit_block(bids, blive, brick_voxel, state: BuildState, origins, vs,
                 a, b, c, valid, tri_albedo, tri_emissive, tri_n,
                 config: SDFConfig):
     """Emit atlas bricks + shading cache for the brick ids ``bids``."""
-    r = config.cascade_resolution
-    s = r // 16
-    bsz = config.brick_size
+    s = config.cascade_resolution // 16
     k_tris = config.max_triangles_per_brick
     K = state.cell_tris.shape[-1]
     Kg = state.glob_tris.shape[-1]
-    r3 = r ** 3
     block = bids.shape[0]
     dev = bids.device
     nb_off = _nb_offsets(dev)
-
-    bv = brick_voxel[bids]
-    n_idx = bv // r3
-    rem = bv % r3
-    vx, vy, vz = rem % r, (rem // r) % r, rem // (r * r)
-    vsz = vs[n_idx.long()]
-    org = origins[n_idx.long()]
-    vmin = org + torch.stack([vx, vy, vz], -1).float() * vsz[:, None]
-    bc = vmin + 0.5 * vsz[:, None]
-    trunc_w = config.truncation_voxels * vsz
+    n_idx, vxyz, vsz, org, vmin, bc, trunc_w = _brick_frame(
+        bids, brick_voxel, origins, vs, config)
 
     # candidate rows: 27-neighbourhood cell lists + the global list
-    cxyz = torch.stack([vx // s, vy // s, vz // s], -1)        # (block, 3)
+    cxyz = vxyz // s                                           # (block, 3)
     nb_raw = cxyz[:, None, :] + nb_off[None, :, :]             # (block, 27, 3)
     nb = torch.clamp(nb_raw, 0, 15)
     ncell = (n_idx[:, None] * 4096
@@ -355,27 +391,8 @@ def _emit_block(bids, blive, brick_voxel, state: BuildState, origins, vs,
     n_near = (d2 <= (trunc_w * trunc_w)[:, None]).sum(1)
     near_drop = torch.where(blive, torch.clamp(n_near - k_tris, min=0),
                             torch.zeros_like(n_near))
-
-    texels = vmin[:, None, :] + _texel_unit(bsz, dev)[None] * vsz[:, None, None]
-    dmin = torch.full((block, bsz ** 3), BIG, dtype=torch.float32,
-                      device=dev)
-    for kk in range(k_tris):
-        tri = torch.clamp(knn[:, kk], min=0).long()
-        ta, tb, tc = a[tri], b[tri], c[tri]
-        dk = geometry.point_triangle_distance(
-            texels, ta[:, None, :], tb[:, None, :], tc[:, None, :])
-        ok = knn_ok[:, kk] & valid[tri]
-        dmin = torch.minimum(dmin, torch.where(ok[:, None], dk, BIG))
-    d01 = torch.clamp(dmin / trunc_w[:, None], 0.0, 1.0)
-    d01 = torch.where(blive[:, None], d01, 1.0)
-    if config.atlas_u8:
-        d01 = torch.round(d01 * 255.0).to(torch.uint8)
-    nearest = torch.clamp(knn[:, 0], min=0).long()
-    ok0 = (blive & knn_ok[:, 0])[:, None]
-    alb = torch.where(ok0, tri_albedo[nearest], 0.0)
-    emi = torch.where(ok0, tri_emissive[nearest], 0.0)
-    nrm = torch.where(ok0, tri_n[nearest], 0.0)
-    return (d01.reshape(block, bsz, bsz, bsz), alb, emi, nrm,
+    return (*_emit_texels(vmin, vsz, trunc_w, knn, knn_ok, blive, a, b, c,
+                          valid, tri_albedo, tri_emissive, tri_n, config),
             near_drop.sum())
 
 

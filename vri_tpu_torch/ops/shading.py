@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from vri_tpu_torch.config import DebugMode
-from vri_tpu_torch.ops.geometry import cross, dot3, norm3
+from vri_tpu_torch.ops.geometry import dot3, norm3
 from vri_tpu_torch.ops.intersect import HitRecord
 
 
@@ -68,7 +68,7 @@ def resolve_gbuffer(scene, world_verts: torch.Tensor, hit: HitRecord,
 
     fverts = world_verts[scene.tri_vertices[tri].long()]   # (N, 3, 3)
     p0, p1, p2 = fverts[:, 0], fverts[:, 1], fverts[:, 2]
-    n = cross(p1 - p0, p2 - p0)
+    n = torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
     n = n / torch.clamp(norm3(n), min=1e-12)[:, None]
     inst = scene.tri_instance[tri]
     mat = scene.instance_material[inst.long()]

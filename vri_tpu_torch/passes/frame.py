@@ -12,16 +12,20 @@ re-bakes the radiance of the bricks that changed.
 
 Ported: every mode of ``render_frame_gi`` at every ``gi_scale`` (the SDF
 debug views march camera rays with the trilinear loop), the temporal and
-dynamic frames without bands; visibility through every raster tier with
-the JAX package's dispatch (frustum compaction for face pools of 2^19
-slots or more, the binned tier for small pools at small frames, the
+dynamic frames on the whole frame or on a band of rows (``band=(y0,
+full_height)``: the raster projects with the whole frame's height and
+rasterizes the band's rows, and the history covers the band);
+visibility through every raster tier with the JAX package's dispatch
+(frustum compaction for face pools of 2^19 slots or more, the binned
+tier for small pools at frames or bands at most 512 rows high, the
 sorted tier otherwise, the ranged tier on request) and its LOD face
 masks, through the LBVH (``backend="bvh"``, one ``bvh_traverse`` launch;
 like the reference's, it does no backface culling) and through the
 brute-force tracer.  The dispatch thresholds were tuned for the TPU; the
 port keeps them so that it takes the reference's tier at every shape.
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-item: the band arguments of the temporal frame (item 7).
+Still to port (ROADMAP.md, "What comes next", item 7(b)): the sharded
+frames over several devices, which give each device a band through
+``gi_band_inputs``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import dataclasses
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 
 from vri_tpu_torch.config import DebugMode
@@ -169,8 +174,14 @@ def _compact_visible_faces(scene: SceneBuffers, view_proj, cap: int):
     return face_ids, torch.clamp(total, max=cap), sid, overflow
 
 
+def _y_off(y0: int):
+    """A band's first row -> the raster's ``y_offset`` (None for 0)."""
+    return float(y0) if y0 else None
+
+
 def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
                        height: int, width: int, variant: str = "auto",
+                       y0=0, proj_height: int | None = None,
                        caps_scale: int = 1, lod_tau: float = 0.75,
                        cull_instances: bool | None = None,
                        compact_cap: int | None = None):
@@ -182,7 +193,9 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
     ranged tier; pools of at most 2^14 faces at frames at most 512 rows
     high take the binned tier; everything else the sorted tier.
     ``caps_scale`` multiplies the list capacities and the compaction
-    budget (the renderer's overflow response).
+    budget (the renderer's overflow response).  A band renders rows [y0,
+    y0 + height) of a ``proj_height``-row frame; the dispatch reads the
+    band's own height.
 
     On a scene packed with LOD chains (``lod_levels`` > 0) each instance
     rasterizes the coarsest level whose deviation projects below
@@ -191,7 +204,7 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
     compaction is skipped (its face ranges cover base geometry only).
     ``lod_tau=0`` keeps full-rate geometry."""
     num_faces = scene.num_faces
-    kw = {}
+    kw = dict(proj_height=proj_height, y_offset=_y_off(y0))
     if scene.tri_lod is not None and lod_tau > 0:
         focal_px = 1.0 / torch.clamp(frame.pixel_spread, min=1e-8)
         kw["face_mask"], _ = lod_mod.face_mask(scene, frame.eye, focal_px,
@@ -216,7 +229,8 @@ def _visibility_raster(scene: SceneBuffers, world_verts, frame: FrameParams,
                        else inst_sign[pair_inst.long()]),
             cap=4096, pairs_cap=max(raster_mod._round_up(ccap, 1024),
                                     1 << 18),
-            caps_scale=caps_scale, src_map=face_ids)
+            caps_scale=caps_scale, src_map=face_ids,
+            proj_height=proj_height, y_offset=kw["y_offset"])
         hit.overflow = hit.overflow + (c_over > 0).to(torch.int32)
         return hit
     kw.update(height=height, width=width, cull_sign=_cull_sign(scene))
@@ -240,15 +254,18 @@ def _visibility_brute(scene: SceneBuffers, world_verts, origins, dirs):
 
 
 def _visibility(scene: SceneBuffers, world_verts, frame: FrameParams, o, d,
-                height: int, width: int, backend: str, lod_tau: float):
+                height: int, width: int, backend: str, lod_tau: float,
+                y0=0, proj_height: int | None = None):
     """Nearest hit of every camera ray through ``backend``: a raster tier
     (``raster``, ``raster2x``, ``raster4x``, ``raster_ranged``), the LBVH
-    (``bvh``) or the brute-force tracer (``brute``)."""
+    (``bvh``) or the brute-force tracer (``brute``).  A band (``y0``,
+    ``proj_height``) reaches the raster; the rays already carry it."""
     if backend.startswith("raster"):
         variant, caps_scale = _raster_variant(backend)
         return _visibility_raster(scene, world_verts, frame, height, width,
                                   variant=variant, caps_scale=caps_scale,
-                                  lod_tau=lod_tau)
+                                  lod_tau=lod_tau, y0=y0,
+                                  proj_height=proj_height)
     if backend == "bvh":
         return trace_mod.trace_scene(scene, world_verts, o, d)
     if backend == "brute":
@@ -361,16 +378,19 @@ def _direct_lighting(gb, scene, cascades, config, height: int, width: int):
 
 
 def _gbuffer(scene: SceneBuffers, frame: FrameParams, height: int,
-             width: int, backend: str, lod_tau: float):
+             width: int, backend: str, lod_tau: float, y0=0,
+             proj_height: int | None = None):
     """Camera rays -> visibility through ``backend`` -> G-buffer with
-    world ray distances as depth."""
+    world ray distances as depth, over rows [y0, y0 + height) of a
+    ``proj_height``-row frame (the whole frame by default)."""
     world_verts = bake_world(scene)
     origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
-                                       height, width)
+                                       height, width, y0=y0,
+                                       proj_height=proj_height)
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
     hit = _visibility(scene, world_verts, frame, o, d, height, width,
-                      backend, lod_tau)
+                      backend, lod_tau, y0=y0, proj_height=proj_height)
     gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
                                  pixel_spread=frame.pixel_spread)
     # report the world-space ray distance (raster depth is NDC)
@@ -446,10 +466,6 @@ def accumulate(prev_color: torch.Tensor, prev_count: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Temporal reprojection (progressive GI under camera motion)
 # ---------------------------------------------------------------------------
-
-_BANDS_TODO = ("the band arguments (y0, proj_height) of the temporal frame "
-               "are not ported; see ROADMAP.md 'What comes next', item 7")
-
 
 @dataclasses.dataclass
 class TemporalState:
@@ -565,17 +581,17 @@ def gi_band_inputs(scene: SceneBuffers, frame: FrameParams, cascades, *,
 
     As the JAX function dispatches: a ``raster*`` backend goes to the
     raster, every other backend (``"bvh"`` included) to the brute-force
-    tracer.  Only the whole frame (``y0=0``, ``proj_height=None``)."""
-    if not (isinstance(y0, int) and y0 == 0) or proj_height is not None:
-        raise NotImplementedError(_BANDS_TODO)
+    tracer.  ``y0`` / ``proj_height`` render the band of rows [y0, y0 +
+    height) of a ``proj_height``-row frame (the whole frame by
+    default)."""
     hit, gb = _gbuffer(scene, frame, height, width,
                        backend if backend.startswith("raster") else "brute",
-                       lod_tau)
+                       lod_tau, y0=y0, proj_height=proj_height)
     direct = _direct_lighting(gb, scene, cascades, config, height, width)
     if gi_scale > 1:
         if height % gi_scale or width % gi_scale:
             raise ValueError(f"gi_scale {gi_scale} must divide the frame "
-                             f"({height}x{width})")
+                             f"({height}x{width}; use an even band height)")
         sub, valid_s = _subsample_pn(gb, height, width, gi_scale)
     else:
         sub, valid_s = gb, gb.valid
@@ -606,24 +622,31 @@ def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
     each pixel's frame count.  At ``gi_scale > 1`` the history,
     reprojection, validation and blend all run at GI resolution and the
     blended term upsamples once.  GI samples come from ``uniforms``
-    (samples, GI pixels, 2) or ``generator``."""
-    if band is not None:
-        raise NotImplementedError(_BANDS_TODO)
+    (samples, GI pixels, 2) or ``generator``.
+
+    ``band=(y0, full_height)`` renders rows [y0, y0 + height) of a
+    ``full_height``-row frame, the per-device body of the row-sharded
+    frame: the history covers the band only, and a pixel whose history
+    reprojects outside the band restarts."""
+    y0, proj_h = band if band is not None else (0, None)
     hit, gb, direct, sub, valid_s, ind = gi_band_inputs(
         scene, frame, cascades, height=height, width=width, config=config,
         backend=backend, samples=samples, use_cache=use_cache,
-        gi_scale=gi_scale, lod_tau=lod_tau, generator=generator,
-        uniforms=uniforms)
+        gi_scale=gi_scale, lod_tau=lod_tau, y0=y0, proj_height=proj_h,
+        generator=generator, uniforms=uniforms)
     if gi_scale <= 1:
         h_ind, h_count = _reproject(state, gb.position, gb.normal, gb.valid,
-                                    height, width)
+                                    height, width, y0=y0,
+                                    proj_height=proj_h)
         ind_blend, count = temporal_blend(ind, h_ind, h_count, history_cap)
         ind_state, t_s, n_s = ind_blend, gb.depth, gb.normal
         count_full = count
     else:
         hs, ws = height // gi_scale, width // gi_scale
-        h_ind, h_count = _reproject(state, sub.position, sub.normal,
-                                    valid_s, hs, ws)
+        h_ind, h_count = _reproject(
+            state, sub.position, sub.normal, valid_s, hs, ws,
+            y0=y0 // gi_scale,
+            proj_height=None if proj_h is None else proj_h // gi_scale)
         ind_state, count = temporal_blend(ind, h_ind, h_count, history_cap)
         t_s = norm3(sub.position - frame.eye[None, :])
         n_s = sub.normal
@@ -653,7 +676,8 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
                             width: int, config, backend: str = "raster",
                             samples: int = 1, use_cache: bool = False,
                             gi_scale: int = 1, history_cap: float = 16.0,
-                            lod_tau: float = 0.75,
+                            band=None, lod_tau: float = 0.75,
+                            rebake: bool = True,
                             generator: torch.Generator | None = None,
                             uniforms: torch.Tensor | None = None):
     """One animated production frame: the bounded SDF cascade update over
@@ -664,12 +688,15 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
     ``scene`` already carries this frame's transforms; ``dirty_tri`` (F,)
     marks the moved triangles and ``dirty_lo/hi`` (D, 3) cover their old
     and new world AABBs (unused rows +BIG/-BIG).  GI samples come from
-    ``uniforms`` or ``generator``, as in :func:`render_frame_gi_temporal`
-    (whole frames only: the JAX function's ``band``, ``rebake=False`` and
-    ``shard_proxy`` are not ported).  Returns (aovs, new_temporal,
-    cascades, build_state, needs_full); a non-zero ``needs_full`` means a
-    capacity was exceeded (a re-bake set past ``bake_brick_cap``
-    included) and the caller must rebuild the cascades."""
+    ``uniforms`` or ``generator`` and ``band`` renders a band of rows, as
+    in :func:`render_frame_gi_temporal`.  ``rebake=False`` skips the
+    radiance re-bake (valid when no lighting-relevant geometry moved; the
+    update itself refreshes the re-emitted bricks' payloads).  Returns
+    (aovs, new_temporal, cascades, build_state, needs_full); a non-zero
+    ``needs_full`` means a capacity was exceeded (a re-bake set past
+    ``bake_brick_cap`` included) and the caller must rebuild the
+    cascades.  The JAX function's ``shard_proxy`` belongs to the sharded
+    frames (ROADMAP.md, "What comes next", item 7(b))."""
     from vri_tpu_torch.ops import sdf as sdf_mod
     from vri_tpu_torch.ops import sdf_build
 
@@ -680,14 +707,30 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
         scene.num_faces, dirty_tri, dirty_lo, dirty_hi,
         tri_albedo=scene.mat_base_color[mat],
         tri_emissive=scene.mat_emissive[mat], config=config)
-    light_dirty = sdf_mod.lighting_dirty_bricks(
-        cascades, scene, dirty_lo, dirty_hi, config=config)
-    cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
-        cascades, scene, build_state.emit_bricks | light_dirty,
-        build_state.alive, config=config, cap=config.bake_brick_cap)
+    if rebake:
+        light_dirty = sdf_mod.lighting_dirty_bricks(
+            cascades, scene, dirty_lo, dirty_hi, config=config)
+        cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
+            cascades, scene, build_state.emit_bricks | light_dirty,
+            build_state.alive, config=config, cap=config.bake_brick_cap)
+        needs_full = needs_full + bake_drop
     aovs, new_state = render_frame_gi_temporal(
         scene, frame, cascades, state, height=height, width=width,
         config=config, backend=backend, samples=samples,
         use_cache=use_cache, gi_scale=gi_scale, history_cap=history_cap,
-        lod_tau=lod_tau, generator=generator, uniforms=uniforms)
-    return aovs, new_state, cascades, build_state, needs_full + bake_drop
+        band=band, lod_tau=lod_tau, generator=generator, uniforms=uniforms)
+    return aovs, new_state, cascades, build_state, needs_full
+
+
+def render_to_numpy(scene: SceneBuffers, camera, config,
+                    mode: int = DebugMode.NONE, shadows: bool = True,
+                    backend: str = "brute", *, device="cuda"
+                    ) -> Dict[str, np.ndarray]:
+    """The direct-only frame of ``camera`` at ``config``'s size as numpy
+    AOVs; ``scene`` lives on ``device`` (the card unless the caller asks
+    for the CPU)."""
+    aovs = render_frame(scene, FrameParams.from_camera(camera,
+                                                       device=device),
+                        height=config.height, width=config.width, mode=mode,
+                        shadows=shadows, backend=backend)
+    return {k: v.cpu().numpy() for k, v in aovs.items()}

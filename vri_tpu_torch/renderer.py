@@ -3,11 +3,13 @@
 Owns the delegate, keeps the SDF cascades in step with the scene and the
 focus (a full cell-binned build with demand-scaled list caps, the
 bounded update of a transforms-only edit, or the clipmap scroll of a
-moved focus, then the radiance bake), and renders GI frames, direct-only
-frames with ``gi=False``, SDF debug views, frames at a stage time code
-and temporal flythroughs on ``device`` (the CUDA card unless the caller
-asks for the CPU).  GI samples come from a ``torch.Generator`` seeded
-with the frame index.
+moved focus; the dense build for the configurations the cell binning
+cannot hold; then the radiance bake), saves and loads the synced scene
+as a scene cache, and renders GI frames, direct-only frames with
+``gi=False``, SDF debug views, frames at a stage time code and temporal
+flythroughs on ``device`` (the CUDA card unless the caller asks for the
+CPU).  GI samples come from a ``torch.Generator`` seeded with the frame
+index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
 later frames use 2x, then 4x list capacities, and after an overflow at
@@ -56,8 +58,9 @@ class Renderer:
         self._sync_count = 0
         self.frame_index = 0
         #: wall milliseconds of the last cascade build, update or scroll
-        #: with its bake, and which of them it was ("rebuilt", "updated (n
-        #: dirty instances)", "scrolled n cascades", "unchanged center")
+        #: with its bake, and which of them it was ("rebuilt", "rebuilt
+        #: (dense)", "updated (n dirty instances)", "scrolled n cascades",
+        #: "unchanged center")
         self.last_build_ms: float | None = None
         self.last_build_label: str | None = None
         # list-raster overflow escalation: 1 -> 2x -> 4x list capacities
@@ -71,6 +74,24 @@ class Renderer:
                  else Stage.open(stage_or_path))
         self.delegate.populate(stage)
         self.sync()
+
+    def save_cache(self, path: str) -> None:
+        """Write the synced scene to a scene cache (``runtime/cache.py``)."""
+        from vri_tpu_torch.runtime import cache
+
+        cache.save_scene_cache(self.delegate.registry, path)
+
+    def load_cache(self, path: str, camera=None) -> None:
+        """Load a scene cache into the registry, without the USD stage,
+        and commit it to the renderer's device; the cascades go stale.
+        A cache holds no camera: pass ``camera`` or render with one."""
+        from vri_tpu_torch.runtime import cache
+
+        cache.load_scene_cache(self.delegate.registry, path)
+        self.scene = self.delegate.registry.commit()
+        self._sync_count += 1
+        if camera is not None:
+            self.delegate.camera = camera
 
     def sync(self, time_code: float | None = None) -> SceneBuffers:
         """Sync dirty prims (Hydra sync phase analog); ``time_code``
@@ -96,7 +117,9 @@ class Renderer:
         on an unchanged scene runs ``sdf_build.scroll_cascades``, which
         keeps every surviving brick; anything else, or a capacity breach
         of either (``needs_full``), is a full build with list caps scaled
-        to the measured demand."""
+        to the measured demand.  A configuration the cell binning cannot
+        hold (``sdf_build.supports``) takes the dense build, and without
+        its build state every later change rebuilds."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         cfg = self._sdf_cfg_effective or self.config.sdf
@@ -116,10 +139,6 @@ class Renderer:
         stale = self._scene_version != self._sync_count
         if not (force or self.cascades is None or moved or stale):
             return self.cascades
-        if not sdf_build.supports(cfg):
-            raise NotImplementedError(
-                "the dense SDF build (sdf.build_cascades) is not ported; see "
-                "ROADMAP.md 'What comes next', item 3")
 
         t0 = time.perf_counter()
         # the SDF paths read the base geometry only (no LOD chains)
@@ -134,6 +153,10 @@ class Renderer:
                 done = self._try_incremental(scene_b, world, upd, cfg)
             elif moved and not stale:
                 done = self._try_scroll(scene_b, world, focus, cfg)
+        if done is None and not sdf_build.supports(cfg):
+            done = (sdf_mod.build_for_scene(scene_b, world, focus=focus,
+                                            config=cfg),
+                    None, "rebuilt (dense)")
         if done is None:
             centers = sdf_mod.default_centers(cfg, focus, device=self.device)
             # demand pre-pass: scale the list caps so the build drops no
@@ -150,11 +173,12 @@ class Renderer:
                     "rebuilt")
         cascades, state, label = done
         self.cascades = sdf_mod.bake_brick_lighting(
-            cascades, self.scene, config=cfg, alive=state.alive)
+            cascades, self.scene, config=cfg,
+            alive=None if state is None else state.alive)
         self._build_state = state
         self._cascade_focus = focus
         self._scene_version = self._sync_count
-        list_ov = int(state.list_overflow)
+        list_ov = 0 if state is None else int(state.list_overflow)
         self.last_build_ms = 1e3 * (time.perf_counter() - t0)
         self.last_build_label = label
         log.info("SDF cascades %s in %.1f ms (%d bricks, %d brick "
