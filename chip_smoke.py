@@ -13,14 +13,16 @@ the tool's full shape; the production frame (the temporal GI frame at
 the compacted march; the LOD and animated-stage paths: the LOD face
 mask through the three raster tiers, the bounded SDF update, the
 animated frame, the clipmap scroll and the app's ``--lod`` and
-``--builtin animated``; and the single-device remainder: band frames,
+``--builtin animated``; the single-device remainder: band frames,
 the dense SDF build of the "tiny" preset, the scene cache and checks,
-and the app's ``--sdf tiny``, ``--cache`` and ``--trace``.  The JAX
-package and JAX itself are blocked before the port is imported, so any
-import of either is fatal.  Phases (run in the order 1-6, 21, 7, 8, 12,
-13, 18, 25, 20, 23, 24, 27, 26, 19, 9, 28, 10, 11, 22, 14-17; phase
-20's small input runs in phase 10, phase 25's dynamic band frame in
-phase 23), each fatal on failure:
+and the app's ``--sdf tiny``, ``--cache`` and ``--trace``; and the
+frames sharded over several ranks (``vri_tpu_torch.parallel``), whose
+ranks this script starts as subprocesses of itself (``--phase29 PART
+FILE``).  The JAX package and JAX itself are blocked before the port is
+imported, so any import of either is fatal.  Phases (run in the order
+1-6, 21, 7, 8, 12, 13, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28, 10, 11,
+22, 14-17; phase 20's small input runs in phase 10, phase 25's dynamic
+band frame in phase 23), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -209,7 +211,32 @@ phase 23), each fatal on failure:
 28. the app on Cornell 512^2: ``--sdf tiny``, ``--cache`` written then
     read (no stage load), and ``--trace``, whose Chrome trace holds the
     ``frame0`` span and the names of kernel R's and M's CUDA functions;
-    ``device_memory_stats()`` reports ``cuda:0``.
+    ``device_memory_stats()`` reports ``cuda:0``;
+29. multi-device, on phase 7's kitchen, cascades and build state (one
+    file of CPU tensors the ranks load; no rank builds), the ranks
+    started by ``parallel.mesh.launch`` (``torch.distributed.run``):
+    (a) one ``nccl`` rank on cuda:0 at 1920x1080: the tiled static,
+    temporal (``gi_scale`` 2, two frames) and dynamic frames bit-equal to
+    ``render_frame_gi`` / ``_temporal`` / ``_dynamic`` with the same
+    uniforms and the same R / M launches; (b) four ``gloo`` ranks
+    sharing cuda:0 at 1920x1056 (the app's rounding): the tiled frame at
+    ``samples`` 0 and 1 (each rank its own uniforms) with its ids off the
+    single-card frame's on at most 0.05% of the pixels, one R and one M
+    a sample a rank; the temporal frame (``gi_scale`` 2, ``halo_rows``
+    2, a small vertical pan) carrying its history on more than half the
+    pixels of every band border row; R and M bit-equal to their plain
+    versions on rank 0's and rank 3's band lists and rays; each rank's
+    frame ms (CUDA events around the call, its gathers included) and
+    peak allocated memory; (d) on those ranks ``esd_sharded`` on cascade
+    0's occupancy equal to ``esd_map``, ``scroll_slab`` (by 2 and past
+    one slab) equal to ``torch.roll``, ``merge_scene_partitions``
+    rebuilding the kitchen from two hosts' partial scenes and
+    ``render_frame_tiled_2d`` on a 2 x 2 mesh with the 1-D frame's ids;
+    (c) two ``gloo`` ranks: the tiled dynamic frame with phase 23's prop
+    moved, ``atlas`` and ``voxel_shade`` bit-equal to the single-card
+    dynamic frame's, ``needs_full`` 0, each rank's share of the emit,
+    its re-bake launches, ms and peak.  A rank that fails, or writes no
+    result, fails the phase.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
@@ -219,7 +246,9 @@ H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 single PyTorch call computes any of the seven, so ``library_ms`` is
 null.  ``raster_tiles`` and ``march_rays`` also carry their launches in
 one production frame (phase 18) and in one dynamic frame (phase 23),
-``raster_ranged`` its launches on the masked ranged tier (phase 22).
+and per rank in one tiled frame (phase 29(b); ``march_rays`` also per
+rank in the sharded re-bake, phase 29(c)), ``raster_ranged`` its
+launches on the masked ranged tier (phase 22).
 The script prints its total seconds.
 
 Prints the per-kernel JSON line, the card line, and as the last line
@@ -2248,6 +2277,490 @@ def _app_runtime(card: str, out_dir: str) -> None:
           f"device_memory_stats {mem} [{card}]")
 
 
+
+# -- 29. multi-device: the row-sharded frames over torch.distributed ------------
+
+#: the moved prop's first offset of phase 23 (``_animated.offset(0)``)
+P29_OFFSET = (0.03 * 0.644217687237691, 0.0, 0.03 * 0.7648421872844885)
+#: the frame of phase 29 (the app rounds the height to 8 x ranks in (b))
+P29_H, P29_W = 1080, 1920
+
+
+def _move(tree, dev):
+    """A dataclass (nested) of tensors, its tensors on ``dev``."""
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _move(getattr(tree, f.name), dev)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def _pan(cam, dy: float):
+    """``cam`` moved up by ``dy`` (world units), looking the same way."""
+    import dataclasses
+
+    t = np.eye(4, dtype=np.float32)
+    t[1, 3] = -dy
+    return dataclasses.replace(cam, eye=cam.eye + np.float32([0, dy, 0]),
+                               view=(cam.view @ t).astype(np.float32))
+
+
+def _moved_prop(scene, dev):
+    """(the scene with phase 23's prop moved, dirty triangles, dirty
+    boxes)."""
+    import torch
+
+    k = _smallest_instance(scene)
+    off = torch.tensor(P29_OFFSET, device=dev)
+    tf = scene.instance_transform.clone()
+    tf[k, :3, 3] += off
+    dlo, dhi = _dirty_boxes(scene.instance_aabb_lo[k],
+                            scene.instance_aabb_hi[k], (0.0, off), dev)
+    return (scene.replace(instance_transform=tf), scene.tri_instance == k,
+            dlo, dhi)
+
+
+def _multi_device(r, h: int, w: int, card: str, kernels: dict) -> None:
+    """Phase 29 on renderer ``r`` (phase 7's kitchen, room preset, its
+    cascades and build state): the row-sharded frames of
+    ``vri_tpu_torch.parallel``, their ranks started by ``mesh.launch``
+    (``torch.distributed.run``) as subprocesses of this script
+    (``--phase29 PART FILE``), each loading the scene, cascades and build
+    state from one file of CPU tensors written here (no rank builds).
+    (a) one ``nccl`` rank on cuda:0: the tiled static, temporal and
+    dynamic frames at 1920x1080 bit-equal to ``render_frame_gi``,
+    ``render_frame_gi_temporal`` and ``render_frame_gi_dynamic`` with the
+    same uniforms and the same R / M launches; (b) four ``gloo`` ranks
+    sharing cuda:0 at 1920x1056 (the app's rounding): the tiled frame at
+    ``samples`` 0 and 1 against the single-card frame, the temporal frame
+    carrying its history across the band borders, R and M held to their
+    plain versions on rank 0's and rank 3's band inputs, each rank's band
+    ms and peak memory; (d) on those ranks, ``esd_sharded`` and
+    ``scroll_slab`` on cascade 0's occupancy and the 2 x 2 mesh's frame
+    and scene merge; (c) two ``gloo`` ranks: the tiled dynamic frame's
+    ``atlas`` and ``voxel_shade`` bit-equal to the single-card dynamic
+    frame's (computed here), each rank's share of the emit and its
+    re-bake launches."""
+    import tempfile
+
+    import torch
+
+    from vri_tpu_torch.parallel import mesh as mesh_mod
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    t_phase = time.perf_counter()
+    dev = r.device
+    eff = r._sdf_cfg_effective or r.config.sdf
+    scene = r.scene.base_view()
+    s1, dirty, dlo, dhi = _moved_prop(scene, dev)
+    fp = frame_mod.FrameParams.from_camera(r.camera, h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    _, _, cas1, _, nf = frame_mod.render_frame_gi_dynamic(
+        s1, fp, r.cascades, r._build_state,
+        frame_mod.init_temporal(h, w, 2, device=dev), dirty, dlo, dhi,
+        height=h, width=w, config=eff, samples=1, use_cache=True,
+        gi_scale=2, lod_tau=r.config.lod_tau, generator=gen)
+    _check(int(nf) == 0, f"phase 29: the single-card dynamic frame's "
+           f"needs_full {int(nf)}")
+    # the build state (its cell rows are most of the bytes) in a file of
+    # its own, which only the dynamic frames' parts (a) and (c) load
+    payload = dict(scene=_move(scene, "cpu"),
+                   cascades=_move(r.cascades, "cpu"), config=eff,
+                   camera=r.camera, lod_tau=r.config.lod_tau)
+    build = dict(build_state=_move(r._build_state, "cpu"),
+                 want_atlas=cas1.atlas.cpu(),
+                 want_shade=cas1.voxel_shade.cpu())
+    del cas1
+    torch.cuda.empty_cache()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase29.pt")
+        t0 = time.perf_counter()
+        torch.save(payload, path)
+        torch.save(build, path + ".build")
+        del payload, build
+        print(f"phase 29: the ranks' inputs written in "
+              f"{time.perf_counter() - t0:.1f} s (host clock): "
+              f"{os.path.getsize(path) / 2 ** 20:.0f} MiB scene and "
+              f"cascades, {os.path.getsize(path + '.build') / 2 ** 20:.0f} "
+              f"MiB build state and reference [{card}]")
+        for part, nproc in (("a", 1), ("b", 4), ("c", 2)):
+            t0 = time.perf_counter()
+            proc = mesh_mod.launch(
+                nproc, [os.path.abspath(__file__), "--phase29", part, path],
+                capture=True, timeout=600)
+            print(proc.stdout, end="")
+            got = []
+            for i in range(nproc):
+                res_path = f"{path}.{part}{i}.json"
+                if os.path.exists(res_path):
+                    with open(res_path) as f:
+                        got.append(json.load(f))
+            _check(proc.returncode == 0,
+                   f"phase 29({part}): a rank failed (exit "
+                   f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+            _check(sorted(g["rank"] for g in got) == list(range(nproc)),
+                   f"phase 29({part}): results from ranks "
+                   f"{[g['rank'] for g in got]} of {nproc}")
+            results[part] = sorted(got, key=lambda g: g["rank"])
+            print(f"phase 29({part}): {nproc} rank(s) in "
+                  f"{time.perf_counter() - t0:.1f} s with start-up (host "
+                  f"clock); per rank: " + "; ".join(_p29_summary(g)
+                                                    for g in got)
+                  + f" [{card}]")
+    per_rank = results["b"][0]["static1"]["launches"]
+    kernels["raster_tiles"]["launches_tiled_frame_per_rank"] = \
+        per_rank["raster_tiles"]
+    kernels["march_rays"]["launches_tiled_frame_per_rank"] = \
+        per_rank["march_rays"]
+    kernels["march_rays"]["launches_sharded_rebake_per_rank"] = [
+        g["rebake_launches"] for g in results["c"]]
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s in all (host "
+          f"clock) [{card}]")
+
+
+def _p29_summary(g: dict) -> str:
+    """One rank's times (CUDA events, ms, the tiled call with its
+    gathers) and peak memory."""
+    times = ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in g.items()
+                      if isinstance(v, dict) and "ms" in v)
+    if "ms" in g:
+        times = (f"dynamic {g['ms']:.1f} ms, emit share {g['share']} of "
+                 f"{g['emitted']} bricks, {g['rebake_launches']} re-bake "
+                 "march_rays")
+    return (f"rank {g['rank']} ({g['backend']}): {times}; peak "
+            f"{g['peak_gib']:.2f} GiB allocated")
+
+
+def _p29_frame(fn, warm: bool = False):
+    """(``fn()``, its launches, its CUDA-event ms); ``warm`` runs ``fn``
+    once untimed first (the process's first frame allocates)."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, stop = _events()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _counts().items() if v}, \
+        start.elapsed_time(stop)
+
+
+def _p29_equal(a: dict, b: dict, keys, label: str) -> None:
+    import torch
+
+    for k in keys:
+        _check(torch.equal(a[k], b[k]), f"{label}: {k} differs from the "
+               "single-card frame's")
+
+
+def _p29_part_a(mesh, scene, cas, st, cfg, cam, lod_tau, res,
+                card: str) -> None:
+    """(a): world size 1 over nccl, each tiled frame bit-equal to the
+    single-card one with the same launches."""
+    import torch
+
+    from vri_tpu_torch.parallel import tiling
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    dev = mesh.device
+    h, w = P29_H, P29_W
+    fp = frame_mod.FrameParams.from_camera(cam, h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(291)
+    u = torch.rand((1, h * w, 2), generator=gen, device=dev)
+    ug = torch.rand((1, (h // 2) * (w // 2), 2), generator=gen, device=dev)
+    kw = dict(height=h, width=w, config=cfg)
+    tiled, lt, t_ms = _p29_frame(lambda: tiling.render_frame_tiled(
+        scene, fp, cas, mesh=mesh, uniforms=u, **kw), warm=True)
+    single, ls, s_ms = _p29_frame(lambda: frame_mod.render_frame_gi(
+        scene, fp, cas, uniforms=u, use_cache=True, lod_tau=lod_tau, **kw),
+        warm=True)
+    _p29_equal(tiled, single, ("color", "depth", "instance_id"),
+               "(a) static")
+    _check(lt == ls, f"(a) static: launches {lt} against {ls}")
+    res["static"] = dict(ms=t_ms, single_ms=s_ms, launches=lt)
+    tk = dict(gi_scale=2, uniforms=ug, **kw)
+    states = [frame_mod.init_temporal(h, w, 2, device=dev)
+              for _ in range(2)]
+    for i, c in enumerate((cam, _pan(cam, 0.002))):
+        fpi = frame_mod.FrameParams.from_camera(c, h, device=dev)
+        (tiled, states[0]), lt, t_ms = _p29_frame(
+            lambda: tiling.render_frame_tiled_temporal(
+                scene, fpi, cas, states[0], mesh=mesh, **tk))
+        (single, states[1]), ls, s_ms = _p29_frame(
+            lambda: frame_mod.render_frame_gi_temporal(
+                scene, fpi, cas, states[1], use_cache=True, lod_tau=lod_tau,
+                **tk))
+        _p29_equal(tiled, single, ("color", "depth", "gi_history",
+                                   "instance_id"), f"(a) temporal {i}")
+        _check(torch.equal(states[0].data, states[1].data),
+               f"(a) temporal {i}: the history differs")
+        _check(lt == ls, f"(a) temporal {i}: launches {lt} against {ls}")
+    res["temporal"] = dict(ms=t_ms, single_ms=s_ms, launches=lt)
+    s1, dirty, dlo, dhi = _moved_prop(scene, dev)
+    outs = []
+    for fn in (tiling.render_frame_tiled_dynamic,
+               frame_mod.render_frame_gi_dynamic):
+        extra = (dict(mesh=mesh) if fn is tiling.render_frame_tiled_dynamic
+                 else dict(use_cache=True, lod_tau=lod_tau))
+        outs.append(_p29_frame(lambda: fn(
+            s1, fp, cas, st, frame_mod.init_temporal(h, w, 2, device=dev),
+            dirty, dlo, dhi, **tk, **extra)))
+    (ta, _, tc, _, tn), lt, t_ms = outs[0]
+    (sa, _, sc, _, sn), ls, s_ms = outs[1]
+    _p29_equal(ta, sa, ("color", "depth", "gi_history", "instance_id"),
+               "(a) dynamic")
+    for f in ("atlas", "voxel_shade", "brick_irradiance", "brick_map"):
+        _check(torch.equal(getattr(tc, f), getattr(sc, f)),
+               f"(a) dynamic: {f} differs from the single-card update's")
+    _check(int(tn) == int(sn) == 0, f"(a) dynamic: needs_full {int(tn)}, "
+           f"{int(sn)}")
+    _check(lt == ls, f"(a) dynamic: launches {lt} against {ls}")
+    res["dynamic"] = dict(ms=t_ms, single_ms=s_ms, launches=lt)
+    print(f"phase 29(a) nccl, 1 rank on {dev}, kitchen {w}x{h}: the tiled "
+          "static, temporal (gi_scale 2, 2 frames) and dynamic frames "
+          "bit-equal to render_frame_gi / _temporal / _dynamic with the same"
+          " launches; tiled against single-card ms (CUDA events, with the "
+          "gathers): " + ", ".join(
+              f"{k} {v['ms']:.1f} vs {v['single_ms']:.1f} {v['launches']}"
+              for k, v in res.items()) + f" [{card}]", flush=True)
+
+
+def _p29_part_b(mesh, scene, cas, cfg, cam, lod_tau, res,
+                card: str) -> None:
+    """(b) and (d) on four gloo ranks sharing the card, 1920x1056."""
+    import torch
+
+    from vri_tpu_torch.ops import rasterize, sdf_build
+    from vri_tpu_torch.parallel import halo, multihost, tiling
+    from vri_tpu_torch.parallel import mesh as mesh_mod
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    dev, rank, n = mesh.device, mesh.rank, mesh.size
+    ax = mesh.axis()
+    w = P29_W
+    h = (P29_H // (8 * n)) * 8 * n
+    band = h // n
+    fp = frame_mod.FrameParams.from_camera(cam, h, device=dev)
+    kw = dict(height=h, width=w, config=cfg)
+
+    def band_u(i):
+        return torch.rand((1, band * w, 2), generator=mesh_mod.band_generator(
+            29, i, dev), device=dev)
+
+    bound = 0.0005
+    for smp in (0, 1):
+        out, launches, ms = _p29_frame(lambda: tiling.render_frame_tiled(
+            scene, fp, cas, mesh=mesh, samples=smp,
+            uniforms=band_u(rank) if smp else None, **kw), warm=smp == 0)
+        res[f"static{smp}"] = dict(ms=ms, launches=launches)
+        _check(launches == {"raster_tiles": 1, "march_rays": 1 + smp},
+               f"(b) static, samples {smp}: launches {launches}")
+        _check(float(out["stats"][0]) == h * w, "(b) stats: rays")
+        if rank == 0:
+            uni = torch.cat([band_u(i) for i in range(n)], 1) if smp else None
+            single = frame_mod.render_frame_gi(
+                scene, fp, cas, samples=smp, uniforms=uni, use_cache=True,
+                lod_tau=lod_tau, **kw)
+            same = out["instance_id"] == single["instance_id"]
+            off = float((~same).float().mean())
+            col = float((out["color"] - single["color"]).abs().amax(-1)[
+                same].max())
+            res[f"static{smp}"].update(ids_differ=off, colour=col)
+            _check(off <= bound, f"(b) static, samples {smp}: ids differ on "
+                   f"{off:.6f} of the pixels")
+            if smp == 0:
+                res["ids_1d"] = out["instance_id"].cpu()
+    # temporal at gi_scale 2, halo 2 rows, over a small vertical pan
+    state = frame_mod.init_temporal(band, w, 2, device=dev)
+    gen = mesh_mod.band_generator(292, rank, dev)
+    for i, c in enumerate((cam, _pan(cam, 0.002))):
+        fpi = frame_mod.FrameParams.from_camera(c, h, device=dev)
+        (aovs, state), launches, ms = _p29_frame(
+            lambda: tiling.render_frame_tiled_temporal(
+                scene, fpi, cas, state, mesh=mesh, gi_scale=2, halo_rows=2,
+                uniforms=torch.rand((1, (band // 2) * (w // 2), 2),
+                                    generator=gen, device=dev), **kw))
+    hist, cov = aovs["gi_history"], aovs["instance_id"] >= 0
+    carried = float((hist[cov] >= 2.0).float().mean())
+    borders = [float((hist[y][cov[y]] >= 2.0).float().mean())
+               for b in range(1, n) for y in (b * band - 1, b * band)]
+    res["temporal"] = dict(ms=ms, launches=launches, carried=carried,
+                           borders=min(borders))
+    _check(carried > 0.5 and min(borders) > 0.5,
+           f"(b) temporal: history carried on {carried:.4f} of the pixels, "
+           f"{min(borders):.4f} on the worst border row")
+    # R and M on the band's own inputs, on the first and the last rank
+    if rank in (0, n - 1):
+        y0 = rank * band
+        world = bake_world(scene)
+        prep = rasterize.prepare_sorted(
+            world, scene.tri_vertices, scene.num_faces, fp.view_proj,
+            height=band, width=w, proj_height=h, y_offset=float(y0),
+            cull_sign=frame_mod._cull_sign(scene))
+        _hold_raster_tiles(prep, f"rank {rank}'s band lists")
+        held = _frame_rays(scene, fp, cas, cfg, band, w,
+                           mesh_mod.band_generator(293, rank, dev), lod_tau,
+                           f"rank {rank}'s band", y0=y0, proj_height=h)
+        res["held"] = dict(lists=int(prep["counts"].sum()),
+                           shadow=int(held["shadow"][0][0].shape[1]),
+                           gi=int(held["gi"][0][0].shape[1]))
+        del prep, held
+    # -- (d) the halo functions and the 2 x 2 mesh -------------------------
+    occ = cas.brick_map[0] >= 0
+    r = occ.shape[0]
+    dense = sdf_build.esd_map(occ[None]).reshape(occ.shape)
+    sharded = mesh_mod.gather_rows(
+        halo.esd_sharded(mesh_mod.shard_rows(occ, mesh), ax, 15), mesh)
+    _check(torch.equal(sharded, dense), "(d) esd_sharded differs from "
+           "esd_map on cascade 0")
+    vol = occ.to(torch.float32)
+    for shift in (2, r // n + 3):
+        rolled = mesh_mod.gather_rows(halo.scroll_slab(
+            mesh_mod.shard_rows(vol, mesh), shift, 0, ax), mesh)
+        _check(torch.equal(rolled, torch.roll(vol, -shift, 0)),
+               f"(d) scroll_slab by {shift} differs from torch.roll")
+    mesh2 = multihost.make_mesh_2d(2, n // 2, backend="gloo", device=dev)
+    owner = torch.arange(scene.instance_transform.shape[0], device=dev) % 2
+    host = mesh2.coords[0]
+    own_i = owner == host
+    part = {}
+    for name, idx in (("positions", scene.vertex_instance),
+                      ("tri_vertices", scene.tri_instance),
+                      ("tri_uv", scene.tri_instance),
+                      ("tri_face", scene.tri_instance),
+                      ("instance_transform", None),
+                      ("instance_material", None),
+                      ("instance_aabb_lo", None),
+                      ("instance_aabb_hi", None)):
+        a = getattr(scene, name)
+        if a is None or (scene.tri_proto is not None
+                         and name in ("positions", "tri_uv", "tri_face")):
+            continue
+        own = own_i if idx is None else own_i[idx.long()]
+        part[name] = torch.where(
+            own.reshape(own.shape + (1,) * (a.dim() - 1)), a,
+            torch.zeros((), dtype=a.dtype, device=dev))
+    merged = multihost.merge_scene_partitions(scene.replace(**part), owner,
+                                              mesh2)
+    for name in part:
+        _check(torch.equal(getattr(merged, name), getattr(scene, name)),
+               f"(d) merge_scene_partitions: {name} differs")
+    out2, launches2, ms2 = _p29_frame(lambda: multihost.render_frame_tiled_2d(
+        merged, fp, cas, mesh=mesh2, samples=0, **kw))
+    if rank == 0:
+        _check(torch.equal(out2["instance_id"].cpu(), res.pop("ids_1d")),
+               "(d) the 2-D frame's ids differ from the 1-D frame's")
+    res["mesh2d"] = dict(ms=ms2, launches=launches2, merged=sorted(part))
+    print(f"phase 29(b, d) gloo rank {rank}/{n} on {dev}, kitchen "
+          f"{w}x{h}: {json.dumps(res)} [{card}]", flush=True)
+
+
+def _p29_part_c(mesh, scene, cas, st, cfg, cam, lod_tau, want, res,
+                card: str) -> None:
+    """(c): the tiled dynamic frame on two gloo ranks sharing the card."""
+    import torch
+
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.parallel import tiling
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    dev, rank, n = mesh.device, mesh.rank, mesh.size
+    h, w = P29_H, P29_W
+    fp = frame_mod.FrameParams.from_camera(cam, h, device=dev)
+    s1, dirty, dlo, dhi = _moved_prop(scene, dev)
+    rebake = []
+    real = sdf_mod.bake_brick_lighting_partial
+
+    def counted(*a, **kw):
+        before = _counts()["march_rays"]
+        out = real(*a, **kw)
+        rebake.append(_counts()["march_rays"] - before)
+        return out
+
+    sdf_mod.bake_brick_lighting_partial = counted
+    try:
+        (aovs, _, cas1, st1, nf), launches, ms = _p29_frame(
+            lambda: tiling.render_frame_tiled_dynamic(
+                s1, fp, cas, st, frame_mod.init_temporal(h // n, w, 2,
+                                                         device=dev),
+                dirty, dlo, dhi, mesh=mesh, height=h, width=w, config=cfg,
+                gi_scale=2, halo_rows=2, seed=29))
+    finally:
+        sdf_mod.bake_brick_lighting_partial = real
+    _check(int(nf) == 0, f"(c) needs_full {int(nf)}")
+    _check(torch.equal(cas1.atlas.cpu(), want["atlas"]),
+           "(c) atlas differs from the single-card dynamic frame's")
+    _check(torch.equal(cas1.voxel_shade.cpu(), want["shade"]),
+           "(c) voxel_shade differs from the single-card dynamic frame's")
+    _check(bool(torch.isfinite(aovs["color"]).all()), "(c) colour not finite")
+    emitted = int(st1.emit_bricks.sum())
+    per = (-(-cfg.update_brick_cap // 256) // n) * 256
+    share = max(0, min(per, emitted - rank * per))
+    res.update(ms=ms, launches=launches, emitted=emitted, share=share,
+               rebake_launches=rebake[0])
+    print(f"phase 29(c) gloo rank {rank}/{n} on {dev}, kitchen {w}x{h}, the "
+          f"prop moved: atlas and voxel_shade bit-equal to the single-card "
+          f"dynamic frame's, needs_full 0; {json.dumps(res)} [{card}]",
+          flush=True)
+
+
+def _phase29_rank(part: str, path: str) -> int:
+    """One rank of phase 29 (started by ``_multi_device`` through
+    ``mesh.launch``): part ``a`` over nccl, ``b`` (with ``d``) and ``c``
+    over gloo on cuda:0.  Prints its lines and writes its result to
+    ``<path>.<part><rank>.json``."""
+    import torch
+
+    from vri_tpu_torch.parallel import make_mesh
+    from vri_tpu_torch.parallel.mesh import close
+
+    card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(backend="nccl" if part == "a" else "gloo",
+                     device="cuda:0")
+    payload = torch.load(path, weights_only=False)
+    if part in ("a", "c"):
+        payload.update(torch.load(path + ".build", weights_only=False))
+    dev = mesh.device
+    scene = _move(payload["scene"], dev)
+    cas = _move(payload["cascades"], dev)
+    st = _move(payload.get("build_state"), dev)
+    args = (payload["config"], payload["camera"], payload["lod_tau"])
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    if part == "a":
+        _p29_part_a(mesh, scene, cas, st, *args, res, card)
+    elif part == "b":
+        _p29_part_b(mesh, scene, cas, *args, res, card)
+    else:
+        want = {"atlas": payload["want_atlas"],
+                "shade": payload["want_shade"]}
+        _p29_part_c(mesh, scene, cas, st, *args, want, res, card)
+    res.update(part=part, rank=mesh.rank, world=mesh.size,
+               backend=mesh.backend or "none", card=card,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for name in ("jax", "vri_tpu"):
+        _check(sys.modules.get(name) is None, f"a rank imported {name}")
+    with open(f"{path}.{part}{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+    close(mesh)
+    return 0
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2623,6 +3136,10 @@ def main() -> int:
         kernels[name]["launches_dynamic_frame"] = n
     torch.cuda.empty_cache()
 
+    # -- 29. multi-device: the row-sharded frames over torch.distributed ------
+    _multi_device(r2, h, w, card, kernels)
+    torch.cuda.empty_cache()
+
     # -- 24. the clipmap scroll and the app's animated and LOD runs -----------
     _scroll_and_app(r2, h, w, card, out_dir)
 
@@ -2768,4 +3285,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase29"]:
+        sys.exit(_phase29_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -17,8 +17,9 @@ the temporal frame's launches (one raster_tiles and two march_rays a
 frame), the LOD-masked tiers bit-equal to each other, one bounded
 update and animated frame on the card against the CPU, a band of the
 kitchen through the three tiers and the temporal band frame on the card
-against the CPU, and the dense SDF build on the card against the CPU.
-On a host without a card every test skips.
+against the CPU, the dense SDF build on the card against the CPU, and
+the sharded frames over a one-rank ``nccl`` mesh bit-equal to the
+single-card frames.  On a host without a card every test skips.
 """
 
 import numpy as np
@@ -1164,3 +1165,110 @@ def test_dense_build_card_matches_cpu():
     assert same.mean() >= 0.999
     assert np.abs(a["color"] - b["color"]).max(-1)[same].max() <= 2e-3
     assert np.isfinite(b["color"]).all()
+
+
+def test_tiled_frames_world_size_1_nccl(monkeypatch):
+    """``vri_tpu_torch.parallel.tiling`` over a one-rank ``nccl`` mesh on
+    the card (the process group of a ``torchrun --nproc-per-node 1``):
+    the tiled static, temporal (``gi_scale`` 2, two frames) and dynamic
+    frames bit-equal to ``render_frame_gi``, ``render_frame_gi_temporal``
+    and ``render_frame_gi_dynamic`` with the same uniforms, on the
+    Cornell box at 64^2 with ``test_dynamic_frame_card_matches_cpu``'s
+    configuration and motion; the same launches of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+
+    import torch.distributed as dist
+
+    from vri_tpu_torch.ops import march_kernel, rasterize
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.parallel import make_mesh, tiling
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    cfg = SDFConfig(num_cascades=2, cascade_resolution=32,
+                    base_voxel_size=0.1, max_bricks=8192,
+                    truncation_voxels=2.0, max_triangles_per_brick=16,
+                    approx_occlusion=True, update_cell_cap=2048)
+    res = 64
+    d = RenderDelegate(RenderConfig(width=res, height=res), device="cuda")
+    d.populate(scenes.cornell_box())
+    s = d.sync()
+    centers = sdf_mod.default_centers(cfg, np.zeros(3), device="cuda")
+    cas, st = sdf_build.build_for_scene(s, bake_world(s), centers, cfg)
+    cas = sdf_mod.bake_brick_lighting(cas, s, config=cfg, alive=st.alive)
+    fp = frame_mod.FrameParams.from_camera(d.camera, res, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand((1, res * res, 2), generator=gen, device="cuda")
+    ug = torch.rand((1, (res // 2) ** 2, 2), generator=gen, device="cuda")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for key, val in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                         LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, val)
+    mesh = make_mesh()
+    kw = dict(height=res, width=res, config=cfg)
+
+    def run(fn):
+        before = (rasterize.raster_tiles.launches,
+                  march_kernel.march_rays.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (rasterize.raster_tiles.launches - before[0],
+                     march_kernel.march_rays.launches - before[1])
+
+    try:
+        assert (mesh.backend, mesh.size, mesh.device) == (
+            "nccl", 1, torch.device("cuda:0"))
+        tiled, lt = run(lambda: tiling.render_frame_tiled(
+            s, fp, cas, mesh=mesh, uniforms=u, **kw))
+        single, ls = run(lambda: frame_mod.render_frame_gi(
+            s, fp, cas, uniforms=u, use_cache=True, **kw))
+        assert lt == ls == (1, 2)
+        for key in ("color", "depth", "instance_id"):
+            assert torch.equal(tiled[key], single[key]), key
+        states = [frame_mod.init_temporal(res, res, 2, device="cuda")
+                  for _ in range(2)]
+        for _ in range(2):
+            (tiled, states[0]), lt = run(
+                lambda: tiling.render_frame_tiled_temporal(
+                    s, fp, cas, states[0], mesh=mesh, gi_scale=2,
+                    uniforms=ug, **kw))
+            (single, states[1]), ls = run(
+                lambda: frame_mod.render_frame_gi_temporal(
+                    s, fp, cas, states[1], gi_scale=2, uniforms=ug,
+                    use_cache=True, **kw))
+            assert lt == ls == (1, 2)
+            for key in ("color", "depth", "gi_history"):
+                assert torch.equal(tiled[key], single[key]), key
+            assert torch.equal(states[0].data, states[1].data)
+        ni = int(s.num_instances)
+        k = int((s.instance_aabb_hi - s.instance_aabb_lo)[:ni].max(-1)
+                .values.argmin())
+        off = torch.tensor([0.15, 0.0, 0.1], device="cuda")
+        tf = s.instance_transform.clone()
+        tf[k, :3, 3] += off
+        dlo = torch.full((4, 3), 3.0e38, device="cuda")
+        dhi = torch.full((4, 3), -3.0e38, device="cuda")
+        dlo[0], dhi[0] = s.instance_aabb_lo[k], s.instance_aabb_hi[k]
+        dlo[1], dhi[1] = dlo[0] + off, dhi[0] + off
+        args = (s.replace(instance_transform=tf), fp, cas, st,
+                frame_mod.init_temporal(res, res, 1, device="cuda"),
+                s.tri_instance == k, dlo, dhi)
+        tiled, lt = run(lambda: tiling.render_frame_tiled_dynamic(
+            *args, mesh=mesh, uniforms=u, **kw))
+        single, ls = run(lambda: frame_mod.render_frame_gi_dynamic(
+            *args, uniforms=u, use_cache=True, **kw))
+        assert lt == ls == (1, 3)
+        assert int(tiled[4]) == int(single[4]) == 0
+        for key in ("color", "depth", "gi_history"):
+            assert torch.equal(tiled[0][key], single[0][key]), key
+        for f in ("atlas", "voxel_shade", "brick_irradiance", "brick_map"):
+            assert torch.equal(getattr(tiled[2], f), getattr(single[2], f))
+    finally:
+        dist.destroy_process_group()

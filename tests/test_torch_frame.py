@@ -418,13 +418,16 @@ def test_direct_frame_shadows_darken(direct_frames):
 
 
 @pytest.mark.parametrize("argv", [["--multichip"]])
-def test_app_refuses_unported_flags(argv):
-    """``python -m vri_tpu_torch.app`` exits with 2 on a flag whose path is
-    not ported (the sharded frame, ROADMAP.md item 7(b)), before it loads
-    anything."""
+def test_app_refuses_unported_flags(argv, monkeypatch):
+    """Every flag of ``python -m vri_tpu_torch.app`` is ported; the sharded
+    frame (``--multichip``) renders on the card only: on a host without
+    one its mesh refuses to start, before the app loads anything (no
+    fallback to the CPU)."""
     from vri_tpu_torch import app
 
-    assert app.main(argv) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        app.main(argv)
 
 
 @pytest.mark.parametrize("argv", [["--no-gi"], ["--backend", "bvh"],
@@ -433,15 +436,16 @@ def test_app_refuses_unported_flags(argv):
                                   ["--builtin", "animated"],
                                   ["--cache", "scene.cache"],
                                   ["--trace", "trace_dir"],
-                                  ["--sdf", "tiny"]])
+                                  ["--sdf", "tiny"], ["--multichip"]])
 def test_app_takes_ported_flags(argv):
     """The direct-only frame, the BVH backend, the SDF debug views, LOD
-    chains, the animated builtin, the scene cache, the profiler trace and
-    the tiny preset's dense SDF build parse and are ported."""
+    chains, the animated builtin, the scene cache, the profiler trace,
+    the tiny preset's dense SDF build and the sharded frame parse and are
+    ported."""
     from vri_tpu_torch import app
 
     args = app.parse_args(argv)
-    assert app._unported(args) == []
+    assert args.multichip == ("--multichip" in argv)
     assert args.no_gi == ("--no-gi" in argv)
     assert args.backend == ("bvh" if "bvh" in argv else "raster")
     assert args.mode == (argv[1] if "--mode" in argv else "none")

@@ -13,8 +13,12 @@ taking the bounded SDF update.  ``--cache PATH`` loads the scene cache
 when the file exists and writes it after the stage loads otherwise;
 ``--trace DIR`` records a ``torch.profiler`` trace of the frames.  Every
 tenth frame logs the frame rate and the card's allocated bytes.
-``--multichip`` (ROADMAP.md, "What comes next", item 7(b)) is not ported
-yet and exits with an error naming it.  It renders on the CUDA card.
+``--multichip`` renders one GI frame with its rows sharded over the ranks
+of the launch (``parallel.tiling.render_frame_tiled``; the height rounded
+down to a multiple of 8 x ranks) and rank 0 writes ``multichip.png``:
+without ``torchrun`` it is a mesh of one rank, under ``torchrun
+--nproc-per-node N`` each rank takes ``cuda:LOCAL_RANK`` over ``nccl``.
+It renders on the CUDA card.
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ def parse_args(argv=None):
     p.add_argument("--progressive", action="store_true",
                    help="accumulate frames instead of re-rendering")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the framebuffer over several devices (not "
-                        "ported: ROADMAP.md item 7(b))")
+                   help="shard the framebuffer rows over the ranks of the "
+                        "launch (torchrun; one card a rank)")
     p.add_argument("--lod", type=int, default=0, metavar="LEVELS",
                    help="pack N decimated LOD levels per mesh; each "
                         "instance renders the coarsest level within "
@@ -72,20 +76,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _unported(args) -> list:
-    return ["--multichip"] if args.multichip else []
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="[%(levelname)s] %(message)s")
     log = logging.getLogger("vri_tpu_torch")
-    bad = _unported(args)
-    if bad:
-        log.error("not ported yet: %s (see ROADMAP.md)", ", ".join(bad))
-        return 2
 
     from vri_tpu_torch.config import DebugMode, RenderConfig, SDFConfig
     from vri_tpu_torch.hydra.camera import FreeCamera
@@ -98,7 +94,12 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height,
                        sdf=SDFConfig.preset(args.sdf),
                        lod_levels=args.lod, lod_tau=args.lod_tau)
-    renderer = Renderer(cfg, device="cuda")
+    mesh = None
+    if args.multichip:
+        from vri_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+    renderer = Renderer(cfg, device=mesh.device if mesh else "cuda")
     if args.cache and os.path.exists(args.cache):
         with profiler.span("load_cache", log_ms=True):
             renderer.load_cache(args.cache)
@@ -123,7 +124,9 @@ def main(argv=None) -> int:
     aspect = args.width / args.height
     if args.trace:
         profiler.start_trace(args.trace)
-    if args.progressive:
+    if mesh is not None:
+        _multichip(args, renderer, mesh, log)
+    elif args.progressive:
         img = renderer.render_progressive(args.frames, samples=args.samples,
                                           backend=args.backend)
         path = os.path.join(args.out, "progressive.png")
@@ -152,7 +155,36 @@ def main(argv=None) -> int:
         profiler.stop_trace()
     log.info("scene device bytes: %d",
              renderer.delegate.registry.device_bytes())
+    if mesh is not None:
+        from vri_tpu_torch.parallel.mesh import close
+
+        close(mesh)
     return 0
+
+
+def _multichip(args, renderer, mesh, log) -> None:
+    """One GI frame with its rows sharded over ``mesh``; every rank loads
+    the stage and builds the cascades itself, rank 0 writes the frame."""
+    from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.parallel import tiling
+    from vri_tpu_torch.passes.frame import FrameParams
+    from vri_tpu_torch.utils.image import write_png
+
+    n = mesh.size
+    h = (args.height // (8 * n)) * 8 * n or 8 * n
+    cam = renderer.camera or FreeCamera().at_time(0.0,
+                                                  args.width / args.height)
+    cascades = renderer.ensure_cascades(eye=cam.eye)
+    out = tiling.render_frame_tiled(
+        renderer.scene, FrameParams.from_camera(cam, h, device=mesh.device),
+        cascades, mesh=mesh, height=h, width=args.width,
+        config=renderer.config.sdf, gi=not args.no_gi, samples=args.samples)
+    if mesh.rank == 0:
+        path = os.path.join(args.out, "multichip.png")
+        write_png(path, out["color"].cpu().numpy())
+        rays, hits = (int(v) for v in out["stats"].tolist())
+        log.info("multichip frame over %d device(s): %s | rays %d hits %d",
+                 n, path, rays, hits)
 
 
 if __name__ == "__main__":

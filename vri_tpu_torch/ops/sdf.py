@@ -406,7 +406,8 @@ def lighting_dirty_bricks(cascades: SDFCascades, scene, dirty_lo, dirty_hi,
 
 def bake_brick_lighting_partial(cascades: SDFCascades, scene, mask, alive, *,
                                 config: SDFConfig, cap: int = 16384,
-                                shadow_steps: int = 32):
+                                shadow_steps: int = 32,
+                                axis_name: tuple | None = None):
     """Re-bake the irradiance and visibility of only the live bricks in
     ``mask`` (the animated frame's payload-dirty and lighting-dirty sets);
     every other brick keeps its baked values, so the shadow march scales
@@ -414,7 +415,14 @@ def bake_brick_lighting_partial(cascades: SDFCascades, scene, mask, alive, *,
     re-baked and the rest counted.  Returns (cascades, dropped): a
     non-zero ``dropped`` means the caller must fall back to the full
     bake.  The voxel-indexed shading table is rebuilt from the merged
-    rows as the full bake builds it."""
+    rows as the full bake builds it.
+
+    ``axis_name=(axis, n)`` splits the re-baked bricks over the ``n`` ranks
+    of a mesh axis as the JAX function does (``vri_tpu/ops/sdf.py:
+    540-566``): rank i marches entries [i * cap / n, (i + 1) * cap / n) of
+    the first ``cap``, and one all_gather merges them (each share padded
+    to cap / n).  ``(None, n)`` is the single-device measurement proxy: it
+    re-bakes and scatters share 0 alone."""
     from vri_tpu_torch.ops import gi as gi_mod
 
     pos = torch.nonzero(mask & alive).reshape(-1)
@@ -422,17 +430,37 @@ def bake_brick_lighting_partial(cascades: SDFCascades, scene, mask, alive, *,
     pos = pos[:cap]
     irr_all = cascades.brick_irradiance.clone()
     vis_all = cascades.brick_light_vis.clone()
-    if pos.shape[0]:
+
+    def bake(ids):
+        if not ids.shape[0]:
+            return (cascades.brick_irradiance[:0],
+                    cascades.brick_light_vis[:0])
         centers, _ = brick_positions(cascades, config)
-        c = centers[pos]
-        nrm = cascades.brick_normal[pos]
+        c = centers[ids]
+        nrm = cascades.brick_normal[ids]
         bias = gi_mod.surface_bias(c, cascades, config)[:, None]
-        irr, vis = gi_mod.direct_radiance(c + nrm * bias, nrm, scene,
-                                          cascades, config,
-                                          shadow_steps=shadow_steps,
-                                          return_visibility=True)
-        irr_all[pos] = irr
-        vis_all[pos] = vis
+        return gi_mod.direct_radiance(c + nrm * bias, nrm, scene, cascades,
+                                      config, shadow_steps=shadow_steps,
+                                      return_visibility=True)
+
+    if axis_name is None:
+        irr, vis = bake(pos)
+    else:
+        from vri_tpu_torch.parallel import mesh as mesh_mod
+
+        ax, n_shard = axis_name
+        if cap % n_shard:
+            raise ValueError(f"bake cap {cap} must divide over {n_shard} "
+                             "devices")
+        per = cap // n_shard
+        i = 0 if ax is None else ax.index
+        pos = pos[i * per:(i + 1) * per]
+        irr, vis = bake(pos)
+        if ax is not None:
+            pos, (irr, vis) = mesh_mod.gather_padded(pos, (irr, vis), per,
+                                                     ax)
+    irr_all[pos] = irr
+    vis_all[pos] = vis
     return _with_lighting(cascades, irr_all, vis_all, alive), dropped
 
 

@@ -673,7 +673,8 @@ def _cell_meta(cell_ids, origins, vs, r):
 
 def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
                        new_tris, new_count, tris, table, origins, vs,
-                       config: SDFConfig, dirty_lo=None, dirty_hi=None):
+                       config: SDFConfig, dirty_lo=None, dirty_hi=None,
+                       axis_name: tuple | None = None):
     """Shared bounded-update core: install the new lists of ``cell_ids``
     (global cell ids (C,), every one live), diff the cells' occupancy,
     re-allocate bricks through the free-slot pool, re-emit the affected
@@ -683,7 +684,12 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
 
     The JAX function pads the cells to ``update_cell_cap`` and the emit
     set to ``update_brick_cap``; pad lanes change nothing, so the port
-    works on the live cells and emits the live bricks only."""
+    works on the live cells and emits the live bricks only.
+
+    ``axis_name=(axis, n)`` splits the emit over the ``n`` ranks of the
+    mesh axis ``axis`` (:func:`_emit_share`); ``(None, n)`` is the
+    single-device measurement proxy, which emits and scatters share 0 of
+    ``n`` only."""
     r = config.cascade_resolution
     s3 = (r // 16) ** 3
     max_bricks = config.max_bricks
@@ -757,15 +763,19 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
         emit_mask = emit_mask & near
     epos, emit_overflow = _first(emit_mask.reshape(-1),
                                  config.update_brick_cap)
-    ebrick = bm_flat[vox.reshape(-1)[epos]].long()
-    ebrick = ebrick[ebrick >= 0]
+    elist = bm_flat[vox.reshape(-1)[epos]].long()
+    ebrick = elist[elist >= 0]
     emit_bricks = torch.zeros((max_bricks,), dtype=torch.bool,
                               device=cid.device)
     emit_bricks[ebrick] = True
     state = dataclasses.replace(state, emit_bricks=emit_bricks)
 
-    blocks, albs, emis, nrms, near_drop = _emit_bricks(
-        ebrick, brick_voxel, state, origins, vs, tris, config)
+    if axis_name is None:
+        blocks, albs, emis, nrms, near_drop = _emit_bricks(
+            ebrick, brick_voxel, state, origins, vs, tris, config)
+    else:
+        ebrick, (blocks, albs, emis, nrms, near_drop) = _emit_share(
+            elist, axis_name, brick_voxel, state, origins, vs, tris, config)
     atlas = cascades.atlas.clone()
     atlas[ebrick] = blocks
     brick_albedo = cascades.brick_albedo.clone()
@@ -786,10 +796,47 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
     return cascades, state, emit_overflow
 
 
+#: the JAX package's emit block (``update_cascades(brick_block=256)``): its
+#: sharded emit splits the padded list in whole blocks
+_EMIT_BLOCK = 256
+
+
+def _emit_share(elist, axis_name, brick_voxel, state, origins, vs, tris,
+                config: SDFConfig):
+    """The sharded emit of the JAX package (``vri_tpu/ops/sdf_build.py:
+    682-715``): of the emit list ``elist`` (the first ``update_brick_cap``
+    emit voxels' bricks, in order; < 0 where a voxel got no brick) rank i
+    of ``n`` emits entries [i * per, (i + 1) * per), ``per`` being a
+    whole number of 256-entry blocks of the padded list, and one
+    all_gather (each share padded to ``per``, the pads' ids -1) rebuilds
+    the set; ``near_drop`` is summed over the axis.  A brick's emit
+    depends on nothing outside it, so the merged rows equal the unsharded
+    emit's.  With the live bricks first and the pads last, a small emit
+    set lands on the first ranks.  ``(None, n)`` emits share 0 alone (the
+    measurement proxy).  Returns (bricks, (rows..., near_drop))."""
+    from vri_tpu_torch.parallel import mesh as mesh_mod
+
+    ax, n_shard = axis_name
+    nb = -(-config.update_brick_cap // _EMIT_BLOCK)
+    if nb % n_shard:
+        raise ValueError(f"update_brick_cap blocks {nb} must divide over "
+                         f"{n_shard} devices")
+    per = nb // n_shard * _EMIT_BLOCK
+    i = 0 if ax is None else ax.index
+    mine = elist[i * per:(i + 1) * per]
+    mine = mine[mine >= 0]
+    *rows, near_drop = _emit_bricks(mine, brick_voxel, state, origins, vs,
+                                    tris, config)
+    if ax is None:
+        return mine, (*rows, near_drop)
+    bricks, rows = mesh_mod.gather_padded(mine, rows, per, ax)
+    return bricks, (*rows, mesh_mod.psum(near_drop, ax))
+
+
 def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
                     tri_vertices, num_faces, dirty_tri_mask, dirty_lo,
                     dirty_hi, *, tri_albedo=None, tri_emissive=None,
-                    config: SDFConfig):
+                    config: SDFConfig, axis_name: tuple | None = None):
     """Bounded incremental cascade update.
 
     ``dirty_tri_mask`` (F,) marks the triangles whose data changed;
@@ -801,7 +848,10 @@ def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
     ``update_cell_cap``, re-binned or global references dropped, bricks to
     emit past ``update_brick_cap``) and the caller must rebuild with
     ``build_cascades_binned``.  A merged cell list longer than K keeps K
-    and counts the rest in ``list_overflow``, as a full build does."""
+    and counts the rest in ``list_overflow``, as a full build does.
+    ``axis_name=(axis, n)`` splits the re-emit over a mesh axis, every
+    rank deriving the same lists and allocation (``(None, n)``: the
+    one-device proxy of one rank's share; see :func:`_apply_dirty_cells`)."""
     n_cas = config.num_cascades
     r = config.cascade_resolution
     K = config.cell_list_cap
@@ -884,7 +934,8 @@ def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
     cascades, state, emit_overflow = _apply_dirty_cells(
         cascades, state, cid, new_tris, new_count,
         (a, b, c, valid, tri_albedo, tri_emissive, tri_n), table, origins,
-        vs, config, dirty_lo=dirty_lo, dirty_hi=dirty_hi)
+        vs, config, dirty_lo=dirty_lo, dirty_hi=dirty_hi,
+        axis_name=axis_name)
     return cascades, state, needs_full + emit_overflow
 
 

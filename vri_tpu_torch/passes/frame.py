@@ -23,9 +23,8 @@ masks, through the LBVH (``backend="bvh"``, one ``bvh_traverse`` launch;
 like the reference's, it does no backface culling) and through the
 brute-force tracer.  The dispatch thresholds were tuned for the TPU; the
 port keeps them so that it takes the reference's tier at every shape.
-Still to port (ROADMAP.md, "What comes next", item 7(b)): the sharded
-frames over several devices, which give each device a band through
-``gi_band_inputs``.
+The frames sharded over several devices (``parallel/tiling.py``) render
+each device's band through the same functions.
 """
 
 from __future__ import annotations
@@ -498,14 +497,20 @@ def pack_temporal(indirect, depth, normal, count, view_proj, eye
 
 def _reproject(state: TemporalState, position, normal, valid, height: int,
                width: int, depth_tol: float = 0.02, y0: int = 0,
-               proj_height: int | None = None, query_y0=0):
+               proj_height: int | None = None, query_y0=0, halo: int = 0):
     """Bilinear history fetch at each point reprojected through the
     previous frame's camera.  A tap counts only inside the screen, at a
     depth within the (velocity-widened) tolerance, with a normal within
     60 degrees and a history of its own; invalid taps drop out of the
     weights and a pixel whose taps weigh 0.05 or less restarts (count
     0).  The history covers rows [y0, y0 + height) of a ``proj_height``
-    frame; the queries are rows [query_y0, ...) of the history.
+    frame; the queries are rows [query_y0, ...) of the history.  With
+    ``halo`` the history carries ``halo`` more rows above and below those
+    (a sharded frame's ghost rows from the neighbouring bands): the taps
+    are found in the band's coordinates and read ``halo`` rows down, so
+    the weights round as without them.  (The JAX sharded frame instead
+    moves ``y0`` up by the halo and grows ``height``, which rounds the
+    bilinear weights an ulp apart from the single-device frame's.)
 
     As the JAX function: the two taps of a row come from one gathered
     pair of history rows, [data[i] | data[i + 1]] (the last row pairs with
@@ -538,10 +543,12 @@ def _reproject(state: TemporalState, position, normal, valid, height: int,
                        dim=1)
     xw = torch.clamp(x0, 0, max(width - 2, 0))
 
+    rows = height + 2 * halo
+
     def row_taps(dy):
-        yi = y0i + dy
-        y_in = (w > 1e-6) & (yi >= 0) & (yi < height)
-        h = paired[(torch.clamp(yi, 0, height - 1) * width + xw).long()]
+        yi = y0i + dy + halo
+        y_in = (w > 1e-6) & (yi >= 0) & (yi < rows)
+        h = paired[(torch.clamp(yi, 0, rows - 1) * width + xw).long()]
         out = []
         for dx in (0, 1):
             si = x0 + dx - xw                      # window slot, 0 or 1
@@ -679,7 +686,8 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
                             band=None, lod_tau: float = 0.75,
                             rebake: bool = True,
                             generator: torch.Generator | None = None,
-                            uniforms: torch.Tensor | None = None):
+                            uniforms: torch.Tensor | None = None,
+                            shard_proxy: int | None = None):
     """One animated production frame: the bounded SDF cascade update over
     the moved geometry, the radiance re-bake of the bricks it re-emitted
     and of those whose shadow segment crosses a dirty box, then the
@@ -695,24 +703,31 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
     (aovs, new_temporal, cascades, build_state, needs_full); a non-zero
     ``needs_full`` means a capacity was exceeded (a re-bake set past
     ``bake_brick_cap`` included) and the caller must rebuild the
-    cascades.  The JAX function's ``shard_proxy`` belongs to the sharded
-    frames (ROADMAP.md, "What comes next", item 7(b))."""
+    cascades.
+
+    ``shard_proxy=n`` is the single-device measurement proxy of the n-way
+    sharded animated frame (``parallel/tiling.render_frame_tiled_dynamic``):
+    the update emits and the re-bake marches one device's share (share 0
+    of n) and only that share reaches the atlas, so it times one device's
+    body on one device.  It is not a production mode."""
     from vri_tpu_torch.ops import sdf as sdf_mod
     from vri_tpu_torch.ops import sdf_build
 
+    ax = (None, shard_proxy) if shard_proxy else None
     world_verts = bake_world(scene)
     mat = scene.instance_material[scene.tri_instance.long()].long()
     cascades, build_state, needs_full = sdf_build.update_cascades(
         cascades, build_state, world_verts, scene.tri_vertices,
         scene.num_faces, dirty_tri, dirty_lo, dirty_hi,
         tri_albedo=scene.mat_base_color[mat],
-        tri_emissive=scene.mat_emissive[mat], config=config)
+        tri_emissive=scene.mat_emissive[mat], config=config, axis_name=ax)
     if rebake:
         light_dirty = sdf_mod.lighting_dirty_bricks(
             cascades, scene, dirty_lo, dirty_hi, config=config)
         cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
             cascades, scene, build_state.emit_bricks | light_dirty,
-            build_state.alive, config=config, cap=config.bake_brick_cap)
+            build_state.alive, config=config, cap=config.bake_brick_cap,
+            axis_name=ax)
         needs_full = needs_full + bake_drop
     aovs, new_state = render_frame_gi_temporal(
         scene, frame, cascades, state, height=height, width=width,
