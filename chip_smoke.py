@@ -210,7 +210,8 @@ band frame in phase 23), each fatal on failure:
     file's bytes; ``validate_scene`` without errors;
 28. the app on Cornell 512^2: ``--sdf tiny``, ``--cache`` written then
     read (no stage load), and ``--trace``, whose Chrome trace holds the
-    ``frame0`` span and the names of kernel R's and M's CUDA functions;
+    program's ``frame``, ``visibility`` and ``gbuffer`` spans and the
+    names of kernel R's and M's CUDA functions;
     ``device_memory_stats()`` reports ``cuda:0``;
 29. multi-device, on phase 7's kitchen, cascades and build state (one
     file of CPU tensors the ranks load; no rank builds), the ranks
@@ -2223,8 +2224,9 @@ def _app_runtime(card: str, out_dir: str) -> None:
     ``--sdf tiny``, with ``--cache`` (written, then read without loading
     the stage) and with ``--trace`` (at the tiny preset, which keeps the
     trace of the first frame's SDF build small): each exits 0 with its
-    PNG; the trace holds the ``frame0`` span and the names of kernel R's
-    and kernel M's CUDA functions, and ``device_memory_stats()`` reports
+    PNG; the trace holds the program's ``frame``, ``visibility`` and
+    ``gbuffer`` spans and the names of kernel R's and kernel M's CUDA
+    functions, and ``device_memory_stats()`` reports
     ``cuda:0``."""
     import glob
 
@@ -2268,12 +2270,14 @@ def _app_runtime(card: str, out_dir: str) -> None:
     os.remove(cpath)
     kernels = {k: any(k in n for n in names)
                for k in ("raster_tiles_kernel", "march_rays_kernel")}
-    _check("frame0" in names and all(kernels.values()),
-           f"app --trace: frame0 {'frame0' in names}, kernels {kernels}")
+    spans = {k: k in names for k in ("frame", "visibility", "gbuffer")}
+    _check(all(spans.values()) and all(kernels.values()),
+           f"app --trace: spans {spans}, kernels {kernels}")
     mem = profiler.device_memory_stats()
     _check("cuda:0" in mem, f"device_memory_stats: {mem}")
-    print(f"  app --trace: a {tbytes}-byte Chrome trace holding the frame0 "
-          f"span, raster_tiles_kernel and march_rays_kernel; "
+    print(f"  app --trace: a {tbytes}-byte Chrome trace holding the frame, "
+          f"visibility and gbuffer spans, raster_tiles_kernel and "
+          f"march_rays_kernel; "
           f"device_memory_stats {mem} [{card}]")
 
 

@@ -451,3 +451,81 @@ def test_app_takes_ported_flags(argv):
     assert args.mode == (argv[1] if "--mode" in argv else "none")
     assert args.lod == (int(argv[1]) if "--lod" in argv else 0)
     assert args.builtin == (argv[1] if "--builtin" in argv else "cornell")
+
+
+# -- the frame's spans -----------------------------------------------------------
+
+#: a small kitchen with a sparse two-cascade SDF and room for the bounded
+#: update of one prop
+SPAN_SDF = vri_tpu_torch.SDFConfig(
+    num_cascades=2, cascade_resolution=16, brick_size=8, max_bricks=8192,
+    base_voxel_size=0.3, truncation_voxels=1.0, max_triangles_per_brick=16,
+    march_max_steps=64, update_cell_cap=4096, update_brick_cap=8192,
+    update_tri_cap=4096)
+STAGES = ["visibility", "gbuffer", "direct", "indirect", "history"]
+
+
+def _kitchen_frame_args(entry):
+    """A frame call of ``entry`` on the small kitchen at 32x48 (the
+    dynamic frame marks the smallest prop dirty over its own box)."""
+    import torch
+
+    from vri_tpu_torch.passes import frame as tframe
+
+    r = Renderer(vri_tpu_torch.RenderConfig(width=48, height=32,
+                                            sdf=SPAN_SDF), device="cpu")
+    r.load_stage(vri_tpu_torch.scenes.kitchen_stress(num_objects=6, seed=7,
+                                                     tess=2))
+    cas = r.ensure_cascades()
+    s = r.scene
+    fp = tframe.FrameParams.from_camera(r.camera, 32, device="cpu")
+    state = tframe.init_temporal(32, 48, 2, device="cpu")
+    # the build's own configuration: its list caps scaled to the demand
+    cfg = r._sdf_cfg_effective or SPAN_SDF
+    kw = dict(height=32, width=48, config=cfg, samples=1, gi_scale=2,
+              use_cache=True, uniforms=torch.rand((1, 16 * 24, 2)))
+    if entry == "temporal":
+        return lambda: tframe.render_frame_gi_temporal(s, fp, cas, state,
+                                                       **kw)
+    ni = int(s.num_instances)
+    lo, hi = s.instance_aabb_lo[:ni], s.instance_aabb_hi[:ni]
+    k = int(torch.argmin((hi - lo).amax(-1)))
+    dlo = torch.full((2, 3), 3.0e38)
+    dhi = torch.full((2, 3), -3.0e38)
+    dlo[0], dhi[0] = lo[k], hi[k]
+    dirty = s.tri_instance == k
+    return lambda: tframe.render_frame_gi_dynamic(
+        s, fp, cas, r._build_state, state, dirty, dlo, dhi, **kw)
+
+
+@pytest.mark.parametrize("entry", ["temporal", "dynamic"])
+def test_frame_span_tree(entry):
+    """Each call of a production frame records one ``frame`` root whose
+    children are its stages in order (the dynamic frame's SDF update and
+    re-bake first), every span of the call sharing the root's frame id
+    and lying inside its parent."""
+    from vri_tpu_torch.runtime import profiler
+
+    call = _kitchen_frame_args(entry)
+    profiler.start_recording()
+    try:
+        call()
+        call()
+    finally:
+        recs = profiler.stop_recording()
+    roots = [i for i, r in enumerate(recs) if r.parent == -1]
+    assert [recs[i].name for i in roots] == ["frame", "frame"]
+    assert [recs[i].frame for i in roots] == [0, 1]
+    want = (["sdf_update", "rebake"] if entry == "dynamic" else []) + STAGES
+    for i in roots:
+        assert [r.name for r in recs if r.parent == i] == want
+    names = {r.name for r in recs}
+    assert ("sdf.emit" in names) == (entry == "dynamic")
+    for i, r in enumerate(recs):
+        assert r.host_start_ns < r.host_end_ns
+        assert r.device_start_s is None and r.device_end_s is None
+        if r.parent >= 0:
+            p = recs[r.parent]
+            assert p.host_start_ns <= r.host_start_ns
+            assert r.host_end_ns <= p.host_end_ns
+            assert r.frame == p.frame and r.parent < i

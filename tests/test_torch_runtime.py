@@ -206,6 +206,90 @@ def test_span_trace_and_stats(tmp_path):
         assert profiler.device_memory_stats() == {}
 
 
+def test_spans_off_are_free_and_unseen():
+    """With neither a trace nor a recording running a span is the shared
+    null context: nothing is recorded, and a bare ``torch.profiler`` run
+    sees no span name."""
+    assert profiler.span("vri_off") is profiler.span("other")
+    frame = profiler.frame_root(lambda: torch.ones(8).sum())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiler.span("vri_off_span"):
+            frame()
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::sum" in names
+    assert not names & {"vri_off_span", "frame"}
+    profiler.start_recording()
+    recs = profiler.stop_recording()
+    assert recs == []
+
+
+def test_recording_keeps_the_span_tree():
+    """Spans recorded in memory: parents, one frame id a frame, one root
+    however deep the frame functions nest, spans outside a frame at -1,
+    and a span still open when the recording stops ended then."""
+    @profiler.frame_root
+    def outer():
+        with profiler.span("a"):
+            with profiler.span("b"):
+                pass
+        with profiler.span("c"):
+            pass
+
+    @profiler.frame_root
+    def stops():
+        outer()
+        with profiler.span("open"):
+            return profiler.stop_recording()
+
+    profiler.start_recording()
+    with pytest.raises(RuntimeError):
+        profiler.start_recording()
+    outer()
+    with profiler.span("outside"):
+        pass
+    recs = stops()
+    with pytest.raises(RuntimeError):
+        profiler.stop_recording()
+    got = [(r.name, r.parent, r.frame) for r in recs]
+    assert got == [("frame", -1, 0), ("a", 0, 0), ("b", 1, 0), ("c", 0, 0),
+                   ("outside", -1, -1), ("frame", -1, 1), ("a", 5, 1),
+                   ("b", 6, 1), ("c", 5, 1), ("open", 5, 1)]
+    assert all(r.host_end_ns >= r.host_start_ns > 0 for r in recs)
+    # the spans open at the stop ended then; a later frame opens a root
+    assert recs[-1].host_end_ns >= recs[-2].host_end_ns
+    assert recs[5].host_end_ns >= recs[-1].host_end_ns
+    assert profiler.span("x") is profiler.span("y")
+    profiler.start_recording()
+    outer()
+    assert [r.name for r in profiler.stop_recording()] == [
+        "frame", "a", "b", "c"]
+
+
+def test_sparse_build_records_emit_and_bake():
+    """The sparse SDF build of a small kitchen records one ``sdf.emit``
+    (its bricks) and one ``sdf.bake`` (the radiance bake)."""
+    from vri_tpu_torch import RenderConfig as TConfig
+    from vri_tpu_torch import SDFConfig as TSDF
+    from vri_tpu_torch import scenes as tscenes
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.renderer import Renderer
+
+    cfg = TSDF(num_cascades=2, cascade_resolution=16, base_voxel_size=0.3,
+               truncation_voxels=1.0, max_bricks=8192)
+    assert sdf_build.supports(cfg)
+    r = Renderer(TConfig(width=32, height=24, sdf=cfg), device="cpu")
+    r.load_stage(tscenes.kitchen_stress(num_objects=6, seed=7, tess=2))
+    profiler.start_recording()
+    try:
+        r.ensure_cascades()
+    finally:
+        recs = profiler.stop_recording()
+    assert r.last_build_label == "rebuilt"
+    assert [(x.name, x.parent, x.frame) for x in recs] == [
+        ("sdf.emit", -1, -1), ("sdf.bake", -1, -1)]
+
+
 # -- render_to_numpy -------------------------------------------------------------
 
 def test_render_to_numpy_matches():
@@ -277,7 +361,7 @@ def test_app_trace(tmp_path, cpu_app):
     (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "frame0" in names
+    assert "frame" in names     # the program's root span of each frame
 
 
 def test_app_sdf_tiny(tmp_path, cpu_app):

@@ -11,7 +11,8 @@ instance at the coarsest level within ``--lod-tau`` pixels of error; the
 ``animated`` builtin advances one time code a frame, its moving props
 taking the bounded SDF update.  ``--cache PATH`` loads the scene cache
 when the file exists and writes it after the stage loads otherwise;
-``--trace DIR`` records a ``torch.profiler`` trace of the frames.  Every
+``--trace DIR`` records a ``torch.profiler`` trace of the frames, each
+under the program's ``frame`` span with its stages inside.  Every
 tenth frame logs the frame rate and the card's allocated bytes.
 ``--multichip`` renders one GI frame with its rows sharded over the ranks
 of the launch (``parallel.tiling.render_frame_tiled``; the height rounded
@@ -140,11 +141,9 @@ def main(argv=None) -> int:
             # authored timeSamples (the "animated" builtin) advance one
             # time code a frame
             tc = float(i) if args.builtin == "animated" else None
-            with profiler.span(f"frame{i}"):
-                aovs = renderer.render(camera=cam, mode=mode,
-                                       gi=not args.no_gi,
-                                       samples=args.samples,
-                                       backend=args.backend, time_code=tc)
+            aovs = renderer.render(camera=cam, mode=mode, gi=not args.no_gi,
+                                   samples=args.samples,
+                                   backend=args.backend, time_code=tc)
             path = os.path.join(args.out, f"frame_{i:04d}.png")
             write_png(path, aovs["color"], tonemapped=mode != DebugMode.NONE)
             if i % 10 == 0 or i == args.frames - 1:

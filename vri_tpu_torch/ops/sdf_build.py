@@ -39,6 +39,7 @@ from vri_tpu_torch.ops import geometry
 from vri_tpu_torch.ops.geometry import cross, dot3, norm3
 from vri_tpu_torch.ops.sdf import (BIG, SDFCascades, _min_pool_iter,
                                    build_march_tables, cascade_origin)
+from vri_tpu_torch.runtime import profiler
 
 # Row layout of the per-slot reference tables: lo3 hi3 n3 nda id
 ROW = 11
@@ -402,25 +403,28 @@ def _emit_bricks(bids, brick_voxel, state: BuildState, origins, vs, tris,
     candidate count (27 cell lists + the global list per brick); per-brick
     results do not depend on the blocking.  ``tris`` is (a, b, c, valid,
     tri_albedo, tri_emissive, tri_n).  Returns (atlas rows, albedo,
-    emissive, normal, near_drop)."""
-    K = state.cell_tris.shape[-1]
-    Kg = state.glob_tris.shape[-1]
-    n = bids.shape[0]
-    block = max(1, min(1024, n, _WORK_ELEMS // (ROW * (27 * K + Kg))))
-    outs = [_emit_block(bids[b0:b0 + block],
-                        torch.ones_like(bids[b0:b0 + block], dtype=torch.bool),
-                        brick_voxel, state, origins, vs, *tris, config)
-            for b0 in range(0, n, block)]
-    if not outs:
-        bsz = config.brick_size
-        empty = torch.zeros((0, 3), dtype=torch.float32, device=bids.device)
-        return (torch.zeros((0, bsz, bsz, bsz),
-                            dtype=torch.uint8 if config.atlas_u8
-                            else torch.float32, device=bids.device),
-                empty, empty, empty,
-                torch.zeros((), dtype=torch.int64, device=bids.device))
-    return (*(torch.cat([o[k] for o in outs]) for k in range(4)),
-            sum(o[4] for o in outs))
+    emissive, normal, near_drop).  Span ``sdf.emit``."""
+    with profiler.span("sdf.emit"):
+        K = state.cell_tris.shape[-1]
+        Kg = state.glob_tris.shape[-1]
+        n = bids.shape[0]
+        block = max(1, min(1024, n, _WORK_ELEMS // (ROW * (27 * K + Kg))))
+        outs = [_emit_block(bids[b0:b0 + block],
+                            torch.ones_like(bids[b0:b0 + block],
+                                            dtype=torch.bool),
+                            brick_voxel, state, origins, vs, *tris, config)
+                for b0 in range(0, n, block)]
+        if not outs:
+            bsz = config.brick_size
+            empty = torch.zeros((0, 3), dtype=torch.float32,
+                                device=bids.device)
+            return (torch.zeros((0, bsz, bsz, bsz),
+                                dtype=torch.uint8 if config.atlas_u8
+                                else torch.float32, device=bids.device),
+                    empty, empty, empty,
+                    torch.zeros((), dtype=torch.int64, device=bids.device))
+        return (*(torch.cat([o[k] for o in outs]) for k in range(4)),
+                sum(o[4] for o in outs))
 
 
 def _prep_tris(world_verts, tri_vertices, num_faces, tri_albedo,

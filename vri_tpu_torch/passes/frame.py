@@ -44,6 +44,7 @@ from vri_tpu_torch.ops import trace as trace_mod
 from vri_tpu_torch.ops import rasterize as raster_mod
 from vri_tpu_torch.ops.geometry import norm3
 from vri_tpu_torch.registry import SceneBuffers, bake_world
+from vri_tpu_torch.runtime import profiler
 
 # face pools at or above this size are frustum-culled and compacted
 # before setup (``vri_tpu/passes/frame.py:124``)
@@ -363,17 +364,19 @@ def _upsample(a, hs: int, ws: int, s: int):
 def _direct_lighting(gb, scene, cascades, config, height: int, width: int):
     """Direct light with the shadow march at ``config.shadow_scale``: the
     march runs on the strided pixel subset and its visibility factors
-    are upsampled; N.L, falloff and colours stay full-rate."""
+    are upsampled; N.L, falloff and colours stay full-rate (span
+    ``direct``)."""
     ss = config.shadow_scale
-    if ss <= 1:
-        return gi_mod.direct_radiance(gb.position, gb.normal, scene,
+    with profiler.span("direct"):
+        if ss <= 1:
+            return gi_mod.direct_radiance(gb.position, gb.normal, scene,
+                                          cascades, config)
+        sub, _ = _subsample_pn(gb, height, width, ss)
+        occ = gi_mod.shadow_occlusion(sub.position, sub.normal, scene,
                                       cascades, config)
-    sub, _ = _subsample_pn(gb, height, width, ss)
-    occ = gi_mod.shadow_occlusion(sub.position, sub.normal, scene,
-                                  cascades, config)
-    occ = _upsample(occ, height // ss, width // ss, ss)
-    return gi_mod.direct_radiance_analytic(gb.position, gb.normal, scene,
-                                           occ)
+        occ = _upsample(occ, height // ss, width // ss, ss)
+        return gi_mod.direct_radiance_analytic(gb.position, gb.normal,
+                                               scene, occ)
 
 
 def _gbuffer(scene: SceneBuffers, frame: FrameParams, height: int,
@@ -381,20 +384,24 @@ def _gbuffer(scene: SceneBuffers, frame: FrameParams, height: int,
              proj_height: int | None = None):
     """Camera rays -> visibility through ``backend`` -> G-buffer with
     world ray distances as depth, over rows [y0, y0 + height) of a
-    ``proj_height``-row frame (the whole frame by default)."""
-    world_verts = bake_world(scene)
-    origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
-                                       height, width, y0=y0,
-                                       proj_height=proj_height)
-    o = origins.reshape(-1, 3)
-    d = dirs.reshape(-1, 3)
-    hit = _visibility(scene, world_verts, frame, o, d, height, width,
-                      backend, lod_tau, y0=y0, proj_height=proj_height)
-    gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
-                                 pixel_spread=frame.pixel_spread)
-    # report the world-space ray distance (raster depth is NDC)
-    t = norm3(gb.position - frame.eye[None, :])
-    return hit, gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
+    ``proj_height``-row frame (the whole frame by default).  Spans
+    ``visibility`` (up to the hit record) and ``gbuffer``."""
+    with profiler.span("visibility"):
+        world_verts = bake_world(scene)
+        origins, dirs = raygen.camera_rays(frame.inv_view_proj, frame.eye,
+                                           height, width, y0=y0,
+                                           proj_height=proj_height)
+        o = origins.reshape(-1, 3)
+        d = dirs.reshape(-1, 3)
+        hit = _visibility(scene, world_verts, frame, o, d, height, width,
+                          backend, lod_tau, y0=y0, proj_height=proj_height)
+    with profiler.span("gbuffer"):
+        gb = shading.resolve_gbuffer(scene, world_verts, hit, o, d,
+                                     pixel_spread=frame.pixel_spread)
+        # report the world-space ray distance (raster depth is NDC)
+        t = norm3(gb.position - frame.eye[None, :])
+        gb = gb.replace(depth=torch.where(gb.valid, t, intersect.INF))
+    return hit, gb
 
 
 def render_frame_gi(scene: SceneBuffers, frame: FrameParams,
@@ -590,21 +597,25 @@ def gi_band_inputs(scene: SceneBuffers, frame: FrameParams, cascades, *,
     raster, every other backend (``"bvh"`` included) to the brute-force
     tracer.  ``y0`` / ``proj_height`` render the band of rows [y0, y0 +
     height) of a ``proj_height``-row frame (the whole frame by
-    default)."""
+    default).  Spans ``visibility``, ``gbuffer``, ``direct`` and
+    ``indirect``."""
     hit, gb = _gbuffer(scene, frame, height, width,
                        backend if backend.startswith("raster") else "brute",
                        lod_tau, y0=y0, proj_height=proj_height)
     direct = _direct_lighting(gb, scene, cascades, config, height, width)
-    if gi_scale > 1:
-        if height % gi_scale or width % gi_scale:
-            raise ValueError(f"gi_scale {gi_scale} must divide the frame "
-                             f"({height}x{width}; use an even band height)")
-        sub, valid_s = _subsample_pn(gb, height, width, gi_scale)
-    else:
-        sub, valid_s = gb, gb.valid
-    ind = gi_mod.indirect_radiance(sub, scene, cascades, config=config,
-                                   samples=samples, generator=generator,
-                                   uniforms=uniforms, use_cache=use_cache)
+    with profiler.span("indirect"):
+        if gi_scale > 1:
+            if height % gi_scale or width % gi_scale:
+                raise ValueError(
+                    f"gi_scale {gi_scale} must divide the frame "
+                    f"({height}x{width}; use an even band height)")
+            sub, valid_s = _subsample_pn(gb, height, width, gi_scale)
+        else:
+            sub, valid_s = gb, gb.valid
+        ind = gi_mod.indirect_radiance(sub, scene, cascades, config=config,
+                                       samples=samples, generator=generator,
+                                       uniforms=uniforms,
+                                       use_cache=use_cache)
     return hit, gb, direct, sub, valid_s, ind
 
 
@@ -614,6 +625,7 @@ def temporal_blend(ind, h_ind, h_count, history_cap: float):
     return h_ind + (ind - h_ind) / count[:, None], count
 
 
+@profiler.frame_root
 def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
                              cascades, state: TemporalState, *,
                              height: int, width: int, config,
@@ -634,49 +646,57 @@ def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
     ``band=(y0, full_height)`` renders rows [y0, y0 + height) of a
     ``full_height``-row frame, the per-device body of the row-sharded
     frame: the history covers the band only, and a pixel whose history
-    reprojects outside the band restarts."""
+    reprojects outside the band restarts.
+
+    Each call is one ``frame`` root span over the stages of
+    :func:`gi_band_inputs` and ``history`` (reprojection, blend, pack,
+    upsample and the final compose)."""
     y0, proj_h = band if band is not None else (0, None)
     hit, gb, direct, sub, valid_s, ind = gi_band_inputs(
         scene, frame, cascades, height=height, width=width, config=config,
         backend=backend, samples=samples, use_cache=use_cache,
         gi_scale=gi_scale, lod_tau=lod_tau, y0=y0, proj_height=proj_h,
         generator=generator, uniforms=uniforms)
-    if gi_scale <= 1:
-        h_ind, h_count = _reproject(state, gb.position, gb.normal, gb.valid,
-                                    height, width, y0=y0,
-                                    proj_height=proj_h)
-        ind_blend, count = temporal_blend(ind, h_ind, h_count, history_cap)
-        ind_state, t_s, n_s = ind_blend, gb.depth, gb.normal
-        count_full = count
-    else:
-        hs, ws = height // gi_scale, width // gi_scale
-        h_ind, h_count = _reproject(
-            state, sub.position, sub.normal, valid_s, hs, ws,
-            y0=y0 // gi_scale,
-            proj_height=None if proj_h is None else proj_h // gi_scale)
-        ind_state, count = temporal_blend(ind, h_ind, h_count, history_cap)
-        t_s = norm3(sub.position - frame.eye[None, :])
-        n_s = sub.normal
-        ind_blend = _upsample(ind_state, hs, ws, gi_scale)
-        count_full = _upsample(count, hs, ws, gi_scale)
-    new_state = pack_temporal(ind_state, t_s, n_s, count, frame.view_proj,
-                              frame.eye)
+    with profiler.span("history"):
+        if gi_scale <= 1:
+            h_ind, h_count = _reproject(state, gb.position, gb.normal,
+                                        gb.valid, height, width, y0=y0,
+                                        proj_height=proj_h)
+            ind_blend, count = temporal_blend(ind, h_ind, h_count,
+                                              history_cap)
+            ind_state, t_s, n_s = ind_blend, gb.depth, gb.normal
+            count_full = count
+        else:
+            hs, ws = height // gi_scale, width // gi_scale
+            h_ind, h_count = _reproject(
+                state, sub.position, sub.normal, valid_s, hs, ws,
+                y0=y0 // gi_scale,
+                proj_height=None if proj_h is None else proj_h // gi_scale)
+            ind_state, count = temporal_blend(ind, h_ind, h_count,
+                                              history_cap)
+            t_s = norm3(sub.position - frame.eye[None, :])
+            n_s = sub.normal
+            ind_blend = _upsample(ind_state, hs, ws, gi_scale)
+            count_full = _upsample(count, hs, ws, gi_scale)
+        new_state = pack_temporal(ind_state, t_s, n_s, count,
+                                  frame.view_proj, frame.eye)
 
-    color = gb.emissive + gb.albedo * (direct + ind_blend)
-    color = torch.where(gb.valid[:, None], color, 0.0)
-    aovs = {
-        "color": color.reshape(height, width, 3),
-        "depth": gb.depth.reshape(height, width),
-        "instance_id": gb.instance.reshape(height, width),
-        "normal": gb.normal.reshape(height, width, 3),
-        "albedo": gb.albedo.reshape(height, width, 3),
-        "gi_history": count_full.reshape(height, width),
-    }
-    if hit.overflow is not None:
-        aovs["raster_overflow_tiles"] = hit.overflow
-    return aovs, new_state
+        color = gb.emissive + gb.albedo * (direct + ind_blend)
+        color = torch.where(gb.valid[:, None], color, 0.0)
+        aovs = {
+            "color": color.reshape(height, width, 3),
+            "depth": gb.depth.reshape(height, width),
+            "instance_id": gb.instance.reshape(height, width),
+            "normal": gb.normal.reshape(height, width, 3),
+            "albedo": gb.albedo.reshape(height, width, 3),
+            "gi_history": count_full.reshape(height, width),
+        }
+        if hit.overflow is not None:
+            aovs["raster_overflow_tiles"] = hit.overflow
+        return aovs, new_state
 
 
+@profiler.frame_root
 def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
                             cascades, build_state, state: TemporalState,
                             dirty_tri, dirty_lo, dirty_hi, *, height: int,
@@ -709,26 +729,32 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
     sharded animated frame (``parallel/tiling.render_frame_tiled_dynamic``):
     the update emits and the re-bake marches one device's share (share 0
     of n) and only that share reaches the atlas, so it times one device's
-    body on one device.  It is not a production mode."""
+    body on one device.  It is not a production mode.
+
+    Each call is one ``frame`` root span: ``sdf_update``, ``rebake``,
+    then the temporal frame's stages."""
     from vri_tpu_torch.ops import sdf as sdf_mod
     from vri_tpu_torch.ops import sdf_build
 
     ax = (None, shard_proxy) if shard_proxy else None
-    world_verts = bake_world(scene)
-    mat = scene.instance_material[scene.tri_instance.long()].long()
-    cascades, build_state, needs_full = sdf_build.update_cascades(
-        cascades, build_state, world_verts, scene.tri_vertices,
-        scene.num_faces, dirty_tri, dirty_lo, dirty_hi,
-        tri_albedo=scene.mat_base_color[mat],
-        tri_emissive=scene.mat_emissive[mat], config=config, axis_name=ax)
-    if rebake:
-        light_dirty = sdf_mod.lighting_dirty_bricks(
-            cascades, scene, dirty_lo, dirty_hi, config=config)
-        cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
-            cascades, scene, build_state.emit_bricks | light_dirty,
-            build_state.alive, config=config, cap=config.bake_brick_cap,
+    with profiler.span("sdf_update"):
+        world_verts = bake_world(scene)
+        mat = scene.instance_material[scene.tri_instance.long()].long()
+        cascades, build_state, needs_full = sdf_build.update_cascades(
+            cascades, build_state, world_verts, scene.tri_vertices,
+            scene.num_faces, dirty_tri, dirty_lo, dirty_hi,
+            tri_albedo=scene.mat_base_color[mat],
+            tri_emissive=scene.mat_emissive[mat], config=config,
             axis_name=ax)
-        needs_full = needs_full + bake_drop
+    if rebake:
+        with profiler.span("rebake"):
+            light_dirty = sdf_mod.lighting_dirty_bricks(
+                cascades, scene, dirty_lo, dirty_hi, config=config)
+            cascades, bake_drop = sdf_mod.bake_brick_lighting_partial(
+                cascades, scene, build_state.emit_bricks | light_dirty,
+                build_state.alive, config=config,
+                cap=config.bake_brick_cap, axis_name=ax)
+            needs_full = needs_full + bake_drop
     aovs, new_state = render_frame_gi_temporal(
         scene, frame, cascades, state, height=height, width=width,
         config=config, backend=backend, samples=samples,

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vri_tpu_torch import _cuda
 from vri_tpu_torch.config import DebugMode, RenderConfig
 from vri_tpu_torch.hydra.camera import CameraState, FreeCamera
 from vri_tpu_torch.usd.stage import Stage
@@ -34,6 +35,7 @@ from vri_tpu_torch.ops import sdf as sdf_mod
 from vri_tpu_torch.ops import sdf_build
 from vri_tpu_torch.passes import frame as frame_mod
 from vri_tpu_torch.registry import SceneBuffers, bake_world
+from vri_tpu_torch.runtime import profiler
 
 log = logging.getLogger("vri_tpu_torch")
 
@@ -172,9 +174,15 @@ class Renderer:
             done = (*sdf_build.build_for_scene(scene_b, world, centers, cfg),
                     "rebuilt")
         cascades, state, label = done
-        self.cascades = sdf_mod.bake_brick_lighting(
-            cascades, self.scene, config=cfg,
-            alive=None if state is None else state.alive)
+        if self.device.type == "cuda":
+            # the card's kernels are built (or loaded) first, so that
+            # ``sdf.bake`` times the bake alone
+            with profiler.span("kernel_build"):
+                _cuda.library()
+        with profiler.span("sdf.bake"):
+            self.cascades = sdf_mod.bake_brick_lighting(
+                cascades, self.scene, config=cfg,
+                alive=None if state is None else state.alive)
         self._build_state = state
         self._cascade_focus = focus
         self._scene_version = self._sync_count
@@ -237,6 +245,7 @@ class Renderer:
 
     # -- frames -----------------------------------------------------------------
 
+    @profiler.frame_root
     def render(self, camera: Optional[CameraState] = None,
                mode: int = DebugMode.NONE, gi: bool = True,
                samples: int = 1, backend: str = "raster",
@@ -249,7 +258,8 @@ class Renderer:
         (samples, GI pixels, 2) replaces the generator draws of the GI
         frame (parity tests hand in the reference's samples).
         ``time_code`` first syncs the stage's authored animation at that
-        time; transform-only motion then takes the bounded SDF update."""
+        time; transform-only motion then takes the bounded SDF update.
+        Each call is one ``frame`` root span (``runtime/profiler.py``)."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         if time_code is not None:
