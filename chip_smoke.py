@@ -20,9 +20,9 @@ frames sharded over several ranks (``vri_tpu_torch.parallel``), whose
 ranks this script starts as subprocesses of itself (``--phase29 PART
 FILE``).  The JAX package and JAX itself are blocked before the port is
 imported, so any import of either is fatal.  Phases (run in the order
-1-6, 21, 7, 8, 12, 13, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28, 10, 11,
-22, 14-17; phase 20's small input runs in phase 10, phase 25's dynamic
-band frame in phase 23), each fatal on failure:
+1-3, 30, 4-6, 21, 7, 8, 12, 13, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28,
+10, 11, 22, 14-17; phase 20's small input runs in phase 10, phase 25's
+dynamic band frame in phase 23), each fatal on failure:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the kernels in ``vri_tpu_torch/csrc`` with nvcc, one
@@ -237,16 +237,27 @@ band frame in phase 23), each fatal on failure:
     moved, ``atlas`` and ``voxel_shade`` bit-equal to the single-card
     dynamic frame's, ``needs_full`` 0, each rank's share of the emit,
     its re-bake launches, ms and peak.  A rank that fails, or writes no
-    result, fails the phase.
+    result, fails the phase;
+30. the sorted tier's prep kernels (``raster_prep``, the pipeline of
+    ``csrc/raster_prep.cu``) against its plain version on phase 3's
+    inputs (the kitchen at 1920x1080): the slot table bit for bit, src,
+    starts, counts, overflow and the live lists exactly equal, no host
+    sync under ``set_sync_debug_mode("error")``; the kernels' device ms
+    and launches of one call, by kernel (``torch.profiler``), the ms of
+    back-to-back calls and of the plain version (CUDA events), the host
+    ms of one call (the enqueue), the bound and ptxas's registers;
+    phases 7 and 18 check one pipeline a frame.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over the
 H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
-single PyTorch call computes any of the seven, so ``library_ms`` is
-null.  ``raster_tiles`` and ``march_rays`` also carry their launches in
-one production frame (phase 18) and in one dynamic frame (phase 23),
+single PyTorch call computes any of the eight, so ``library_ms`` is
+null.  ``raster_prep``'s entry counts its pipelines on the main path and
+carries its kernels' launches a call.  ``raster_tiles`` and
+``march_rays`` also carry their launches in one production frame (phase
+18) and in one dynamic frame (phase 23),
 and per rank in one tiled frame (phase 29(b); ``march_rays`` also per
 rank in the sharded re-bake, phase 29(c)), ``raster_ranged`` its
 launches on the masked ranged tier (phase 22).
@@ -854,6 +865,88 @@ def _hold_march(cas, rays, cfg, steps: int, label: str) -> tuple:
     return margs, mkw, got, err
 
 
+def _raster_prep(args, kw, card: str) -> dict:
+    """Phase 30: ``raster_prep`` against ``prepare_sorted_reference`` on
+    one frame's inputs; returns its entry of the kernels' JSON line."""
+    import torch
+
+    from vri_tpu_torch.ops import rasterize
+
+    def call():
+        return rasterize.raster_prep(*args, **kw)
+
+    def plain():
+        return rasterize.prepare_sorted_reference(*args, **kw)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = rasterize.raster_prep.launches
+        got = call()
+        _check(rasterize.raster_prep.launches == before + 1,
+               "raster_prep: the pipeline was not counted")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = plain()
+    n = int(want["starts"][-1])
+    _check(torch.equal(got["coef"].view(torch.int32),
+                       want["coef"].view(torch.int32)),
+           "raster_prep: the slot table differs from the plain version")
+    for k in ("src", "starts", "counts", "overflow"):
+        _check(torch.equal(got[k], want[k]),
+               f"raster_prep: {k} differs from the plain version")
+    _check(torch.equal(got["lists"][:n], want["lists"][:n]),
+           "raster_prep: the lists differ from the plain version")
+    _check(int(got["overflow"]) == 0, "raster_prep: overflow")
+    wall_ms = _time_ms(call, 50)
+    plain_ms = _time_ms(plain, 5)
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    reps = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    # the pipeline's own kernels: device us a call, by kernel
+    per_kernel = {e.key.split("prep_")[1].split("(")[0]:
+                  (e.count / reps, e.device_time_total / reps)
+                  for e in prof.key_averages() if "prep_" in e.key}
+    launches = sum(c for c, _ in per_kernel.values())
+    ms = 1e-3 * sum(us for _, us in per_kernel.values())
+    world, tri, _, vp = args
+    nbytes = (_nbytes(world, tri, vp, kw["cull_sign"]) + _nbytes(
+        got["coef"], got["src"], got["starts"], got["counts"],
+        got["overflow"]) + 4 * n)
+    regs = _ptxas("raster_prep.cu")
+    entry = dict(
+        route="cuda", source="vri_tpu_torch/csrc/raster_prep.cu",
+        replaces=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        library_ms=None, wall_ms=wall_ms, host_ms=float(np.median(host)),
+        launches_per_call=launches, pairs=n, slots=int(got["coef"].shape[0]),
+        **_bound(nbytes, 0.0))
+    print(f"raster_prep: {entry['slots']} slots, {n} pairs of "
+          f"{int(got['lists'].shape[0])}; equal to the plain version, no "
+          f"host sync; {ms:.4f} ms of kernels a call (torch.profiler, "
+          f"mean of {reps}), {wall_ms:.4f} ms a call back to back (CUDA "
+          f"events, mean of 50) vs plain {plain_ms:.3f} ms; host "
+          f"{entry['host_ms']:.4f} ms a call (median of 20); {launches:g} "
+          f"kernel launches a call; bound {entry['bound_ms']:.4f} ms by "
+          f"{entry['bound_by']} [{card}]")
+    print("  raster_prep kernels (launches, us a call): " + ", ".join(
+        f"{k} {c:g} x {us:.2f}" for k, (c, us) in per_kernel.items()))
+    for line in regs:
+        print(f"  ptxas (raster_prep.cu): {line}")
+    return entry
+
+
 def _hold_raster_tiles(prep, label: str) -> tuple:
     """Holds ``raster_tiles`` on one prep's tile lists (sorted or binned)
     to its plain version: z, slot, u and v exactly equal.  Returns the
@@ -1057,7 +1150,7 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
     import torch
 
     from vri_tpu_torch.hydra.camera import FreeCamera
-    from vri_tpu_torch.ops import gi, march_kernel
+    from vri_tpu_torch.ops import gi, march_kernel, rasterize
     from vri_tpu_torch.passes import frame as frame_mod
 
     cam = r.camera
@@ -1096,6 +1189,7 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
     per_frame = _launches(raster_tiles=1, march_rays=2)
     for i in range(10):
         before = _counts()
+        prep_before = rasterize.raster_prep.launches
         start, stop = _events()
         start.record()
         aovs, state = frame_mod.render_frame_gi_temporal(
@@ -1106,6 +1200,9 @@ def _production(r, h: int, w: int, cfg, card: str, gi1_ms: float) -> dict:
         times.append(start.elapsed_time(stop))
         step = {k: v - before[k] for k, v in _counts().items()}
         _check(step == per_frame, f"production frame {i}: launches {step}")
+        _check(rasterize.raster_prep.launches == prep_before + 1,
+               f"production frame {i}: raster_prep pipelines "
+               f"{rasterize.raster_prep.launches - prep_before}")
         _check(int(out["raster_overflow_tiles"]) == 0,
                f"production frame {i}: raster overflow")
         _check(np.isfinite(out["color"]).all(),
@@ -2845,7 +2942,7 @@ def main() -> int:
         **_bound_raster_tiles(prep["coef"], prep["starts"], prep["counts"],
                               prep["cap"], got))
     ls = rasterize.list_length_stats(prep["counts"], prep["cap"])
-    print(f"raster_tiles: {int(prep['lists'].shape[0])} pairs over "
+    print(f"raster_tiles: {int(prep['starts'][-1])} pairs over "
           f"{ls['tiles']} tiles; list lengths mean {ls['mean']:.2f}, p50 "
           f"{ls['p50']:.1f}, p99 {ls['p99']:.1f}, longest {ls['max']}; the "
           f"longest 1% of tiles hold {ls['top1_share']:.4f} of the pairs; "
@@ -2854,6 +2951,12 @@ def main() -> int:
           f"{kernels['raster_tiles']['plain_ms']:.1f} ms, bound "
           f"{kernels['raster_tiles']['bound_ms']:.4f} ms by "
           f"{kernels['raster_tiles']['bound_by']} [{card}]")
+
+    # -- 30. the sorted prep's kernels on the same inputs -----------------------
+    kernels["raster_prep"] = _raster_prep(
+        (world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj),
+        dict(height=h, width=w, cull_sign=frame_mod._cull_sign(r.scene)),
+        card)
 
     # -- 4. kernel K6 on the frame's chunks -----------------------------------
     cull = frame_mod._cull_sign(r.scene)
@@ -3015,6 +3118,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    prep_before = rasterize.raster_prep.launches
     frames = []
     for i in range(3):
         start = torch.cuda.Event(enable_timing=True)
@@ -3057,6 +3161,11 @@ def main() -> int:
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
     for name in ("raster_tiles", "march_rays"):
         kernels[name]["launches"] = launches[name]
+    kernels["raster_prep"]["launches"] = (rasterize.raster_prep.launches
+                                          - prep_before)
+    _check(kernels["raster_prep"]["launches"] == 3,
+           f"main path: raster_prep pipelines "
+           f"{kernels['raster_prep']['launches']}, expected 3")
     # the same frame without the host copy of the AOVs (device work only)
     dev_ms = _time_ms(lambda: r2.render(gi=True, to_numpy=False), 3)
     print(f"  frame without the host copy of the AOVs: {dev_ms:.2f} ms "

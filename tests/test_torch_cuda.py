@@ -19,7 +19,10 @@ update and animated frame on the card against the CPU, a band of the
 kitchen through the three tiers and the temporal band frame on the card
 against the CPU, the dense SDF build on the card against the CPU, and
 the sharded frames over a one-rank ``nccl`` mesh bit-equal to the
-single-card frames.  On a host without a card every test skips.
+single-card frames.  The sorted tier's prep kernels (raster_prep) are
+held bit-equal to their plain version on the cases of
+``tests/test_torch_raster_prep.py`` and on the kitchen at 1080p, with no
+host sync.  On a host without a card every test skips.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ torch = pytest.importorskip("torch")
 
 from vri_tpu_torch import RenderConfig, SDFConfig, scenes  # noqa: E402
 from vri_tpu_torch.ops.worklist import FULL_STAGE, WALK_KERNELS  # noqa: E402
+from test_torch_raster_prep import PREP_CASES, kitchen_args  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1272,3 +1276,75 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
             assert torch.equal(getattr(tiled[2], f), getattr(single[2], f))
     finally:
         dist.destroy_process_group()
+
+
+def _prep_equal(args, kw):
+    """The prep's kernels against its plain version on the card: the slot
+    table bit for bit, src, starts, counts, overflow and the live part of
+    the lists exactly equal.  Returns the kernels' dict."""
+    from vri_tpu_torch.ops import rasterize
+
+    before = rasterize.raster_prep.launches
+    got = rasterize.prepare_sorted(*args, **kw)
+    torch.cuda.synchronize()
+    assert rasterize.raster_prep.launches == before + 1
+    want = rasterize.prepare_sorted_reference(*args, **kw)
+    assert torch.equal(got["coef"].view(torch.int32),
+                       want["coef"].view(torch.int32))
+    for k in ("src", "starts", "counts", "overflow"):
+        assert torch.equal(got[k], want[k]), k
+    n = int(want["starts"][-1])
+    assert got["lists"].shape == want["lists"].shape
+    assert torch.equal(got["lists"][:n], want["lists"][:n])
+    for k in ("cap", "num_tx", "grid"):
+        assert got[k] == want[k]
+    return got
+
+
+def _on_cuda(x):
+    return x.cuda() if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("case", ["kitchen_1080p", *PREP_CASES])
+def test_raster_prep_matches_plain_version(case):
+    """Cases: the 49k-face kitchen at 1920x1080 (two radix passes over
+    2,025 tiles), and each case of the CPU prep tests -- the kitchen, its
+    frame without culling, a camera among near-plane crossers, a band, the
+    compacted faces (``src_map``), a face mask, caps_scale 2, and the
+    overflow of the pair stream, of the second slots and of a tile's
+    list, and no faces."""
+    _card()
+    if case == "kitchen_1080p":
+        args, kw = kitchen_args(1080, 1920, 256, 4, device="cuda")
+        want_overflow = 0
+    else:
+        build, want_overflow = PREP_CASES[case]
+        args, kw = build()
+        args = tuple(_on_cuda(x) for x in args)
+        kw = {k: _on_cuda(v) for k, v in kw.items()}
+    got = _prep_equal(args, kw)
+    assert int(got["overflow"]) == want_overflow
+    if case != "no_faces":
+        assert int(got["starts"][-1]) > 0
+
+
+def test_raster_prep_has_no_host_sync(frame):
+    """Three preps on the card under ``set_sync_debug_mode("error")``:
+    no host sync, and one pipeline counted a call."""
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    args = (world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj)
+    kw = dict(height=192, width=256, cull_sign=frame_mod._cull_sign(r.scene))
+    rasterize.prepare_sorted(*args, **kw)
+    torch.cuda.synchronize()
+    before = rasterize.raster_prep.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            prep = rasterize.prepare_sorted(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rasterize.raster_prep.launches == before + 3
+    assert int(prep["starts"][-1]) > 0 and int(prep["overflow"]) == 0

@@ -25,12 +25,14 @@ import types
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "march_rays.cu",
-           "bvh_traverse.cu", "worklist.cu", "worklist_grouped.cu")
+SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "raster_prep.cu",
+           "march_rays.cu", "bvh_traverse.cu", "worklist.cu",
+           "worklist_grouped.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 #: C entry point -> (source, argument types); every entry returns an int
 _ENTRIES = {
     "vri_raster_tiles": ("raster_tiles.cu",
@@ -39,6 +41,11 @@ _ENTRIES = {
     "vri_raster_ranged": ("raster_ranged.cu",
                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P]),
+    "vri_raster_prep": ("raster_prep.cu",
+                        [_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I,
+                         _F, _F, _F, _I, _I, _I, _I, _L, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P]),
+    "vri_raster_prep_scratch": ("raster_prep.cu", [_I, _I, _L, _I]),
     "vri_march_rays": ("march_rays.cu",
                        [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _P]),

@@ -8,7 +8,9 @@ slots.
   order (``pairs_cap`` bounds the stream); one stable sort on the tile
   key turns the stream into per-tile lists (``_segment_lists``), walked
   to ``cap`` each.  Near-plane second slots are compacted into a counted
-  ``extra_cap``.
+  ``extra_cap``.  On the card this prep is one pipeline of CUDA kernels
+  (:func:`raster_prep`, ``csrc/raster_prep.cu``) that never syncs with
+  the host.
 * :func:`rasterize_binned` -- slots in screen-Morton order packed in
   groups of 8; each tile lists the first ``cap_groups`` groups whose bbox
   overlaps it (``_bin_groups``), sorted back to setup order.
@@ -104,11 +106,10 @@ def triangle_setup_clipped(world_verts: torch.Tensor,
     sel = rot[:, None, None]
     cr = torch.where(sel == 1, torch.roll(c, -1, dims=1),
                      torch.where(sel == 2, torch.roll(c, -2, dims=1), c))
-    bt = torch.tensor([[[0., 0.], [1., 0.], [0., 1.]],
-                       [[1., 0.], [0., 1.], [0., 0.]],
-                       [[0., 1.], [0., 0.], [1., 0.]]],
-                      dtype=torch.float32, device=dev)
-    br = torch.where(sel == 1, bt[1], torch.where(sel == 2, bt[2], bt[0]))
+    # rotated corner k is source vertex (k + rot) % 3, whose barycentrics
+    # are (0, 0), (1, 0), (0, 1) (no host table copied to the device)
+    src_v = (torch.arange(3, device=dev) + rot[:, None]) % 3
+    br = torch.stack([src_v == 1, src_v == 2], dim=-1).to(torch.float32)
     wr = cr[..., 3]
 
     def lerp_to_plane(pa, pb, wa, wb):
@@ -325,7 +326,10 @@ def raster_tiles_reference(coef, lists, starts, counts, *, num_tx: int,
     for i0 in range(0, maxn, chunk):
         pos = torch.arange(i0, min(i0 + chunk, maxn), device=dev)
         live = pos[None, :] < n[:, None]                      # (T, C)
-        slot = lists[torch.clamp(s0[:, None] + pos[None, :], max=last)]
+        # a position past a tile's list may hold anything (the sorted
+        # lists' tail is undefined): no slot is read from it
+        slot = torch.where(live, lists[torch.clamp(
+            s0[:, None] + pos[None, :], max=last)], 0)
         comp = (_slot_keys(coef[slot.long()], gx, gy) << 32) \
             | pos[None, :, None]
         comp = torch.where(live[..., None], comp, _NEVER)
@@ -675,6 +679,24 @@ def _tile_overlap(box, rows, gx: int, tile_h: int, tile_w: int):
     return ov_y[:, None, :] & ov_x[None, :, :]
 
 
+def _sorted_sizes(num_tri: int, *, height: int, width: int, tile_h: int,
+                  tile_w: int, cap: int, pairs_cap: int | None,
+                  caps_scale: int, culled: bool):
+    """The sorted tier's capacities from the face count and the caps:
+    (cap, pairs_cap, extra_cap, padded slot count, (gy, gx))."""
+    cap = _round_up(cap * caps_scale, _TC)
+    extra = max(num_tri // 16, 256) * caps_scale
+    slots = _round_up(num_tri + extra + 1, _TC)
+    if pairs_cap is None:
+        # backface culling roughly halves the live pairs on solid scenes
+        pairs_cap = max(min((4 if culled else 6) * slots, 2 * 1024 * 1024),
+                        128 * 1024)
+    pairs_cap = _round_up(pairs_cap * caps_scale, _TC)
+    grid = (_round_up(height, tile_h) // tile_h,
+            _round_up(width, tile_w) // tile_w)
+    return cap, pairs_cap, extra, slots, grid
+
+
 def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
                    height: int, width: int, tile_h: int = 8,
                    tile_w: int = 128, cap: int = 2048,
@@ -686,18 +708,39 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
     a ``proj_height``-row frame) the setup projects with ``proj_height``
     and the tiles, lists and outputs cover the band.  Returns a dict with
     the kernel's inputs (coef, lists, starts, counts, cap, num_tx), the
-    slot-to-triangle map ``src`` and the ``overflow`` flag (0-d
-    int32)."""
-    cap = _round_up(cap * caps_scale, _TC)
-    if pairs_cap is not None:
-        pairs_cap = pairs_cap * caps_scale
-    hp = _round_up(height, tile_h)
-    wp = _round_up(width, tile_w)
-    gy, gx = hp // tile_h, wp // tile_w
+    slot-to-triangle map ``src`` and the ``overflow`` flag (0-d int32).
+    ``lists`` is ``pairs_cap`` long; its entries past ``starts[-1]`` are
+    undefined.  CUDA tensors run :func:`raster_prep`'s kernels, CPU
+    tensors the plain version :func:`prepare_sorted_reference`."""
+    fn = (prepare_sorted_reference if world_verts.device.type == "cpu"
+          else raster_prep)
+    return fn(world_verts, tri_vertices, num_faces, view_proj,
+              height=height, width=width, tile_h=tile_h, tile_w=tile_w,
+              cap=cap, pairs_cap=pairs_cap, caps_scale=caps_scale,
+              cull_sign=cull_sign, src_map=src_map, face_mask=face_mask,
+              proj_height=proj_height, y_offset=y_offset)
+
+
+def prepare_sorted_reference(world_verts, tri_vertices, num_faces,
+                             view_proj, *, height: int, width: int,
+                             tile_h: int = 8, tile_w: int = 128,
+                             cap: int = 2048, pairs_cap: int | None = None,
+                             caps_scale: int = 1, cull_sign=None,
+                             src_map=None, face_mask=None,
+                             proj_height: int | None = None, y_offset=None):
+    """Plain PyTorch version of :func:`raster_prep` (the arguments and dict
+    of :func:`prepare_sorted`).  Every visible slot emits one (tile, slot)
+    pair per tile of its on-screen window, slot-major and row-major in the
+    window, into a stream of ``pairs_cap`` positions: pairs past it are
+    dropped and counted in ``overflow``, positions past the pairs carry
+    the sentinel tile ``num_tiles``.  One stable sort on the tile key
+    gives the lists, ascending slots within a tile."""
+    cap, pairs_cap, extra, _, (gy, gx) = _sorted_sizes(
+        tri_vertices.shape[0], height=height, width=width, tile_h=tile_h,
+        tile_w=tile_w, cap=cap, pairs_cap=pairs_cap, caps_scale=caps_scale,
+        culled=cull_sign is not None)
     num_tiles = gy * gx
     dev = world_verts.device
-
-    extra = max(tri_vertices.shape[0] // 16, 256) * caps_scale
     tx, ty, tz, tw, b1, b2, src, valid, clip_over = _padded_setup(
         world_verts, tri_vertices, num_faces, view_proj,
         height=proj_height or height, width=width, extra_cap=extra,
@@ -709,36 +752,108 @@ def prepare_sorted(world_verts, tri_vertices, num_faces, view_proj, *,
     tx0, tx1, ty0, ty1 = _tile_span(tx, ty, tile_h, tile_w)
     on_screen = (tx1 >= 0) & (tx0 < gx) & (ty1 >= 0) & (ty0 < gy)
     vis = valid & on_screen
-    if pairs_cap is None:
-        # backface culling roughly halves the live pairs on solid scenes
-        mult = 6 if cull_sign is None else 4
-        pairs_cap = max(min(mult * fp, 2 * 1024 * 1024),
-                        128 * 1024) * caps_scale
-    pairs_cap = _round_up(pairs_cap, _TC)
 
-    # exact emission: slot-major, row-major over each slot's tile window
+    # exact emission: slot-major, row-major over each slot's tile window;
+    # position p belongs to the first slot whose running pair count
+    # exceeds p
     ry0 = torch.clamp(ty0, 0, gy - 1).long()
     rx0 = torch.clamp(tx0, 0, gx - 1).long()
     zero = torch.zeros_like(ry0)
     e_rows = torch.where(vis, torch.clamp(ty1, 0, gy - 1) - ry0 + 1, zero)
     e_cols = torch.where(vis, torch.clamp(tx1, 0, gx - 1) - rx0 + 1, zero)
     area_t = e_rows * e_cols
-    total = int(area_t.sum())
-    emit_over = max(total - pairs_cap, 0)
-    sid = torch.repeat_interleave(
-        torch.arange(fp, device=dev), area_t, output_size=total)[:pairs_cap]
-    starts_x = torch.cumsum(area_t, 0) - area_t
-    k_local = torch.arange(sid.shape[0], device=dev) - starts_x[sid]
-    cols = e_cols[sid]
+    ends = torch.cumsum(area_t, 0)
+    total = ends[-1]
+    pos = torch.arange(pairs_cap, device=dev)
+    sid = torch.clamp(torch.searchsorted(ends, pos, right=True), max=fp - 1)
+    k_local = pos - (ends - area_t)[sid]
+    cols = torch.clamp(e_cols[sid], min=1)
     dy = torch.div(k_local, cols, rounding_mode="floor")
     dx = k_local - dy * cols
-    tile_of = (ry0[sid] + dy) * gx + rx0[sid] + dx
+    tile_of = torch.where(pos < total, (ry0[sid] + dy) * gx + rx0[sid] + dx,
+                          num_tiles)
     lists, starts, counts = _segment_lists(tile_of, sid, num_tiles)
-    overflow = ((counts > cap).any() | (emit_over > 0)
+    overflow = ((counts > cap).any() | (total > pairs_cap)
                 | (clip_over > 0)).to(torch.int32)
     return dict(coef=slot_coefficients(tx, ty, tz, tw, b1, b2, valid),
                 lists=lists, starts=starts, counts=counts, cap=cap,
                 num_tx=gx, grid=(gy, gx), src=src, overflow=overflow)
+
+
+def _on_card(name, x, dev, dtype, shape=None):
+    """``x`` as a contiguous ``dtype`` tensor on ``dev`` (converted on the
+    card where its dtype differs), or a ValueError."""
+    if x.device != dev:
+        raise ValueError(f"raster_prep: {name} must be on {dev}, got "
+                         f"{x.device}")
+    if shape is not None and tuple(x.shape) != shape:
+        raise ValueError(f"raster_prep: {name} must be {shape}, got "
+                         f"{tuple(x.shape)}")
+    return x.to(dtype).contiguous()
+
+
+def raster_prep(world_verts, tri_vertices, num_faces, view_proj, *,
+                height: int, width: int, tile_h: int = 8, tile_w: int = 128,
+                cap: int = 2048, pairs_cap: int | None = None,
+                caps_scale: int = 1, cull_sign=None, src_map=None,
+                face_mask=None, proj_height: int | None = None,
+                y_offset=None):
+    """Kernel wrapper of the sorted tier's prep (``csrc/raster_prep.cu``):
+    CUDA tensors only, the arguments and dict of :func:`prepare_sorted`,
+    equal to :func:`prepare_sorted_reference` bit for bit over the live
+    part of ``lists``, from one C call of a dozen launches that neither
+    syncs with the host nor reads a size back.  ``num_faces`` is an int
+    or a 0-d integer tensor on the card; ``y_offset`` a host number."""
+    dev = world_verts.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_prep: needs CUDA tensors, got {dev}")
+    f = tri_vertices.shape[0]
+    cap, pairs_cap, extra, slots, (gy, gx) = _sorted_sizes(
+        f, height=height, width=width, tile_h=tile_h, tile_w=tile_w,
+        cap=cap, pairs_cap=pairs_cap, caps_scale=caps_scale,
+        culled=cull_sign is not None)
+    num_tiles = gy * gx
+    verts = _on_card("world_verts", world_verts, dev, torch.float32)
+    tri = _on_card("tri_vertices", tri_vertices, dev, torch.int32, (f, 3))
+    vp = _on_card("view_proj", view_proj, dev, torch.float32, (4, 4))
+    opt = {name: None if x is None else _on_card(name, x, dev, dtype, (f,))
+           for name, x, dtype in (("cull_sign", cull_sign, torch.float32),
+                                  ("src_map", src_map, torch.int32),
+                                  ("face_mask", face_mask, torch.bool))}
+    if isinstance(num_faces, torch.Tensor) and num_faces.is_cuda:
+        nf = _on_card("num_faces", num_faces.reshape(()), dev, torch.int32)
+        nf_ptr, nf_host = nf.data_ptr(), 0
+    else:
+        nf_ptr, nf_host = 0, int(num_faces)
+    lib = _cuda.library()
+    nbytes = lib.vri_raster_prep_scratch(f, slots, pairs_cap, num_tiles)
+    if nbytes < 0:
+        raise ValueError(f"raster_prep: pairs_cap {pairs_cap} needs over "
+                         "2 GiB of scratch")
+    i32 = dict(dtype=torch.int32, device=dev)
+    coef = torch.empty((slots, _NCOEF), dtype=torch.float32, device=dev)
+    src = torch.empty((slots,), **i32)
+    lists = torch.empty((pairs_cap,), **i32)
+    starts = torch.empty((num_tiles + 1,), **i32)
+    counts = torch.empty((num_tiles,), **i32)
+    overflow = torch.empty((), **i32)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    code = lib.vri_raster_prep(
+        verts.data_ptr(), tri.data_ptr(), nf_ptr, nf_host, vp.data_ptr(),
+        *(0 if x is None else x.data_ptr() for x in opt.values()),
+        f, extra, slots, float(width), float(proj_height or height),
+        float(y_offset or 0.0), tile_h, tile_w, gx, gy, pairs_cap, cap,
+        coef.data_ptr(), src.data_ptr(), lists.data_ptr(), starts.data_ptr(),
+        counts.data_ptr(), overflow.data_ptr(), scratch.data_ptr(),
+        _cuda.stream_ptr(verts))
+    _cuda.check(code, "raster_prep")
+    raster_prep.launches += 1
+    return dict(coef=coef, lists=lists, starts=starts, counts=counts,
+                cap=cap, num_tx=gx, grid=(gy, gx), src=src,
+                overflow=overflow)
+
+
+raster_prep.launches = 0
 
 
 def _bin_groups(box, grid, tile_h: int, tile_w: int, cap_groups: int):
