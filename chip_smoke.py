@@ -20,7 +20,7 @@ frames sharded over several ranks (``vri_tpu_torch.parallel``), whose
 ranks this script starts as subprocesses of itself (``--phase29 PART
 FILE``).  The JAX package and JAX itself are blocked before the port is
 imported, so any import of either is fatal.  Phases (run in the order
-1-3, 30, 4-6, 21, 7, 8, 12, 13, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28,
+1-3, 30, 4-6, 21, 7, 8, 12, 13, 31, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28,
 10, 11, 22, 14-17; phase 20's small input runs in phase 10, phase 25's
 dynamic band frame in phase 23), each fatal on failure:
 
@@ -246,19 +246,30 @@ dynamic band frame in phase 23), each fatal on failure:
     and launches of one call, by kernel (``torch.profiler``), the ms of
     back-to-back calls and of the plain version (CUDA events), the host
     ms of one call (the enqueue), the bound and ptxas's registers;
-    phases 7 and 18 check one pipeline a frame.
+    phases 7 and 18 check one pipeline a frame;
+31. the SDF emit kernel (``sdf_emit``, ``csrc/sdf_emit.cu``) against its
+    plain version (``sdf_build._emit_blocks``) on the same CUDA tensors,
+    at phase 7's kitchen build (the kernel's call over every live brick,
+    held on every 16th) and at the animated cell's first bounded update
+    (the smallest prop moved to code 1 of ``kitchen_anim``'s circle, all
+    its bricks): every output bit-equal, one launch a call, no host sync
+    under ``set_sync_debug_mode("error")``; the kernel's ms at both, the
+    plain version's at the update, the bound from the update's bricks;
+    phase 7 counts one emit in its build, phase 9 one, phases 23 and 25
+    one in each dynamic frame.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over the
 H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
-single PyTorch call computes any of the eight, so ``library_ms`` is
+single PyTorch call computes any of the nine, so ``library_ms`` is
 null.  ``raster_prep``'s entry counts its pipelines on the main path and
-carries its kernels' launches a call.  ``raster_tiles`` and
-``march_rays`` also carry their launches in one production frame (phase
-18) and in one dynamic frame (phase 23),
-and per rank in one tiled frame (phase 29(b); ``march_rays`` also per
+carries its kernels' launches a call; ``sdf_emit``'s counts the main
+path's build (one launch) and carries the build's bricks and ms.
+``raster_tiles`` and ``march_rays`` also carry their launches in one
+production frame (phase 18), all three in one dynamic frame (phase 23),
+and ``raster_tiles`` and ``march_rays`` per rank in one tiled frame (phase 29(b); ``march_rays`` also per
 rank in the sharded re-bake, phase 29(c)), ``raster_ranged`` its
 launches on the masked ranged tier (phase 22).
 The script prints its total seconds.
@@ -326,11 +337,13 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _wrappers() -> dict:
-    from vri_tpu_torch.ops import bvh, march_kernel, rasterize, worklist
+    from vri_tpu_torch.ops import (bvh, march_kernel, rasterize, sdf_build,
+                                   worklist)
 
     return {"raster_tiles": rasterize.raster_tiles,
             "raster_ranged": rasterize.raster_ranged,
             "march_rays": march_kernel.march_rays,
+            "sdf_emit": sdf_build._emit_kernel,
             "bvh_traverse": bvh.bvh_traverse,
             "template_walk": worklist.template_walk,
             "setup_walk": worklist.setup_walk,
@@ -944,6 +957,137 @@ def _raster_prep(args, kw, card: str) -> dict:
         f"{k} {c:g} x {us:.2f}" for k, (c, us) in per_kernel.items()))
     for line in regs:
         print(f"  ptxas (raster_prep.cu): {line}")
+    return entry
+
+
+#: FP32 operations of one point-triangle distance in ``sdf_emit``
+#: (``geometry.point_triangle_distance``, as ``perfbench/roofline_emit.py``
+#: counts it); a texel takes one a candidate of its brick's k nearest
+EMIT_FLOP_PER_DISTANCE = 90
+
+
+def _sdf_emit(r, card: str) -> dict:
+    """Phase 31 on renderer ``r`` (phase 7's kitchen, room preset, its
+    cascades and build state): kernel E (``sdf_emit``) against its plain
+    version (``sdf_build._emit_blocks``) on the same CUDA tensors, at the
+    inputs of (a) the kitchen's full build (the kernel's call over every
+    live brick, held on every 16th brick: the plain version takes about
+    half a millisecond a brick) and (b) the animated cell's first bounded
+    update (the smallest prop moved from its place to code 1 of
+    ``scenes.kitchen_anim``'s circle): atlas rows, albedo, emissive,
+    normal and the near-candidate drops bit-equal, one launch a call and
+    no host sync under ``set_sync_debug_mode("error")``; the kernel's ms
+    at both, the plain version's at (b), the bound from (b)'s bricks.
+    Returns its entry of the kernels' JSON line."""
+    import math
+
+    import torch
+
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+
+    dev = r.device
+    eff = r._sdf_cfg_effective or r.config.sdf
+    scene = r.scene.base_view()
+    world = bake_world(scene)
+    real, real_bricks = sdf_build._emit_kernel, sdf_build._emit_bricks
+    calls = []
+
+    def capture(*args):
+        calls.append(args)
+        return real_bricks(*args)
+
+    def hold(args, label):
+        """The kernel against the plain version on ``args``; returns the
+        kernel's outputs."""
+        torch.cuda.synchronize()
+        before = real.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _check(real.launches == before + 1,
+               f"sdf_emit ({label}): {real.launches - before} launches")
+        want = sdf_build._emit_blocks(*args)
+        names = ("atlas", "albedo", "emissive", "normal", "near_drop")
+        for name, x, y in zip(names, got, want):
+            _check(x.dtype == y.dtype and torch.equal(x, y),
+                   f"sdf_emit ({label}): {name} differs from the plain "
+                   f"version on {int((x != y).sum())} values")
+        return got
+
+    # -- (a) the full build's emit -------------------------------------------
+    centers = sdf_mod.default_centers(eff, r._cascade_focus, device=dev)
+    sdf_build._emit_bricks = capture
+    try:
+        sdf_build.build_for_scene(scene, world, centers, eff)
+    finally:
+        sdf_build._emit_bricks = real_bricks
+    _check(len(calls) == 1, f"sdf_emit: {len(calls)} emits in one build")
+    bids, *rest = calls.pop()
+    n_build = int(bids.shape[0])
+    sample = bids[::16]
+    got = hold((sample, *rest), f"the build's every 16th of {n_build} "
+                                "bricks")
+    whole = real(bids, *rest)
+    for name, x, y in zip(("atlas", "albedo", "emissive", "normal"),
+                          whole, got):
+        _check(torch.equal(x[::16], y), f"sdf_emit (the build): {name} of "
+               "the whole call differs from the sampled call's")
+    build_ms = _time_ms(lambda: real(bids, *rest), 3)
+    del whole, got, rest
+
+    # -- (b) the animated cell's first update --------------------------------
+    k = _smallest_instance(scene)
+    tf = scene.instance_transform.clone()
+    ang = 2.0 * math.pi / 9.0
+    off = torch.tensor([0.03 * math.cos(ang), 0.0, 0.03 * math.sin(ang)],
+                       device=dev)
+    tf[k, :3, 3] += off
+    s1 = scene.replace(instance_transform=tf)
+    lo0, hi0 = scene.instance_aabb_lo[k], scene.instance_aabb_hi[k]
+    dlo = torch.stack([lo0, lo0 + off])
+    dhi = torch.stack([hi0, hi0 + off])
+    sdf_build._emit_bricks = capture
+    try:
+        _, _, nf = sdf_build.update_for_scene(
+            r.cascades, r._build_state, s1, bake_world(s1),
+            scene.tri_instance == k, dlo, dhi, eff)
+    finally:
+        sdf_build._emit_bricks = real_bricks
+    _check(int(nf) == 0 and len(calls) == 1,
+           f"sdf_emit: the update's needs_full {int(nf)}, {len(calls)} "
+           "emits")
+    args = calls.pop()
+    n = int(args[0].shape[0])
+    _check(n > 0, "sdf_emit: the update re-emitted no brick")
+    got = hold(args, f"the update's {n} bricks")
+    ms = _time_ms(lambda: real(*args), 20)
+    plain_ms = _time_ms(lambda: sdf_build._emit_blocks(*args), 1)
+    bsz = eff.brick_size
+    texels = bsz ** 3
+    ops = n * texels * eff.max_triangles_per_brick * EMIT_FLOP_PER_DISTANCE
+    # outputs written once (atlas rows, three colour rows, the drop
+    # count), the brick ids and voxels read once; the candidate scan is
+    # left out (its size depends on the program's lists)
+    nbytes = _nbytes(*got) + _nbytes(args[0]) + 4 * n
+    regs = _ptxas("sdf_emit.cu")
+    entry = dict(
+        route="cuda", source="vri_tpu_torch/csrc/sdf_emit.cu",
+        replaces=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        library_ms=None, bricks=n, build_ms=build_ms, build_bricks=n_build,
+        **_bound(nbytes, ops))
+    print(f"sdf_emit: the kitchen's build, {n_build} bricks, "
+          f"{build_ms:.3f} ms (CUDA events, mean of 3), equal to the plain "
+          f"version on every 16th brick; the animated cell's first update, "
+          f"{n} bricks: {ms:.3f} ms (mean of 20) vs plain {plain_ms:.1f} ms "
+          f"on the same bricks, equal to it; one launch a call, no host "
+          f"sync; bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+          f"({ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
+    for line in regs:
+        print(f"  ptxas (sdf_emit.cu): {line}")
     return entry
 
 
@@ -1681,7 +1825,7 @@ def _animated(r, h: int, w: int, card: str) -> dict:
     kw = dict(height=h, width=w, config=eff, backend="raster", samples=1,
               use_cache=True, gi_scale=2, lod_tau=r.config.lod_tau,
               generator=gen)
-    per_frame = _launches(raster_tiles=1, march_rays=3)
+    per_frame = _launches(raster_tiles=1, march_rays=3, sdf_emit=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -3145,9 +3289,9 @@ def main() -> int:
     _check(r2.list_overflow == 0,
            f"SDF list drops: {r2.list_overflow}")
     n_lights = int(r2.scene.num_lights)
-    # bake: one shadow march; per frame one shadow march (all lights in
-    # one ray set) and one GI march
-    want_launch = _launches(raster_tiles=3,
+    # the build: one emit; bake: one shadow march; per frame one shadow
+    # march (all lights in one ray set) and one GI march
+    want_launch = _launches(raster_tiles=3, sdf_emit=1,
                             march_rays=(1 if n_lights else 0) + 3 * 2)
     _check(launches == want_launch,
            f"launch counts {launches}, expected {want_launch}")
@@ -3161,6 +3305,7 @@ def main() -> int:
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
     for name in ("raster_tiles", "march_rays"):
         kernels[name]["launches"] = launches[name]
+    kernels["sdf_emit"] = dict(launches=launches["sdf_emit"])
     kernels["raster_prep"]["launches"] = (rasterize.raster_prep.launches
                                           - prep_before)
     _check(kernels["raster_prep"]["launches"] == 3,
@@ -3232,6 +3377,10 @@ def main() -> int:
           f"{bvh_dev_ms:.2f} ms without (CUDA events, mean of 3) [{card}]")
     del ranged, plain, uni, bvh_frame
 
+    # -- 31. kernel E, the SDF emit, against its plain version ----------------
+    kernels["sdf_emit"].update(_sdf_emit(r2, card))
+    torch.cuda.empty_cache()
+
     # -- 18. the production frame: the temporal GI frame at gi_scale 2 --------
     prod_launches, prod_ms = _production(r2, h, w, sdf_cfg, card, dev_ms)
     for name, n in prod_launches.items():
@@ -3286,7 +3435,7 @@ def main() -> int:
         rasterize.rasterize_sorted = real_sorted
     launches = _counts()
     want_launch = _launches(
-        raster_tiles=1,
+        raster_tiles=1, sdf_emit=1,
         march_rays=(1 if int(ra.scene.num_lights) else 0) + 2)
     _check(tiers_run == ["binned"], f"app frame ran the tiers {tiers_run}")
     _check(launches == want_launch,

@@ -22,7 +22,8 @@ the sharded frames over a one-rank ``nccl`` mesh bit-equal to the
 single-card frames.  The sorted tier's prep kernels (raster_prep) are
 held bit-equal to their plain version on the cases of
 ``tests/test_torch_raster_prep.py`` and on the kitchen at 1080p, with no
-host sync.  On a host without a card every test skips.
+host sync, and the SDF emit kernel (sdf_emit) bit-equal to the plain
+emit on CUDA tensors.  On a host without a card every test skips.
 """
 
 import numpy as np
@@ -1348,3 +1349,60 @@ def test_raster_prep_has_no_host_sync(frame):
         torch.cuda.set_sync_debug_mode(0)
     assert rasterize.raster_prep.launches == before + 3
     assert int(prep["starts"][-1]) > 0 and int(prep["overflow"]) == 0
+
+
+@pytest.mark.parametrize("case", ["kitchen", "dense", "float_atlas"])
+def test_sdf_emit_matches_plain_version(case):
+    """The ``sdf_emit`` kernel (``csrc/sdf_emit.cu``) bit-equal to the
+    plain emit (``sdf_build._emit_blocks``, eager on the same CUDA
+    tensors) on every live brick of a card build: the animated kitchen at
+    this file's SDF settings; a dense case (1 m cells, whose 27
+    neighbourhoods hold thousands of candidates, so the kernel's key
+    buffer is cut many times a brick); the float atlas with 8 triangles a
+    brick.  One launch, no host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.ops.sdf import cascade_origin
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    cfg, stage = {
+        "kitchen": (SDF, dict(num_objects=24, tess=2)),
+        "dense": (dataclasses.replace(
+            SDF, num_cascades=1, cascade_resolution=16, base_voxel_size=1.0,
+            truncation_voxels=1.0, max_triangles_per_brick=32),
+            dict(num_objects=64, tess=6)),
+        "float_atlas": (dataclasses.replace(
+            SDF, atlas_u8=False, max_triangles_per_brick=8),
+            dict(num_objects=24, tess=3)),
+    }[case]
+    r = Renderer(RenderConfig(width=64, height=64, sdf=cfg), device="cuda")
+    r.load_stage(scenes.kitchen_anim(**stage))
+    r.ensure_cascades()
+    cfg = r._sdf_cfg_effective or cfg
+    st, cas, scene = r._build_state, r.cascades, r.scene
+    alb, emi = sdf_build._scene_colors(scene)
+    a, b, c, valid, tri_n, alb, emi = sdf_build._prep_tris(
+        bake_world(scene), scene.tri_vertices, scene.num_faces, alb, emi)
+    tris = (a, b, c, valid, alb, emi, tri_n)
+    bids = torch.nonzero(st.alive).reshape(-1)
+    vs = cas.voxel_size
+    origins = cascade_origin(cas.center, vs, cfg.cascade_resolution)
+    args = (bids, cas.brick_voxel, st, origins, vs, tris, cfg)
+    want = sdf_build._emit_blocks(*args)
+    before = sdf_build._emit_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sdf_build._emit_kernel(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sdf_build._emit_kernel.launches - before == 1
+    names = ("atlas", "albedo", "emissive", "normal", "near_drop")
+    for name, x, y in zip(names, got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), (
+            case, name, int((x != y).sum()))
+    assert int(want[4]) > 0 or case != "dense"

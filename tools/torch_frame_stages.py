@@ -65,9 +65,9 @@ def main() -> int:
                                       device=dev)
     cfg2 = stage("build.demand_caps", sdf_build.demand_caps, s, world,
                  centers, cfg)
-    for name, attr in (("build.bin", "_bin_one_cascade"),
+    for name, attr in (("build.bin", "_bin_cascades"),
                        ("build.occupancy", "_occupancy_cells"),
-                       ("build.emit", "_emit_block"),
+                       ("build.emit", "_emit_bricks"),
                        ("build.tables", "build_march_tables")):
         orig = getattr(sdf_build, attr)
         setattr(sdf_build, attr,

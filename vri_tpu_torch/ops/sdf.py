@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch.ops import geometry
 from vri_tpu_torch.ops.geometry import cross, dot3, norm3
+from vri_tpu_torch.runtime import profiler
 
 BIG = 3.0e38
 
@@ -459,6 +460,7 @@ def bake_brick_lighting_partial(cascades: SDFCascades, scene, mask, alive, *,
         if ax is not None:
             pos, (irr, vis) = mesh_mod.gather_padded(pos, (irr, vis), per,
                                                      ax)
+    profiler.count("rebake.bricks", pos.shape[0])
     irr_all[pos] = irr
     vis_all[pos] = vis
     return _with_lighting(cascades, irr_all, vis_all, alive), dropped

@@ -11,7 +11,9 @@
   2. **occupancy**: every cell tests only its own list.
   3. **emit**: a brick's candidates are its cell's 27-neighbourhood lists
      plus the global list, deduplicated by ownership; the k nearest by
-     AABB distance feed the exact texel distance pass.
+     AABB distance feed the exact texel distance pass.  On the card one
+     launch of the ``sdf_emit`` kernel (``csrc/sdf_emit.cu``) emits every
+     brick, bit-equal to the plain blocks.
 
 ``demand_caps`` measures the exact list demand first so production builds
 drop no reference.
@@ -112,102 +114,121 @@ def _rows_from_lists(lists, table):
     return torch.where((lists >= 0)[..., None], rows, _pad_row(table.device))
 
 
-def _cell_span(tri_lo, tri_hi, origin, vs, r, reach_vox: float):
-    """Inclusive cell-coordinate span of each triangle's AABB expanded by
-    ``reach_vox`` voxels."""
+def _cell_span(tri_lo, tri_hi, origins, vs, r, reach_vox: float):
+    """Inclusive cell-coordinate span (N, F, 3) of each triangle's AABB
+    expanded by ``reach_vox`` voxels, in each cascade of origins (N, 3)
+    and voxel sizes (N,)."""
     s = r // 16
-    cw = s * vs
-    e = reach_vox * vs
-    clo = torch.floor((tri_lo - e - origin) / cw).to(torch.int32)
-    chi = torch.floor((tri_hi + e - origin) / cw).to(torch.int32)
+    cw = (s * vs)[:, None, None]
+    e = (reach_vox * vs)[:, None, None]
+    org = origins[:, None, :]
+    clo = torch.floor((tri_lo[None] - e - org) / cw).to(torch.int32)
+    chi = torch.floor((tri_hi[None] + e - org) / cw).to(torch.int32)
     return clo, chi
 
 
-def _pair_emission(tri_lo, tri_hi, valid, origin, vs, r):
+def _pair_emission(tri_lo, tri_hi, valid, origins, vs, r):
     """Exact segmented (cell, tri) pair emission shared by the binning and
-    the demand count: (tri_of, cell, j, total, pairs_cap, large)."""
+    the demand count, in each of the cascades of origins (N, 3) and voxel
+    sizes (N,): (tri_of (N, P), cell (N, P), j (P,), total (N,),
+    pairs_cap, large (N, F))."""
     f = tri_lo.shape[0]
+    n = origins.shape[0]
     dev = tri_lo.device
-    clo, chi = _cell_span(tri_lo, tri_hi, origin, vs, r, 1.0)
-    inside = (valid & (chi >= 0).all(-1) & (clo < 16).all(-1))
+    clo, chi = _cell_span(tri_lo, tri_hi, origins, vs, r, 1.0)
+    inside = (valid[None] & (chi >= 0).all(-1) & (clo < 16).all(-1))
     clo_c = torch.clamp(clo, 0, 15)
     chi_c = torch.clamp(chi, 0, 15)
-    nspan = chi_c - clo_c + 1                              # (F, 3) >= 1
+    nspan = chi_c - clo_c + 1                              # (N, F, 3) >= 1
     # classify by the UNCLIPPED span (window-independent small/global split)
     small = inside & (chi - clo + 1 <= _BIN_SPAN_CAP).all(-1)
     large = inside & ~small
 
     s_cells = max(r // 16, 1)
     mult = _BIN_PAIRS_MULT * max(1, (1 + 2 // s_cells) ** 2)
-    ext = torch.where(small, nspan[:, 0] * nspan[:, 1] * nspan[:, 2],
-                      torch.zeros_like(nspan[:, 0])).to(torch.int64)
-    cum_ext = torch.cumsum(ext, 0)
-    total = cum_ext[-1]
+    ext = torch.where(small, nspan[..., 0] * nspan[..., 1] * nspan[..., 2],
+                      torch.zeros_like(nspan[..., 0])).to(torch.int64)
+    cum_ext = torch.cumsum(ext, 1)
+    total = cum_ext[:, -1]
     pairs_cap = -(-max(mult * f, 32768) // 1024) * 1024
     j = torch.arange(pairs_cap, dtype=torch.int64, device=dev)
-    tri_of = torch.clamp(torch.searchsorted(cum_ext, j, right=True),
-                         max=f - 1)
-    k_local = j - (cum_ext[tri_of] - ext[tri_of])
+    tri_of = torch.clamp(torch.searchsorted(
+        cum_ext, j[None].expand(n, pairs_cap).contiguous(), right=True),
+        max=f - 1)
+    k_local = j[None] - (torch.gather(cum_ext, 1, tri_of)
+                         - torch.gather(ext, 1, tri_of))
     # integer decode of the pair's (dx, dy, dz) within the span (the JAX
     # package uses an exact f32 form; both are exact for live pairs)
-    nx = torch.clamp(nspan[tri_of, 0], min=1).to(torch.int64)
-    ny = torch.clamp(nspan[tri_of, 1], min=1).to(torch.int64)
+    cas = torch.arange(n, device=dev)[:, None]
+    span = nspan[cas, tri_of]                              # (N, P, 3)
+    nx = torch.clamp(span[..., 0], min=1).to(torch.int64)
+    ny = torch.clamp(span[..., 1], min=1).to(torch.int64)
     dx = torch.remainder(k_local, nx)
     t = torch.div(k_local, nx, rounding_mode="floor")
     dy = torch.remainder(t, ny)
     dz = torch.div(t, ny, rounding_mode="floor")
-    base_c = clo_c[tri_of].to(torch.int64)
-    cell = ((base_c[:, 2] + dz) * 256 + (base_c[:, 1] + dy) * 16
-            + (base_c[:, 0] + dx))
+    base_c = clo_c[cas, tri_of].to(torch.int64)
+    cell = ((base_c[..., 2] + dz) * 256 + (base_c[..., 1] + dy) * 16
+            + (base_c[..., 0] + dx))
     return tri_of, cell, j, total, pairs_cap, large
 
 
-def _bin_one_cascade(tri_lo, tri_hi, valid, origin, vs, r, K, Kg,
-                     tri_ids=None):
-    """(cell_tris (4096,K), count (4096,), glob (Kg,), overflow ()).
-    ``tri_ids`` maps the working set to global triangle ids when binning
-    a compacted dirty subset (the incremental update)."""
+def _bin_cascades(tri_lo, tri_hi, valid, origins, vs, r, K, Kg,
+                  tri_ids=None):
+    """Per-cell lists of each cascade of origins (N, 3) and voxel sizes
+    (N,): (cell_tris (N, 4096, K), count (N, 4096), glob (N, Kg),
+    overflow (N,)).  ``tri_ids`` maps the working set to global triangle
+    ids when binning a compacted dirty subset (the incremental update).
+    The cascades share one sort, each keyed in a range of its own, so
+    every list is the one a cascade's own sort makes."""
     f = tri_lo.shape[0]
+    n = origins.shape[0]
     dev = tri_lo.device
     if tri_ids is None:
         tri_ids = torch.arange(f, dtype=torch.int32, device=dev)
     tri_of, cell, j, total, pairs_cap, large = _pair_emission(
-        tri_lo, tri_hi, valid, origin, vs, r)
+        tri_lo, tri_hi, valid, origins, vs, r)
     overflow = torch.clamp(total - pairs_cap, min=0)
-    dead = j >= total
+    dead = j[None] >= total[:, None]
 
     # spatial stratum: 2-bit per axis cell-local centroid position of the
     # source triangle — the per-cell tiebreak of the stable sort
     centroid = 0.5 * (tri_lo + tri_hi)
-    cellw = vs * (r // 16)
-    frac = (centroid - origin) / cellw
+    cellw = (vs * (r // 16))[:, None, None]
+    frac = (centroid[None] - origins[:, None, :]) / cellw
     strat3 = torch.clamp(((frac - torch.floor(frac)) * 4.0).to(torch.int32),
                          0, 3).to(torch.int64)
-    strat = (strat3[:, 2] << 4) | (strat3[:, 1] << 2) | strat3[:, 0]
-    key = (cell << 6) | strat[tri_of]
+    strat = (strat3[..., 2] << 4) | (strat3[..., 1] << 2) | strat3[..., 0]
+    key = (cell << 6) | torch.gather(strat, 1, tri_of)
     key = torch.where(dead, torch.full_like(key, 4096 << 6), key)
+    # cascade i sorts in [i << 19, (i + 1) << 19): 4096 << 6 = 1 << 18
+    cas = torch.arange(n, dtype=torch.int64, device=dev)
+    key = key + (cas[:, None] << 19)
     vals = torch.where(dead, torch.full_like(tri_of, -1),
                        tri_ids[tri_of].to(torch.int64))
-    skeys, order = torch.sort(key, stable=True)
-    stris = vals[order]
+    skeys, order = torch.sort(key.reshape(-1), stable=True)
+    stris = vals.reshape(-1)[order]
 
-    bounds = torch.arange(4097, dtype=torch.int64, device=dev) << 6
-    starts = torch.searchsorted(skeys, bounds)
-    count = starts[1:] - starts[:-1]                       # (4096,)
+    bounds = ((cas[:, None] << 19)
+              + (torch.arange(4097, dtype=torch.int64, device=dev) << 6))
+    starts = torch.searchsorted(skeys, bounds.reshape(-1)).reshape(n, 4097)
+    count = starts[:, 1:] - starts[:, :-1]                 # (N, 4096)
     k_ids = torch.arange(K, dtype=torch.int64, device=dev)
-    gidx = starts[:4096, None] + k_ids[None, :]
-    in_seg = k_ids[None, :] < count[:, None]
-    cell_tris = torch.where(in_seg, stris[torch.clamp(gidx,
-                                                      max=pairs_cap - 1)],
-                            torch.full_like(gidx, -1)).to(torch.int32)
-    overflow = overflow + torch.clamp(count - K, min=0).sum()
+    gidx = starts[:, :4096, None] + k_ids
+    in_seg = k_ids < count[..., None]
+    cell_tris = torch.where(in_seg, stris[torch.clamp(
+        gidx, max=n * pairs_cap - 1)], torch.full_like(gidx, -1)).to(
+        torch.int32)
+    overflow = overflow + torch.clamp(count - K, min=0).sum(1)
 
-    gpos = torch.nonzero(large).reshape(-1)[:Kg]
-    glob = torch.full((Kg,), -1, dtype=torch.int32, device=dev)
-    glob[:gpos.shape[0]] = tri_ids[gpos]
-    overflow = overflow + torch.clamp(large.sum() - Kg, min=0)
-    return (cell_tris, torch.clamp(count, max=K).to(torch.int32), glob,
-            overflow)
+    # the first Kg large triangles of each cascade, in index order
+    rank = torch.cumsum(large.to(torch.int64), 1) - 1
+    slot = torch.where(large & (rank < Kg), rank, Kg)
+    glob = torch.full((n, Kg + 1), -1, dtype=torch.int32, device=dev)
+    glob.scatter_(1, slot, tri_ids[None].expand(n, f).to(torch.int32))
+    overflow = overflow + torch.clamp(large.sum(1) - Kg, min=0)
+    return (cell_tris, torch.clamp(count, max=K).to(torch.int32),
+            glob[:, :Kg].contiguous(), overflow)
 
 
 def _cell_voxel_centers(origin, vs, r):
@@ -397,34 +418,93 @@ def _emit_block(bids, blive, brick_voxel, state: BuildState, origins, vs,
             near_drop.sum())
 
 
+def _emit_kernel(bids, brick_voxel, state: BuildState, origins, vs, tris,
+                 config: SDFConfig):
+    """``_emit_bricks`` on the card: one launch of ``sdf_emit``
+    (``csrc/sdf_emit.cu``), a block a brick, bit-equal to the blocks of
+    :func:`_emit_block`."""
+    from vri_tpu_torch import _cuda
+
+    a, b, c, valid, tri_albedo, tri_emissive, tri_n = tris
+    dev = bids.device
+    n = bids.shape[0]
+    bsz = config.brick_size
+    K = state.cell_tris.shape[-1]
+    Kg = state.glob_tris.shape[-1]
+    bids = bids.to(torch.int64).contiguous()
+    bv = brick_voxel.to(torch.int32).contiguous()
+    org = origins.to(torch.float32).contiguous()
+    vsc = vs.to(torch.float32).contiguous()
+    cell_rows = state.cell_rows.contiguous()
+    glob_rows = state.glob_rows.contiguous()
+    tri = torch.stack([a, b, c], 1).contiguous()
+    ok = valid.to(torch.uint8).contiguous()
+    alb_in = tri_albedo.to(torch.float32).contiguous()
+    emi_in = tri_emissive.to(torch.float32).contiguous()
+    nrm_in = tri_n.to(torch.float32).contiguous()
+    atlas = torch.empty((n, bsz, bsz, bsz), device=dev,
+                        dtype=torch.uint8 if config.atlas_u8
+                        else torch.float32)
+    alb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    emi = torch.empty_like(alb)
+    nrm = torch.empty_like(alb)
+    near = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n:
+        lib = _cuda.library()
+        _cuda.check(lib.vri_sdf_emit(
+            bids.data_ptr(), n, bv.data_ptr(), org.data_ptr(),
+            vsc.data_ptr(), config.cascade_resolution, cell_rows.data_ptr(),
+            K, glob_rows.data_ptr(), Kg, tri.data_ptr(), ok.data_ptr(),
+            alb_in.data_ptr(), emi_in.data_ptr(), nrm_in.data_ptr(), bsz,
+            config.max_triangles_per_brick,
+            float(config.truncation_voxels), int(config.atlas_u8),
+            atlas.data_ptr(), alb.data_ptr(), emi.data_ptr(),
+            nrm.data_ptr(), near.data_ptr(), _cuda.stream_ptr(bids)),
+            "sdf_emit")
+        _emit_kernel.launches += 1
+    return atlas, alb, emi, nrm, near.sum()
+
+
+_emit_kernel.launches = 0
+
+
+def _emit_blocks(bids, brick_voxel, state: BuildState, origins, vs, tris,
+                 config: SDFConfig):
+    """The plain version of the emit on any device: :func:`_emit_block`
+    over blocks of ``bids`` sized to the candidate count (27 cell lists +
+    the global list per brick); per-brick results do not depend on the
+    blocking."""
+    K = state.cell_tris.shape[-1]
+    Kg = state.glob_tris.shape[-1]
+    n = bids.shape[0]
+    block = max(1, min(1024, n, _WORK_ELEMS // (ROW * (27 * K + Kg))))
+    outs = [_emit_block(bids[b0:b0 + block],
+                        torch.ones_like(bids[b0:b0 + block],
+                                        dtype=torch.bool),
+                        brick_voxel, state, origins, vs, *tris, config)
+            for b0 in range(0, n, block)]
+    if not outs:
+        bsz = config.brick_size
+        empty = torch.zeros((0, 3), dtype=torch.float32, device=bids.device)
+        return (torch.zeros((0, bsz, bsz, bsz),
+                            dtype=torch.uint8 if config.atlas_u8
+                            else torch.float32, device=bids.device),
+                empty, empty, empty,
+                torch.zeros((), dtype=torch.int64, device=bids.device))
+    return (*(torch.cat([o[k] for o in outs]) for k in range(4)),
+            sum(o[4] for o in outs))
+
+
 def _emit_bricks(bids, brick_voxel, state: BuildState, origins, vs, tris,
                  config: SDFConfig):
-    """Emit the live bricks ``bids`` (1-D) in blocks sized to the
-    candidate count (27 cell lists + the global list per brick); per-brick
-    results do not depend on the blocking.  ``tris`` is (a, b, c, valid,
+    """Emit the live bricks ``bids`` (1-D): on the card in one launch of
+    the ``sdf_emit`` kernel (:func:`_emit_kernel`), on the CPU by the
+    plain version (:func:`_emit_blocks`).  ``tris`` is (a, b, c, valid,
     tri_albedo, tri_emissive, tri_n).  Returns (atlas rows, albedo,
     emissive, normal, near_drop).  Span ``sdf.emit``."""
     with profiler.span("sdf.emit"):
-        K = state.cell_tris.shape[-1]
-        Kg = state.glob_tris.shape[-1]
-        n = bids.shape[0]
-        block = max(1, min(1024, n, _WORK_ELEMS // (ROW * (27 * K + Kg))))
-        outs = [_emit_block(bids[b0:b0 + block],
-                            torch.ones_like(bids[b0:b0 + block],
-                                            dtype=torch.bool),
-                            brick_voxel, state, origins, vs, *tris, config)
-                for b0 in range(0, n, block)]
-        if not outs:
-            bsz = config.brick_size
-            empty = torch.zeros((0, 3), dtype=torch.float32,
-                                device=bids.device)
-            return (torch.zeros((0, bsz, bsz, bsz),
-                                dtype=torch.uint8 if config.atlas_u8
-                                else torch.float32, device=bids.device),
-                    empty, empty, empty,
-                    torch.zeros((), dtype=torch.int64, device=bids.device))
-        return (*(torch.cat([o[k] for o in outs]) for k in range(4)),
-                sum(o[4] for o in outs))
+        emit = _emit_kernel if bids.is_cuda else _emit_blocks
+        return emit(bids, brick_voxel, state, origins, vs, tris, config)
 
 
 def _prep_tris(world_verts, tri_vertices, num_faces, tri_albedo,
@@ -472,8 +552,8 @@ def build_cascades_binned(world_verts, tri_vertices, num_faces, centers, *,
     # -- 1. bin ------------------------------------------------------------
     cell_tris, cell_count, glob_tris, overflow = [], [], [], 0
     for n in range(n_cas):
-        ct, cc, gt, ov = _bin_one_cascade(
-            tri_lo, tri_hi, valid, origins[n], vs[n], r, K, Kg)
+        ct, cc, gt, ov = (x[0] for x in _bin_cascades(
+            tri_lo, tri_hi, valid, origins[n:n + 1], vs[n:n + 1], r, K, Kg))
         cell_tris.append(ct)
         cell_count.append(cc)
         glob_tris.append(gt)
@@ -543,10 +623,11 @@ def build_cascades_binned(world_verts, tri_vertices, num_faces, centers, *,
 
 
 def _demand_one_cascade(tri_lo, tri_hi, valid, origin, vs, r):
-    """Counting half of ``_bin_one_cascade``: exact per-cell reference
+    """Counting half of ``_bin_cascades``: exact per-cell reference
     demand (4096,), the large-triangle count, and the pairs truncated."""
     _, cell, j, total, pairs_cap, large = _pair_emission(
-        tri_lo, tri_hi, valid, origin, vs, r)
+        tri_lo, tri_hi, valid, origin[None], vs.reshape(1), r)
+    cell, total = cell[0], total[0]
     dead = (j >= total) | (j >= pairs_cap - 1)
     counts = torch.bincount(cell[~dead], minlength=4096)[:4096]
     trunc = torch.clamp(total - (pairs_cap - 1), min=0)
@@ -780,6 +861,7 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
     else:
         ebrick, (blocks, albs, emis, nrms, near_drop) = _emit_share(
             elist, axis_name, brick_voxel, state, origins, vs, tris, config)
+    profiler.count("sdf_update.bricks", ebrick.shape[0])
     atlas = cascades.atlas.clone()
     atlas[ebrick] = blocks
     brick_albedo = cascades.brick_albedo.clone()
@@ -881,46 +963,40 @@ def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
     d_ids = torch.where(dvalid, dsafe, -1).to(torch.int32)
     dlo, dhi = tri_lo[dsafe], tri_hi[dsafe]
 
-    # dirty cells: the cells each (expanded) dirty box overlaps, per cascade
+    # dirty cells: the cells each (expanded) dirty box overlaps, in every
+    # cascade at once
     cw = vs * (r // 16)
-    dirty_cells = []
     ar = torch.arange(16, dtype=torch.float32, device=dev)
-    for n in range(n_cas):
-        e = config.truncation_voxels * vs[n] + vs[n]
-        ax = origins[n][None, :] + ar[:, None] * cw[n]      # (16, 3)
+    e = (config.truncation_voxels * vs + vs)[:, None, None]
+    ax = origins[:, None, :] + ar[None, :, None] * cw[:, None, None]
 
-        def ov(k):                                          # (16, D)
-            return ((ax[:, k][:, None] <= dirty_hi[None, :, k] + e)
-                    & ((ax[:, k] + cw[n])[:, None]
-                       >= dirty_lo[None, :, k] - e))
-        mx, my, mz = ov(0), ov(1), ov(2)
-        m = (mz[:, None, None, :] & my[None, :, None, :]
-             & mx[None, None, :, :]).any(-1)                # (16,16,16) zyx
-        dirty_cells.append(m.reshape(4096))
-    cell_ids, over = _first(torch.cat(dirty_cells), config.update_cell_cap)
+    def ov(k):                                              # (N, 16, D)
+        return ((ax[:, :, k][:, :, None] <= dirty_hi[None, None, :, k] + e)
+                & ((ax[:, :, k] + cw[:, None])[:, :, None]
+                   >= dirty_lo[None, None, :, k] - e))
+    mx, my, mz = ov(0), ov(1), ov(2)
+    m = (mz[:, :, None, None, :] & my[:, None, :, None, :]
+         & mx[:, None, None, :, :]).any(-1)                 # (N,16,16,16) zyx
+    cell_ids, over = _first(m.reshape(-1), config.update_cell_cap)
     needs_full += over
+    profiler.count("sdf_update.cells", cell_ids.shape[0])
     cid = cell_ids.long()
 
     # fresh bin of the dirty subset, and the global lists merged in place
     # (a moved global triangle only affects cells inside the dirty region)
-    add_tris, globs = [], []
-    needs_full = torch.as_tensor(needs_full, device=dev)
-    for n in range(n_cas):
-        ct, _, gt, rebin_ov = _bin_one_cascade(
-            dlo, dhi, dvalid, origins[n], vs[n], r, K, Kg, tri_ids=d_ids)
-        # a reference dropped at the re-bin's capacity would vanish from
-        # the merged lists: escalate
-        needs_full = needs_full + rebin_ov
-        add_tris.append(ct)
-        old_g = state.glob_tris[n]
-        old_g = torch.where((old_g >= 0)
-                            & ~dirty[torch.clamp(old_g, min=0).long()],
-                            old_g, -1)
-        gm = torch.cat([old_g, gt])                          # (2 Kg,)
-        needs_full = needs_full + torch.clamp((gm >= 0).sum() - Kg, min=0)
-        globs.append(_stable_front(gm)[:Kg])
-    add_tris = torch.stack(add_tris).reshape(n_cas * 4096, K)
-    glob_tris = torch.stack(globs)
+    add_tris, _, gt, rebin_ov = _bin_cascades(
+        dlo, dhi, dvalid, origins, vs, r, K, Kg, tri_ids=d_ids)
+    # a reference dropped at the re-bin's capacity would vanish from the
+    # merged lists: escalate
+    needs_full = torch.as_tensor(needs_full, device=dev) + rebin_ov.sum()
+    add_tris = add_tris.reshape(n_cas * 4096, K)
+    old_g = state.glob_tris
+    old_g = torch.where((old_g >= 0)
+                        & ~dirty[torch.clamp(old_g, min=0).long()], old_g, -1)
+    gm = torch.cat([old_g, gt], 1)                           # (N, 2 Kg)
+    needs_full = needs_full + torch.clamp((gm >= 0).sum(1) - Kg,
+                                          min=0).sum()
+    glob_tris = _stable_front(gm)[:, :Kg]
     state = dataclasses.replace(state, glob_tris=glob_tris,
                                 glob_rows=_rows_from_lists(glob_tris, table))
 
@@ -1041,8 +1117,9 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
     for n in range(n_cas):
         if not scrolled[n]:
             continue
-        ct, cnt, gt, ov = _bin_one_cascade(
-            tri_lo, tri_hi, valid, new_origins[n], vs[n], r, K, Kg)
+        ct, cnt, gt, ov = (x[0] for x in _bin_cascades(
+            tri_lo, tri_hi, valid, new_origins[n:n + 1], vs[n:n + 1], r, K,
+            Kg))
         fresh[n] = (ct, cnt)
         glob_tris[n] = gt
         list_overflow = list_overflow + ov

@@ -755,6 +755,7 @@ def render_frame_gi_dynamic(scene: SceneBuffers, frame: FrameParams,
                 build_state.alive, config=config,
                 cap=config.bake_brick_cap, axis_name=ax)
             needs_full = needs_full + bake_drop
+    profiler.count("sdf_update.needs_full", needs_full)
     aovs, new_state = render_frame_gi_temporal(
         scene, frame, cascades, state, height=height, width=width,
         config=config, backend=backend, samples=samples,

@@ -6,9 +6,10 @@ bounded update of a transforms-only edit, or the clipmap scroll of a
 moved focus; the dense build for the configurations the cell binning
 cannot hold; then the radiance bake), saves and loads the synced scene
 as a scene cache, and renders GI frames, direct-only frames with
-``gi=False``, SDF debug views, frames at a stage time code and temporal
-flythroughs on ``device`` (the CUDA card unless the caller asks for the
-CPU).  GI samples come from a ``torch.Generator`` seeded with the frame
+``gi=False``, SDF debug views, frames at a stage time code, temporal
+flythroughs and the production temporal frame of a static or animated
+stage with its history on the device (``render_temporal``) on ``device``
+(the CUDA card unless the caller asks for the CPU).  GI samples come from a ``torch.Generator`` seeded with the frame
 index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
@@ -125,23 +126,18 @@ class Renderer:
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         cfg = self._sdf_cfg_effective or self.config.sdf
-        if focus is None:
-            # recenter on the view, clamped into the scene AABB
-            if eye is None:
-                eye = (self.camera.eye if self.camera is not None
-                       else np.zeros(3, np.float32))
-            ni = max(int(self.scene.num_instances), 1)
-            lo = self.scene.instance_aabb_lo[:ni].cpu().numpy().min(0)
-            hi = self.scene.instance_aabb_hi[:ni].cpu().numpy().max(0)
-            focus = np.clip(np.asarray(eye, np.float32), lo, hi)
-        focus = np.asarray(focus, np.float32)
-        coarse = cfg.voxel_size(cfg.num_cascades - 1)
-        moved = (self._cascade_focus is None
-                 or np.abs(focus - self._cascade_focus).max() > coarse)
+        focus = np.asarray(self._focus(eye) if focus is None else focus,
+                           np.float32)
+        moved = self._moved(focus, cfg)
         stale = self._scene_version != self._sync_count
         if not (force or self.cascades is None or moved or stale):
             return self.cascades
 
+        if self.device.type == "cuda":
+            # the card's kernels are built (or loaded) first, so that
+            # ``sdf.emit`` and ``sdf.bake`` time their work alone
+            with profiler.span("kernel_build"):
+                _cuda.library()
         t0 = time.perf_counter()
         # the SDF paths read the base geometry only (no LOD chains)
         scene_b = self.scene.base_view()
@@ -149,9 +145,8 @@ class Renderer:
         done = None  # (cascades, state, label)
         if not force and self.cascades is not None \
                 and self._build_state is not None:
-            upd = self.delegate.registry.last_update
-            if (stale and not moved and upd.get("kind") == "transforms"
-                    and len(upd["dirty_instances"]) <= 32):
+            upd = self._transforms_update(moved)
+            if upd is not None:
                 done = self._try_incremental(scene_b, world, upd, cfg)
             elif moved and not stale:
                 done = self._try_scroll(scene_b, world, focus, cfg)
@@ -174,11 +169,6 @@ class Renderer:
             done = (*sdf_build.build_for_scene(scene_b, world, centers, cfg),
                     "rebuilt")
         cascades, state, label = done
-        if self.device.type == "cuda":
-            # the card's kernels are built (or loaded) first, so that
-            # ``sdf.bake`` times the bake alone
-            with profiler.span("kernel_build"):
-                _cuda.library()
         with profiler.span("sdf.bake"):
             self.cascades = sdf_mod.bake_brick_lighting(
                 cascades, self.scene, config=cfg,
@@ -198,28 +188,72 @@ class Renderer:
                         list_ov)
         return self.cascades
 
-    def _try_incremental(self, scene_b, world, upd, cfg):
-        """Bounded update over the dirty instances' old and new boxes;
-        None when a capacity overflowed."""
+    def _focus(self, eye=None) -> np.ndarray:
+        """The cascades' focus for ``eye`` (the camera's by default): the
+        eye clamped into the scene's AABB."""
+        if eye is None:
+            eye = (self.camera.eye if self.camera is not None
+                   else np.zeros(3, np.float32))
+        ni = max(int(self.scene.num_instances), 1)
+        lo = self.scene.instance_aabb_lo[:ni].cpu().numpy().min(0)
+        hi = self.scene.instance_aabb_hi[:ni].cpu().numpy().max(0)
+        return np.clip(np.asarray(eye, np.float32), lo, hi)
+
+    def _moved(self, focus, cfg) -> bool:
+        """Whether ``focus`` left the cascades' focus by more than one
+        coarse voxel (or no cascades were built)."""
+        coarse = cfg.voxel_size(cfg.num_cascades - 1)
+        return (self._cascade_focus is None
+                or np.abs(focus - self._cascade_focus).max() > coarse)
+
+    def _transforms_update(self, moved: bool):
+        """The registry's last update when the bounded SDF update can
+        follow it: the one sync since the cascades were built moved the
+        transforms of at most 32 instances, the focus did not move and a
+        build state is kept; None otherwise."""
+        upd = self.delegate.registry.last_update
+        if (self.cascades is None or self._build_state is None or moved
+                or self._sync_count != self._scene_version + 1
+                or upd.get("kind") != "transforms"
+                or len(upd["dirty_instances"]) > 32):
+            return None
+        return upd
+
+    def _dirty_set(self, scene_b, upd):
+        """The bounded update's inputs for the update ``upd``: the moved
+        instances' triangles (F,) and the boxes (2n, 3) covering their old
+        and new world AABBs.  (The JAX package pads the boxes to 64 rows
+        of +BIG/-BIG; a padded row changes nothing, so the port passes
+        none.)"""
         ids = upd["dirty_instances"]
         dirty_inst = torch.zeros((scene_b.instance_transform.shape[0],),
                                  dtype=torch.bool, device=self.device)
         dirty_inst[ids] = True
         dirty_tri = dirty_inst[scene_b.tri_instance.long()]
-        cap = 64
-        dlo = np.full((cap, 3), 3.0e38, np.float32)
-        dhi = np.full((cap, 3), -3.0e38, np.float32)
-        n = len(ids)
-        dlo[:n], dhi[:n] = upd["old_lo"], upd["old_hi"]
-        dlo[n:2 * n], dhi[n:2 * n] = upd["new_lo"], upd["new_hi"]
-        cascades, state, needs_full = sdf_build.update_for_scene(
-            self.cascades, self._build_state, scene_b, world, dirty_tri,
-            torch.as_tensor(dlo, device=self.device),
-            torch.as_tensor(dhi, device=self.device), cfg)
+        dlo = np.concatenate([upd["old_lo"], upd["new_lo"]]).astype(
+            np.float32)
+        dhi = np.concatenate([upd["old_hi"], upd["new_hi"]]).astype(
+            np.float32)
+        return (dirty_tri, torch.as_tensor(dlo, device=self.device),
+                torch.as_tensor(dhi, device=self.device))
+
+    def _try_incremental(self, scene_b, world, upd, cfg):
+        """Bounded update over the dirty instances' old and new boxes;
+        None when a capacity overflowed."""
+        return self._adopt_update(upd, *sdf_build.update_for_scene(
+            self.cascades, self._build_state, scene_b, world,
+            *self._dirty_set(scene_b, upd), cfg))
+
+    @staticmethod
+    def _adopt_update(upd, cascades, state, needs_full):
+        """(cascades, build state, label) of a bounded update after the
+        update ``upd``, or None when it breached a capacity (``needs_full``,
+        one host read): the caller then rebuilds."""
         if int(needs_full):
             log.info("bounded SDF update overflowed; full rebuild")
             return None
-        return cascades, state, f"updated ({n} dirty instances)"
+        return (cascades, state,
+                f"updated ({len(upd['dirty_instances'])} dirty instances)")
 
     def _try_scroll(self, scene_b, world, focus, cfg):
         """Clipmap scroll to the focus's centers; None when a capacity
@@ -302,6 +336,86 @@ class Renderer:
         if to_numpy:
             return {k: v.cpu().numpy() for k, v in aovs.items()}
         return aovs
+
+    @profiler.frame_root
+    def render_temporal(self, state: frame_mod.TemporalState, *,
+                        time_code: float | None = None,
+                        uniforms: torch.Tensor | None = None,
+                        samples: int = 1, gi_scale: int = 2,
+                        history_cap: float = 16.0,
+                        backend: str = "raster"):
+        """One production temporal GI frame from the stage's camera, with
+        the history ``state`` kept on the device (``frame.init_temporal``
+        starts one).  Returns (aovs, new_state).
+
+        ``time_code`` first syncs the stage at that time (the
+        ``scene_sync`` span).  After a sync that moved the transforms of at
+        most 32 instances, with the focus unmoved, the frame is
+        ``frame.render_frame_gi_dynamic``: the bounded SDF update over the
+        moved instances' old and new boxes (the update caps of the
+        effective SDF configuration), the partial radiance re-bake, then
+        the temporal frame; the renderer keeps the cascades and build
+        state it returns.  A frame with nothing changed is
+        ``frame.render_frame_gi_temporal`` on the cascades as they are;
+        anything else (a first frame, a moved focus, a geometry edit, a
+        stage with LOD chains) first brings the cascades up to date with
+        :meth:`ensure_cascades`.  When the update breaches a capacity
+        (``needs_full``, read once a frame) the cascades are rebuilt before
+        the call returns.  ``aovs["frame_faults"]`` is a device scalar,
+        the raster's overflowed tiles plus ``needs_full``: a frame with
+        any is not to be trusted.  GI samples come from ``uniforms``
+        (samples, GI pixels, 2), else from a generator seeded with the
+        frame index."""
+        if self.scene is None:
+            raise RuntimeError("load_stage() first")
+        if time_code is not None:
+            with profiler.span("scene_sync"):
+                self.sync(time_code=time_code)
+        cam = self.camera
+        if cam is None:
+            raise RuntimeError("no camera")
+        h, w = self.config.height, self.config.width
+        fp = frame_mod.FrameParams.from_camera(cam, h, device=self.device)
+        gen = None
+        if uniforms is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.frame_index)
+        self.frame_index += 1
+        kw = dict(height=h, width=w, backend=backend, samples=samples,
+                  use_cache=True, gi_scale=gi_scale,
+                  history_cap=history_cap, lod_tau=self.config.lod_tau,
+                  generator=gen, uniforms=uniforms)
+        cfg = self._sdf_cfg_effective or self.config.sdf
+        moved = self.cascades is None or self._moved(self._focus(cam.eye),
+                                                     cfg)
+        upd = self._transforms_update(moved)
+        needs_full = None
+        if upd is not None and self.scene.base_view() is self.scene:
+            aovs, state, *update = frame_mod.render_frame_gi_dynamic(
+                self.scene, fp, self.cascades, self._build_state, state,
+                *self._dirty_set(self.scene, upd), config=cfg, rebake=True,
+                **kw)
+            needs_full = update[-1]
+            done = self._adopt_update(upd, *update)
+            if done is None:
+                self.ensure_cascades(eye=cam.eye, force=True)
+            else:
+                self.cascades, self._build_state, self.last_build_label = \
+                    done
+                self._scene_version = self._sync_count
+        else:
+            if moved or self._scene_version != self._sync_count:
+                self.ensure_cascades(eye=cam.eye)
+            aovs, state = frame_mod.render_frame_gi_temporal(
+                self.scene, fp, self.cascades, state,
+                config=self.config.sdf, **kw)
+        faults = aovs.get("raster_overflow_tiles")
+        if needs_full is not None:
+            faults = needs_full if faults is None else faults + needs_full
+        aovs["frame_faults"] = (torch.zeros((), dtype=torch.int64,
+                                            device=self.device)
+                                if faults is None else faults)
+        return aovs, state
 
     def render_progressive(self, n_frames: int,
                            camera: Optional[CameraState] = None,

@@ -14,7 +14,11 @@ its parent, its frame, its host interval and, on a card, the interval
 between two CUDA events recorded as it opened and closed, on the stream
 current when the recording started.  Nothing is written while
 recording; ``stop_recording`` synchronizes once, resolves the events and
-keeps them for the next recording.
+keeps them for the next recording.  ``count`` keeps a named value (a
+host number or a device scalar, held by reference with no sync) with
+its frame while a recording runs, and costs one test otherwise;
+``stop_recording`` resolves the device ones after its synchronize, and
+``recorded_counts`` hands them out.
 
 ``frame_root`` makes each call of a frame function the root span
 ``frame`` of its spans (a frame called inside another frame opens no
@@ -45,6 +49,7 @@ _rec: Optional["_Recording"] = None
 _in_frame = False                   # a ``frame`` root span is open
 _NULL = contextlib.nullcontext()
 _events: list = []                  # timing events resolved, for reuse
+_counts: list = []                  # the last recording's CountRecords
 
 
 @dataclasses.dataclass
@@ -64,9 +69,21 @@ class SpanRecord:
     device_end_s: Optional[float] = None
 
 
+@dataclasses.dataclass
+class CountRecord:
+    """One ``count`` of a recording: its name, the frame it was counted
+    in (-1 outside a frame) and its value."""
+
+    name: str
+    frame: int
+    value: float
+
+
 class _Recording:
     def __init__(self):
         self.records: List[SpanRecord] = []
+        #: (name, frame, host number or device scalar), resolved at the end
+        self.counts: list = []
         self.open: List[int] = []
         self.frame = -1              # id of the open frame root
         self.root = -1               # index of the open frame root
@@ -166,6 +183,15 @@ def frame_root(fn):
     return wrapped
 
 
+def count(name: str, value) -> None:
+    """Keep ``value`` (a host number or a device scalar) under ``name``
+    with the open frame while a recording runs; free otherwise.  A
+    device scalar is held by reference and read at
+    :func:`stop_recording`, so counting adds no sync to a frame."""
+    if _rec is not None:
+        _rec.counts.append((name, _rec.frame, value))
+
+
 def _set_on() -> None:
     global _on
     _on = _trace is not None or _rec is not None
@@ -217,8 +243,9 @@ def start_recording() -> None:
 def stop_recording() -> List[SpanRecord]:
     """Stop recording and return the spans in the order they opened, a
     span still open ended now; on a card, after one synchronize, with
-    their device intervals."""
-    global _rec
+    their device intervals.  The recording's counts, device scalars read
+    after that synchronize, are then :func:`recorded_counts`."""
+    global _rec, _counts
     rec = _rec
     if rec is None:
         raise RuntimeError("no spans are being recorded")
@@ -233,7 +260,19 @@ def stop_recording() -> List[SpanRecord]:
             r.device_end_s = 1e-3 * rec.origin.elapsed_time(e)
             _events.extend((b, e))
         _events.append(rec.origin)
+    dev = [v for _, _, v in rec.counts if torch.is_tensor(v)]
+    read = iter(torch.stack([v.reshape(()).double() for v in dev]).tolist()
+                if dev else ())
+    _counts = [CountRecord(name, frame, float(next(read))
+                           if torch.is_tensor(v) else float(v))
+               for name, frame, v in rec.counts]
     return rec.records
+
+
+def recorded_counts() -> List[CountRecord]:
+    """The counts of the recording :func:`stop_recording` last ended, in
+    the order they were made."""
+    return list(_counts)
 
 
 class FrameStats:

@@ -1,4 +1,5 @@
-# Copy of vri_tpu/usd/scenes.py for the port; only the imports differ.
+# Copy of vri_tpu/usd/scenes.py for the port; only the imports differ,
+# and the port adds kitchen_anim.
 """Procedural USD stages used for tests and benchmarks.
 
 The reference ships no scenes; it hardcodes three local stage paths (chess
@@ -12,6 +13,8 @@ With zero network egress we generate our own:
     instanced meshes, per-object materials, face-varying UVs.
   * :func:`animated_stage` — a stage with per-frame animated transforms to
     exercise incremental sync + SDF cascade updates (BASELINE config 3).
+  * :func:`kitchen_anim` — :func:`kitchen_stress` with its smallest prop
+    circling on authored timeSamples: playback of an animated stage.
 
 All geometry is authored as polygonal (quad) meshes so the triangulation path
 (reference: HdMeshUtil::ComputeTriangleIndices, Source/Mesh.cpp:52-60) is
@@ -411,6 +414,40 @@ def animated_stage(num_objects: int = 8, authored_frames: int = 48) -> Stage:
             t[1] = abs(base[1]) + 0.25 * (1 + np.sin(f / 8.0 + phase))
             samples[float(f)] = t
         a.metadata["timeSamples"] = samples
+    return stage
+
+
+def kitchen_anim(num_objects: int = 256, seed: int = 7,
+                 num_materials: int = 24, tess: int = 1,
+                 radius: float = 0.03, period: int = 9) -> Stage:
+    """:func:`kitchen_stress` with authored motion on one prop.
+
+    The prop whose world AABB has the smallest largest side (ties broken
+    by path) carries ``timeSamples`` on its ``xformOp:translate``: a
+    circle of ``radius`` metres in the floor plane around its authored
+    place, one turn every ``period`` time codes, authored at every
+    integer code 0..period (the last equal to the first, so looped
+    playback has no jump).  The default value stays the authored place.
+    Deterministic: nothing depends on ``hash()``."""
+    stage = kitchen_stress(num_objects=num_objects, seed=seed,
+                           num_materials=num_materials, tess=tess)
+
+    def largest_side(prim):
+        pts = np.asarray(prim.get("points"), np.float64)
+        m = stage.world_transform(prim).astype(np.float64)
+        w = pts @ m[:3, :3].T + m[:3, 3]
+        return float((w.max(0) - w.min(0)).max())
+
+    props = [p for p in stage.prims_of_type("Mesh") if "/Props/" in p.path]
+    prop = min(props, key=lambda p: (largest_side(p), p.path))
+    a = prop.attributes["xformOp:translate"]
+    base = np.asarray(a.value, np.float64)
+    samples = {}
+    for k in range(period + 1):
+        ang = 2.0 * np.pi * (k % period) / period
+        samples[float(k)] = (base + radius * np.array(
+            [np.cos(ang), 0.0, np.sin(ang)])).astype(np.float32)
+    a.metadata["timeSamples"] = samples
     return stage
 
 
