@@ -20,7 +20,7 @@ frames sharded over several ranks (``vri_tpu_torch.parallel``), whose
 ranks this script starts as subprocesses of itself (``--phase29 PART
 FILE``).  The JAX package and JAX itself are blocked before the port is
 imported, so any import of either is fatal.  Phases (run in the order
-1-3, 30, 4-6, 21, 7, 8, 12, 13, 31, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28,
+1-3, 30, 4-6, 21, 7, 8, 12, 13, 31, 32, 18, 25, 20, 23, 29, 24, 27, 26, 19, 9, 28,
 10, 11, 22, 14-17; phase 20's small input runs in phase 10, phase 25's
 dynamic band frame in phase 23), each fatal on failure:
 
@@ -256,14 +256,22 @@ dynamic band frame in phase 23), each fatal on failure:
     under ``set_sync_debug_mode("error")``; the kernel's ms at both, the
     plain version's at the update, the bound from the update's bricks;
     phase 7 counts one emit in its build, phase 9 one, phases 23 and 25
-    one in each dynamic frame.
+    one in each dynamic frame;
+32. the bounded update's device pipeline (``update_for_scene`` on CUDA
+    tensors: ``csrc/sdf_update.cu`` and one counted ``sdf_emit``) against
+    the plain update (``sdf_build.update_cascades_reference``) on the same
+    tensors at phase 31(b)'s inputs: every field of the cascades and the
+    build state and ``needs_full`` bit-equal, no host sync under
+    ``set_sync_debug_mode("error")``; both updates' device ms (CUDA
+    events) and host ms a call, one pipeline update's launches and device
+    ms by kernel (``torch.profiler``), the bound and ptxas's registers.
 
 Each kernel's entry in the JSON line carries its time, its plain
 version's, its launches on the main path and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over the
 H100's 3.35 TB/s and the FP32 operations this run's data needs over its
 67 TFLOP/s (non-tensor peak), from the counts noted at each kernel.  No
-single PyTorch call computes any of the nine, so ``library_ms`` is
+single PyTorch call computes any of the ten, so ``library_ms`` is
 null.  ``raster_prep``'s entry counts its pipelines on the main path and
 carries its kernels' launches a call; ``sdf_emit``'s counts the main
 path's build (one launch) and carries the build's bricks and ms.
@@ -344,6 +352,7 @@ def _wrappers() -> dict:
             "raster_ranged": rasterize.raster_ranged,
             "march_rays": march_kernel.march_rays,
             "sdf_emit": sdf_build._emit_kernel,
+            "sdf_update": sdf_build._update_kernel,
             "bvh_traverse": bvh.bvh_traverse,
             "template_walk": worklist.template_walk,
             "setup_walk": worklist.setup_walk,
@@ -974,7 +983,9 @@ def _sdf_emit(r, card: str) -> dict:
     live brick, held on every 16th brick: the plain version takes about
     half a millisecond a brick) and (b) the animated cell's first bounded
     update (the smallest prop moved from its place to code 1 of
-    ``scenes.kitchen_anim``'s circle): atlas rows, albedo, emissive,
+    ``scenes.kitchen_anim``'s circle; the emit's inputs as the plain
+    update, ``update_cascades_reference``, hands them to
+    ``_emit_bricks``): atlas rows, albedo, emissive,
     normal and the near-candidate drops bit-equal, one launch a call and
     no host sync under ``set_sync_debug_mode("error")``; the kernel's ms
     at both, the plain version's at (b), the bound from (b)'s bricks.
@@ -1050,11 +1061,13 @@ def _sdf_emit(r, card: str) -> dict:
     lo0, hi0 = scene.instance_aabb_lo[k], scene.instance_aabb_hi[k]
     dlo = torch.stack([lo0, lo0 + off])
     dhi = torch.stack([hi0, hi0 + off])
+    alb, emi = sdf_build._scene_colors(s1)
     sdf_build._emit_bricks = capture
     try:
-        _, _, nf = sdf_build.update_for_scene(
-            r.cascades, r._build_state, s1, bake_world(s1),
-            scene.tri_instance == k, dlo, dhi, eff)
+        _, _, nf = sdf_build.update_cascades_reference(
+            r.cascades, r._build_state, bake_world(s1), s1.tri_vertices,
+            s1.num_faces, scene.tri_instance == k, dlo, dhi,
+            tri_albedo=alb, tri_emissive=emi, config=eff)
     finally:
         sdf_build._emit_bricks = real_bricks
     _check(int(nf) == 0 and len(calls) == 1,
@@ -1089,6 +1102,164 @@ def _sdf_emit(r, card: str) -> dict:
     for line in regs:
         print(f"  ptxas (sdf_emit.cu): {line}")
     return entry
+
+
+def _sdf_update(r, card: str) -> dict:
+    """Phase 32 on renderer ``r`` (phase 7's kitchen, room preset, its
+    cascades and build state), at the animated cell's first bounded update
+    (phase 31(b)'s inputs): the device pipeline (``update_for_scene`` on
+    CUDA tensors: ``csrc/sdf_update.cu`` and one counted ``sdf_emit``)
+    bit-equal to the plain update (``update_cascades_reference`` on the
+    same tensors) in every field of the cascades and the build state and
+    in ``needs_full``; no host sync under ``set_sync_debug_mode("error")``;
+    both updates' device ms (CUDA events, back to back) and host ms a call;
+    one pipeline update's launches and device ms by kernel
+    (``torch.profiler``); the bound from the bytes the pipeline's kernels
+    must move.  Returns its entry of the kernels' JSON line."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+
+    dev = r.device
+    eff = r._sdf_cfg_effective or r.config.sdf
+    scene = r.scene.base_view()
+    k = _smallest_instance(scene)
+    tf = scene.instance_transform.clone()
+    ang = 2.0 * math.pi / 9.0
+    off = torch.tensor([0.03 * math.cos(ang), 0.0, 0.03 * math.sin(ang)],
+                       device=dev)
+    tf[k, :3, 3] += off
+    s1 = scene.replace(instance_transform=tf)
+    lo0, hi0 = scene.instance_aabb_lo[k], scene.instance_aabb_hi[k]
+    dlo = torch.stack([lo0, lo0 + off])
+    dhi = torch.stack([hi0, hi0 + off])
+    world = bake_world(s1)
+    mask = scene.tri_instance == k
+    alb, emi = sdf_build._scene_colors(s1)
+    cas, st = r.cascades, r._build_state
+
+    def kernel():
+        return sdf_build.update_for_scene(cas, st, s1, world, mask, dlo, dhi,
+                                          eff)
+
+    def plain():
+        return sdf_build.update_cascades_reference(
+            cas, st, world, s1.tri_vertices, s1.num_faces, mask, dlo, dhi,
+            tri_albedo=alb, tri_emissive=emi, config=eff)
+
+    want = plain()
+    kernel()
+    torch.cuda.synchronize()
+    before = sdf_build._update_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _check(sdf_build._update_kernel.launches == before + 1,
+           "sdf_update: the update on CUDA tensors ran "
+           f"{sdf_build._update_kernel.launches - before} pipelines")
+    for obj_got, obj_want in zip(got[:2], want[:2]):
+        for f in dataclasses.fields(obj_want):
+            a, b = getattr(obj_got, f.name), getattr(obj_want, f.name)
+            if b is None:
+                continue
+            _check(a.dtype == b.dtype and a.shape == b.shape
+                   and torch.equal(a, b),
+                   f"sdf_update: {f.name} differs from the plain update "
+                   f"on {int((a != b).sum()) if a.shape == b.shape else -1}"
+                   " values")
+    _check(int(got[2]) == int(want[2]) == 0,
+           f"sdf_update: needs_full {int(got[2])}, plain {int(want[2])}")
+    bricks = int(want[1].emit_bricks.sum())
+    del got, want
+
+    update_ms = _time_ms(kernel, 20)
+    plain_update_ms = _time_ms(plain, 5)
+    host = []
+    for fn in (kernel, plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    # a pipeline update's device work by kernel, the mean of 5 updates
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        if t > 0:
+            by_name[ev.key] = (ev.count / reps, t / 1e3 / reps)
+    ours = {n: v for n, v in by_name.items()
+            if any(x in n for x in ("compact_", "tri_prep", "mark_cells",
+                                    "rebin_", "glob_merge", "cell_merge",
+                                    "alloc_scatter", "esd_pass", "emit_list",
+                                    "update_scalars", "march_fine",
+                                    "march_coarse"))}
+    launches = sum(c for c, _ in by_name.values())
+    # the bytes the pipeline's own kernels must move: the dirty cells' new
+    # list rows written, the brick map read and written by the ESD, the
+    # live bricks' atlas rows read for the march tables, the emit list
+    n_cas, r_ = eff.num_cascades, eff.cascade_resolution
+    cells = [int(c.value) for c in _recorded(kernel)
+             if c.name == "sdf_update.cells"][0]
+    nbytes = (cells * eff.cell_list_cap * (4 + 11 * 4)
+              + 2 * n_cas * r_ ** 3 * 4
+              + int(cas.num_bricks) * eff.brick_size ** 3
+              + eff.update_brick_cap * 8)
+    # ms: the pipeline's own kernels (torch.profiler), the work bound_ms
+    # counts; update_ms and plain_update_ms: the whole update, E1 and the
+    # clones included, and the plain update (CUDA events, back to back)
+    entry = dict(
+        route="cuda", source="vri_tpu_torch/csrc/sdf_update.cu",
+        replaces=None, max_abs_err=0.0,
+        ms=sum(t for _, t in ours.values()), plain_ms=None,
+        library_ms=None, update_ms=update_ms,
+        plain_update_ms=plain_update_ms, host_ms=host[0],
+        plain_host_ms=host[1], bricks=bricks, cells=cells,
+        launches_update=launches,
+        pipeline_launches_update=sum(n for n, _ in ours.values()),
+        **_bound(nbytes, 0.0))
+    print(f"sdf_update: the animated cell's first update ({cells} dirty "
+          f"cells, {bricks} bricks re-emitted): the device pipeline "
+          f"bit-equal to the plain update in every field and needs_full, "
+          f"no host sync; the pipeline's kernels {entry['ms']:.3f} ms "
+          f"({entry['pipeline_launches_update']:g} launches, torch.profiler, "
+          f"mean of {reps}), bound {entry['bound_ms']:.4f} ms by "
+          f"{entry['bound_by']} ({nbytes / 1e6:.1f} MB); the whole update "
+          f"{update_ms:.3f} ms vs plain {plain_update_ms:.3f} ms a call "
+          f"(CUDA events, back to back), host {host[0]:.2f} ms vs "
+          f"{host[1]:.2f} ms a call; {launches:g} device operations an "
+          f"update [{card}]")
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1]):
+        print(f"  {t:8.3f} ms  x{n:<6g} {name[:90]}")
+    for line in _ptxas("sdf_update.cu"):
+        print(f"  ptxas (sdf_update.cu): {line}")
+    return entry
+
+
+def _recorded(fn):
+    """``fn()``'s ``profiler.count`` records."""
+    from vri_tpu_torch.runtime import profiler
+
+    profiler.start_recording()
+    try:
+        fn()
+    finally:
+        profiler.stop_recording()
+    return profiler.recorded_counts()
 
 
 def _hold_raster_tiles(prep, label: str) -> tuple:
@@ -1745,6 +1916,7 @@ def _animated(r, h: int, w: int, card: str) -> dict:
     from vri_tpu_torch.passes import frame as frame_mod
     from vri_tpu_torch.registry import bake_world
     from vri_tpu_torch.renderer import Renderer
+    from vri_tpu_torch.runtime import profiler
 
     dev = r.device
     eff = r._sdf_cfg_effective or r.config.sdf
@@ -1765,13 +1937,6 @@ def _animated(r, h: int, w: int, card: str) -> dict:
                             device=dev)
 
     # -- (a) the bounded update on its own ----------------------------------
-    cells = []
-    real_apply = sdf_build._apply_dirty_cells
-
-    def counted(cas, st, cell_ids, *a, **kw):
-        cells.append(int(cell_ids.shape[0]))
-        return real_apply(cas, st, cell_ids, *a, **kw)
-
     off = offset(0)
     s1 = moved(off)
     world1 = bake_world(s1)
@@ -1781,20 +1946,18 @@ def _animated(r, h: int, w: int, card: str) -> dict:
         return sdf_build.update_for_scene(r.cascades, r._build_state, s1,
                                           world1, dirty_tri, dlo, dhi, eff)
 
-    sdf_build._apply_dirty_cells = counted
-    try:
-        (_, st1, nf), n_sync = _syncs(update)
-        torch.cuda.synchronize()
-        start, stop = _events()
-        t0 = time.perf_counter()
-        start.record()
-        _, _, nf2 = update()
-        stop.record()
-        torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        sdf_build._apply_dirty_cells = real_apply
+    (_, st1, nf), n_sync = _syncs(update)
+    torch.cuda.synchronize()
+    start, stop = _events()
+    t0 = time.perf_counter()
+    start.record()
+    _, _, nf2 = update()
+    stop.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
     upd_ms = start.elapsed_time(stop)
+    cells = [int(c.value) for c in _recorded(update)
+             if c.name == "sdf_update.cells"]
     _check(int(nf) == 0 and int(nf2) == 0,
            f"bounded update: needs_full {int(nf)}")
     print(f"bounded SDF update (update_for_scene, the smallest prop moved by "
@@ -1825,7 +1988,8 @@ def _animated(r, h: int, w: int, card: str) -> dict:
     kw = dict(height=h, width=w, config=eff, backend="raster", samples=1,
               use_cache=True, gi_scale=2, lod_tau=r.config.lod_tau,
               generator=gen)
-    per_frame = _launches(raster_tiles=1, march_rays=3, sdf_emit=1)
+    per_frame = _launches(raster_tiles=1, march_rays=3, sdf_emit=1,
+                          sdf_update=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1923,16 +2087,7 @@ def _animated(r, h: int, w: int, card: str) -> dict:
     ra = Renderer(RenderConfig(width=w, height=h, sdf=acfg), device=dev)
     ra.load_stage(scenes.animated_stage())
     labels, build_ms = [], []
-    cells.clear()
-    emitted = []
-
-    def counted_emit(cas_, st_, cell_ids, *a, **kw_):
-        cells.append(int(cell_ids.shape[0]))
-        out_ = real_apply(cas_, st_, cell_ids, *a, **kw_)
-        emitted.append(int(out_[1].emit_bricks.sum()))
-        return out_
-
-    sdf_build._apply_dirty_cells = counted_emit
+    profiler.start_recording()
     try:
         for t in (0.0, 4.0, 8.0):
             out = ra.render(gi=True, time_code=t)
@@ -1941,7 +2096,11 @@ def _animated(r, h: int, w: int, card: str) -> dict:
             _check(np.isfinite(out["color"]).all(),
                    f"animated stage at t={t}: colour not finite")
     finally:
-        sdf_build._apply_dirty_cells = real_apply
+        profiler.stop_recording()
+    counts = profiler.recorded_counts()
+    cells = [int(c.value) for c in counts if c.name == "sdf_update.cells"]
+    emitted = [int(c.value) for c in counts
+               if c.name == "sdf_update.bricks"]
     _check(labels[0] == "rebuilt"
            and all(x.startswith("updated (") for x in labels[1:]),
            f"animated stage: cascade paths {labels} (dirty cells {cells}, "
@@ -3303,6 +3462,7 @@ def main() -> int:
               f"host{' (includes the SDF build)' if i == 0 else ''} [{card}]")
     print(f"  coverage {cov:.4f}, launches {launches}, peak memory "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    main_launches = launches
     for name in ("raster_tiles", "march_rays"):
         kernels[name]["launches"] = launches[name]
     kernels["sdf_emit"] = dict(launches=launches["sdf_emit"])
@@ -3379,6 +3539,11 @@ def main() -> int:
 
     # -- 31. kernel E, the SDF emit, against its plain version ----------------
     kernels["sdf_emit"].update(_sdf_emit(r2, card))
+    torch.cuda.empty_cache()
+
+    # -- 32. the bounded update's device pipeline against the plain update --
+    kernels["sdf_update"] = _sdf_update(r2, card)
+    kernels["sdf_update"]["launches"] = main_launches["sdf_update"]
     torch.cuda.empty_cache()
 
     # -- 18. the production frame: the temporal GI frame at gi_scale 2 --------

@@ -23,7 +23,11 @@ single-card frames.  The sorted tier's prep kernels (raster_prep) are
 held bit-equal to their plain version on the cases of
 ``tests/test_torch_raster_prep.py`` and on the kitchen at 1080p, with no
 host sync, and the SDF emit kernel (sdf_emit) bit-equal to the plain
-emit on CUDA tensors.  On a host without a card every test skips.
+emit on CUDA tensors.  The bounded SDF update's device pipeline
+(sdf_update) is held bit-equal to the plain update on the Cornell scenes
+of ``tests/test_torch_sdf_update.py``, on a breach of each capacity and
+at the animated cell's first update, with no host sync.  On a host
+without a card every test skips.
 """
 
 import numpy as np
@@ -1406,3 +1410,197 @@ def test_sdf_emit_matches_plain_version(case):
         assert x.dtype == y.dtype and torch.equal(x, y), (
             case, name, int((x != y).sum()))
     assert int(want[4]) > 0 or case != "dense"
+
+
+#: tests/test_torch_sdf_update.py's CFG (the JAX parity scenes)
+UPDATE_CFG = dict(num_cascades=2, cascade_resolution=32, base_voxel_size=0.1,
+                  max_bricks=8192, truncation_voxels=2.0,
+                  max_triangles_per_brick=16, update_cell_cap=2048,
+                  update_brick_cap=8192, update_tri_cap=512)
+#: case -> (config changes, instance moved ("smallest", "box" or an index),
+#: its offset, axis_name); each breach case's counter must read non-zero
+UPDATE_CASES = {
+    "smallest": ({}, "smallest", (0.15, 0.0, 0.1), None),
+    "wall_cells_past_cap": (dict(update_cell_cap=8), 3, (0.25, 0.1, 0.0),
+                            None),
+    "bricks_past_cap": (dict(update_brick_cap=32), "smallest",
+                        (0.15, 0.0, 0.1), None),
+    "tris_past_cap": (dict(update_tri_cap=5), "box", (0.15, 0.0, 0.1), None),
+    "free_slots_exhausted": (dict(max_bricks=400), 3, (0.25, 0.1, 0.0),
+                             None),
+    # a box's 12 triangles re-bin to at most 12 a cell, so only the merge
+    # with the cells' old lists passes K
+    "merged_list_past_k": (dict(cell_list_cap=12), "box", (0.15, 0.0, 0.1),
+                           None),
+    "rebin_past_k": (dict(cell_list_cap=2), "box", (0.15, 0.0, 0.1), None),
+    "glob_past_kg": (dict(global_list_cap=2), 3, (0.25, 0.1, 0.0), None),
+    "share_proxy": (dict(update_brick_cap=512), "smallest", (0.15, 0.0, 0.1),
+                    (None, 2)),
+    "float_atlas": (dict(atlas_u8=False), "smallest", (0.15, 0.0, 0.1),
+                    None),
+}
+
+
+def _update_equal(got, want, label):
+    """Every field of the two updates' cascades and build states, and
+    ``needs_full``, equal in dtype, shape and value."""
+    import dataclasses
+
+    (c1, s1, n1), (c2, s2, n2) = got, want
+    for obj1, obj2 in ((c1, c2), (s1, s2)):
+        for f in dataclasses.fields(obj2):
+            a, b = getattr(obj1, f.name), getattr(obj2, f.name)
+            if b is None:
+                assert a is None, (label, f.name)
+                continue
+            assert a.dtype == b.dtype and a.shape == b.shape, (
+                label, f.name, a.dtype, b.dtype, a.shape, b.shape)
+            assert torch.equal(a, b), (label, f.name, int((a != b).sum()))
+    assert n1.dtype == n2.dtype and int(n1) == int(n2), (
+        label, int(n1), int(n2))
+
+
+def _moved(scene, world, inst, off):
+    """World vertices with instance ``inst`` moved by ``off``, its
+    triangles and its old and new boxes."""
+    mask = scene.tri_instance == inst
+    vi = scene.tri_vertices.long()
+    w1 = world.clone()
+    w1[torch.unique(vi[mask])] += torch.tensor(off, device=world.device)
+    old, new = world[vi[mask]], w1[vi[mask]]
+    return (w1, mask, torch.stack([old.amin((0, 1)), new.amin((0, 1))]),
+            torch.stack([old.amax((0, 1)), new.amax((0, 1))]))
+
+
+def _cornell_update(cfg_over, inst, off):
+    """(config, scene, cascades, state, update inputs) of the Cornell box
+    built on the card at ``UPDATE_CFG`` with ``cfg_over``, instance
+    ``inst`` moved by ``off``."""
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+
+    cfg = SDFConfig(**{**UPDATE_CFG, **cfg_over})
+    d = RenderDelegate(RenderConfig(width=32, height=32), device="cuda")
+    d.populate(scenes.cornell_box())
+    s = d.sync()
+    world = bake_world(s)
+    centers = sdf_mod.default_centers(cfg, np.zeros(3), device="cuda")
+    cas, st = sdf_build.build_for_scene(s, world, centers, cfg)
+    ni = int(s.num_instances)
+    if inst == "smallest":
+        inst = int((s.instance_aabb_hi - s.instance_aabb_lo)[:ni]
+                   .amax(-1).argmin())
+    elif inst == "box":
+        counts = torch.bincount(s.tri_instance[:int(s.num_faces)].long())
+        inst = int((counts == 12).nonzero()[0])
+    return cfg, s, cas, st, _moved(s, world, inst, off)
+
+
+@pytest.mark.parametrize("case", list(UPDATE_CASES))
+def test_sdf_update_matches_plain_version(case):
+    """The bounded update's device pipeline (``update_cascades`` on CUDA
+    tensors: ``csrc/sdf_update.cu`` and one counted ``sdf_emit`` launch)
+    bit-equal to the plain update (``update_cascades_reference``, eager on
+    the same tensors): every field of the cascades (brick map, atlas,
+    payloads, counts, march tables) and of the build state (lists, counts,
+    rows, ``alive``, ``emit_bricks``, ``list_overflow``) and
+    ``needs_full``, on tests/test_torch_sdf_update.py's scenes and on one
+    breach of each capacity: dirty triangles, cells and emit bricks past
+    their caps, the free slots exhausted, the re-bin and a merged list past
+    K, the global list past Kg; also one share of a two-way split emit and
+    the float atlas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vri_tpu_torch.ops import sdf_build
+
+    over, inst, off, axis = UPDATE_CASES[case]
+    cfg, s, cas, st, (w1, mask, dlo, dhi) = _cornell_update(over, inst, off)
+    alb, emi = sdf_build._scene_colors(s)
+    args = (cas, st, w1, s.tri_vertices, s.num_faces, mask, dlo, dhi)
+    kw = dict(tri_albedo=alb, tri_emissive=emi, config=cfg, axis_name=axis)
+    want = sdf_build.update_cascades_reference(*args, **kw)
+    before = sdf_build._emit_kernel.launches
+    got = sdf_build.update_cascades(*args, **kw)
+    torch.cuda.synchronize()
+    assert sdf_build._emit_kernel.launches == before + 1
+    _update_equal(got, want, case)
+    c2, s2, n2 = want
+    hit = {"wall_cells_past_cap": int(n2), "bricks_past_cap": int(n2),
+           "tris_past_cap": int(n2), "rebin_past_k": int(n2),
+           "glob_past_kg": int(n2),
+           "free_slots_exhausted": int(c2.overflow - cas.overflow),
+           "merged_list_past_k": int(s2.list_overflow - st.list_overflow),
+           }.get(case, int(s2.emit_bricks.sum()))
+    assert hit > 0, case
+
+
+@pytest.fixture(scope="module")
+def anim_kitchen():
+    """The animated cell's stage and SDF (``kitchen49k-anim-room-1080p``:
+    ``kitchen_anim(256, tess=4)``, the room preset, list caps scaled to
+    the demand) built on the card, and the first update's inputs: the
+    moved prop at code 1 of its circle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import math
+
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+
+    r = Renderer(RenderConfig(width=64, height=64,
+                              sdf=SDFConfig.preset("room")), device="cuda")
+    r.load_stage(scenes.kitchen_anim(num_objects=256, seed=7, tess=4,
+                                     radius=0.03, period=9))
+    r.ensure_cascades()
+    scene = r.scene.base_view()
+    ni = int(scene.num_instances)
+    k = int((scene.instance_aabb_hi - scene.instance_aabb_lo)[:ni]
+            .amax(-1).argmin())
+    ang = 2.0 * math.pi / 9.0
+    off = (0.03 * math.cos(ang), 0.0, 0.03 * math.sin(ang))
+    return (r._sdf_cfg_effective or r.config.sdf, scene, r.cascades,
+            r._build_state, _moved(scene, bake_world(scene), k, off))
+
+
+def test_sdf_update_animated_kitchen_first_update(anim_kitchen):
+    """The device pipeline bit-equal to the plain update at the animated
+    cell's first update (about 4,000 bricks re-emitted)."""
+    from vri_tpu_torch.ops import sdf_build
+
+    cfg, s, cas, st, (w1, mask, dlo, dhi) = anim_kitchen
+    args = (cas, st, s, w1, mask, dlo, dhi, cfg)
+    alb, emi = sdf_build._scene_colors(s)
+    want = sdf_build.update_cascades_reference(
+        cas, st, w1, s.tri_vertices, s.num_faces, mask, dlo, dhi,
+        tri_albedo=alb, tri_emissive=emi, config=cfg)
+    got = sdf_build.update_for_scene(*args)
+    _update_equal(got, want, "animated kitchen")
+    assert int(want[2]) == 0 and int(want[1].emit_bricks.sum()) > 1000
+
+
+def test_sdf_update_has_no_host_sync(anim_kitchen):
+    """Three updates at the animated cell's first update under
+    ``set_sync_debug_mode("error")``: no host sync, one ``sdf_emit``
+    launch each, and ``sdf_update.kernel_path`` counted once each."""
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.runtime import profiler
+
+    cfg, s, cas, st, (w1, mask, dlo, dhi) = anim_kitchen
+    args = (cas, st, s, w1, mask, dlo, dhi, cfg)
+    sdf_build.update_for_scene(*args)
+    torch.cuda.synchronize()
+    before = sdf_build._emit_kernel.launches
+    profiler.start_recording()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            got = sdf_build.update_for_scene(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiler.stop_recording()
+    counts = [c.name for c in profiler.recorded_counts()]
+    assert sdf_build._emit_kernel.launches == before + 3
+    assert counts.count("sdf_update.kernel_path") == 3
+    assert int(got[2]) == 0

@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "raster_prep.cu",
            "march_rays.cu", "bvh_traverse.cu", "worklist.cu",
-           "worklist_grouped.cu", "sdf_emit.cu")
+           "worklist_grouped.cu", "sdf_emit.cu", "sdf_update.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -62,9 +62,13 @@ _ENTRIES = {
     "vri_worklist_grouped": ("worklist_grouped.cu",
                              [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
     "vri_sdf_emit": ("sdf_emit.cu",
-                     [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
-                      _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P,
-                      _P]),
+                     [_P, _I, _P, _L, _I, _P, _P, _P, _I, _P, _I, _P, _I,
+                      _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
+                      _P, _P]),
+    "vri_sdf_update_args_size": ("sdf_update.cu", []),
+    "vri_sdf_update_scratch": ("sdf_update.cu", [_P]),
+    "vri_sdf_update_lists": ("sdf_update.cu", [_P, _P]),
+    "vri_sdf_update_finish": ("sdf_update.cu", [_P, _P]),
 }
 
 _lib = None

@@ -16,6 +16,13 @@
 // selected candidates' triangles in key order, as the plain version does.
 // Every float operation is the plain version's, in its order, and the file
 // is built with -fmad=false, so the output is bit-equal to it.
+//
+// The build calls it with a host count (one block a listed brick, outputs
+// in list order).  The bounded update (sdf_update.cu) calls it over the
+// fixed capacity of its emit list with the list's live count on the
+// device: blocks past the count, and blocks whose entry is a -1 pad, exit
+// at once, and each brick writes its atlas row and colours straight into
+// the cascades' rows at its own id.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,9 +150,12 @@ __device__ void block_trim(unsigned long long* buf, int* cnt,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 5 blocks an SM (48 registers a thread), as many as the shared key buffer
+// allows
+__global__ void __launch_bounds__(kThreads, 5)
 sdf_emit_kernel(const long long* __restrict__ bids, int n,
-                const int* __restrict__ brick_voxel,
+                const int* __restrict__ live_count, long long count_off,
+                int direct, const int* __restrict__ brick_voxel,
                 const float* __restrict__ origins,
                 const float* __restrict__ vs,
                 int r, const float* __restrict__ cell_rows, int K,
@@ -163,12 +173,24 @@ sdf_emit_kernel(const long long* __restrict__ bids, int n,
   __shared__ unsigned long long thresh;
   __shared__ int cnt, near;
   __shared__ int sel[kMaxK];
+  __shared__ long long row_out;   // the brick's output row
 
   const int brick = blockIdx.x;
   if (brick >= n) return;
+  // the live entries: all n, or the device count past count_off
+  long long live = n;
+  if (live_count != nullptr) {
+    live = (long long)*live_count - count_off;
+    live = live < 0 ? 0 : (live > n ? n : live);
+  }
+  const long long bid = brick < live ? bids[brick] : -1;
+  if (bid < 0) {
+    if (threadIdx.x == 0) near_out[brick] = 0;
+    return;
+  }
   const int s = r / 16;
   const int r3 = r * r * r;
-  const int bv = brick_voxel[bids[brick]];
+  const int bv = brick_voxel[bid];
   const int ni = bv / r3;
   const int rem = bv % r3;
   const int vx = rem % r, vy = (rem / r) % r, vz = rem / (r * r);
@@ -193,6 +215,8 @@ sdf_emit_kernel(const long long* __restrict__ bids, int n,
     cnt = 0;
     near = 0;
     thresh = kNone;
+    // the brick's own id, or its place in the list
+    row_out = direct ? bid : brick;
   }
   for (int i = threadIdx.x; i < kCap; i += kThreads) buf[i] = kNone;
   __syncthreads();
@@ -295,7 +319,7 @@ sdf_emit_kernel(const long long* __restrict__ bids, int n,
       dmin = t_min(dmin, point_triangle_distance(p, v, v + 3, v + 6));
     }
     const float d01 = t_clamp(dmin / trunc_w, 0.f, 1.f);
-    const long long o = (long long)brick * nt + t;
+    const long long o = row_out * nt + t;
     if (atlas_u8)
       ((unsigned char*)atlas)[o] = (unsigned char)rintf(d01 * 255.0f);
     else
@@ -305,17 +329,21 @@ sdf_emit_kernel(const long long* __restrict__ bids, int n,
     const int k = threadIdx.x;
     const bool ok0 = m > 0;
     const long long t0 = ok0 ? (long long)sel[0] * 3 + k : 0;
-    alb_out[brick * 3 + k] = ok0 ? tri_albedo[t0] : 0.f;
-    emi_out[brick * 3 + k] = ok0 ? tri_emissive[t0] : 0.f;
-    nrm_out[brick * 3 + k] = ok0 ? tri_n[t0] : 0.f;
+    alb_out[row_out * 3 + k] = ok0 ? tri_albedo[t0] : 0.f;
+    emi_out[row_out * 3 + k] = ok0 ? tri_emissive[t0] : 0.f;
+    nrm_out[row_out * 3 + k] = ok0 ? tri_n[t0] : 0.f;
   }
   if (threadIdx.x == 0) near_out[brick] = near > k_tris ? near - k_tris : 0;
 }
 
 }  // namespace
 
+// live_count: null for a host count (all n entries), else the device
+// count of live entries past count_off; direct: write each brick's rows at
+// its id instead of its place in the list.
 extern "C" int vri_sdf_emit(
-    const long long* bids, int n, const int* brick_voxel,
+    const long long* bids, int n, const int* live_count, long long count_off,
+    int direct, const int* brick_voxel,
     const float* origins, const float* vs, int r, const float* cell_rows,
     int K, const float* glob_rows, int Kg, const float* tri,
     const unsigned char* valid, const float* tri_albedo,
@@ -326,7 +354,8 @@ extern "C" int vri_sdf_emit(
   if (k_tris < 1 || k_tris > kMaxK || k_tris > kCap - kThreads) return -1;
   if (r % 16 != 0 || 27LL * K + Kg >= (1LL << 24)) return -2;
   sdf_emit_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
-      bids, n, brick_voxel, origins, vs, r, cell_rows, K, glob_rows, Kg, tri,
+      bids, n, live_count, count_off, direct, brick_voxel, origins, vs, r,
+      cell_rows, K, glob_rows, Kg, tri,
       valid, tri_albedo, tri_emissive, tri_n, bsz, k_tris, trunc_vox,
       atlas_u8, atlas, alb, emi, nrm, near_drop);
   return (int)cudaGetLastError();

@@ -25,13 +25,17 @@ of the changed geometry; ``scroll_cascades`` recenters a cascade by
 shifting its maps a whole cell at a time and treats the entering cells as
 dirty.  Where the JAX package keeps the first ``cap`` hits of a
 fixed-size ``nonzero`` and counts the rest, the port takes the hits in
-the same index order, keeps as many and counts the rest the same way
-(each such count reads a size back to the host); a capacity breach makes
-``needs_full`` non-zero and the caller rebuilds.
+the same index order, keeps as many and counts the rest the same way; a
+capacity breach makes ``needs_full`` non-zero and the caller rebuilds.
+On the card the update is one pipeline of kernels on those fixed
+capacities (``csrc/sdf_update.cu``), with no host sync; the plain
+version, which the CPU runs, works on live lengths and reads each size
+back to the host.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -127,6 +131,13 @@ def _cell_span(tri_lo, tri_hi, origins, vs, r, reach_vox: float):
     return clo, chi
 
 
+def _pairs_cap(f: int, r: int) -> int:
+    """The pair stream's length a cascade when binning ``f`` triangles."""
+    s_cells = max(r // 16, 1)
+    mult = _BIN_PAIRS_MULT * max(1, (1 + 2 // s_cells) ** 2)
+    return -(-max(mult * f, 32768) // 1024) * 1024
+
+
 def _pair_emission(tri_lo, tri_hi, valid, origins, vs, r):
     """Exact segmented (cell, tri) pair emission shared by the binning and
     the demand count, in each of the cascades of origins (N, 3) and voxel
@@ -144,13 +155,11 @@ def _pair_emission(tri_lo, tri_hi, valid, origins, vs, r):
     small = inside & (chi - clo + 1 <= _BIN_SPAN_CAP).all(-1)
     large = inside & ~small
 
-    s_cells = max(r // 16, 1)
-    mult = _BIN_PAIRS_MULT * max(1, (1 + 2 // s_cells) ** 2)
     ext = torch.where(small, nspan[..., 0] * nspan[..., 1] * nspan[..., 2],
                       torch.zeros_like(nspan[..., 0])).to(torch.int64)
     cum_ext = torch.cumsum(ext, 1)
     total = cum_ext[:, -1]
-    pairs_cap = -(-max(mult * f, 32768) // 1024) * 1024
+    pairs_cap = _pairs_cap(f, r)
     j = torch.arange(pairs_cap, dtype=torch.int64, device=dev)
     tri_of = torch.clamp(torch.searchsorted(
         cum_ext, j[None].expand(n, pairs_cap).contiguous(), right=True),
@@ -423,25 +432,10 @@ def _emit_kernel(bids, brick_voxel, state: BuildState, origins, vs, tris,
     """``_emit_bricks`` on the card: one launch of ``sdf_emit``
     (``csrc/sdf_emit.cu``), a block a brick, bit-equal to the blocks of
     :func:`_emit_block`."""
-    from vri_tpu_torch import _cuda
-
     a, b, c, valid, tri_albedo, tri_emissive, tri_n = tris
     dev = bids.device
     n = bids.shape[0]
     bsz = config.brick_size
-    K = state.cell_tris.shape[-1]
-    Kg = state.glob_tris.shape[-1]
-    bids = bids.to(torch.int64).contiguous()
-    bv = brick_voxel.to(torch.int32).contiguous()
-    org = origins.to(torch.float32).contiguous()
-    vsc = vs.to(torch.float32).contiguous()
-    cell_rows = state.cell_rows.contiguous()
-    glob_rows = state.glob_rows.contiguous()
-    tri = torch.stack([a, b, c], 1).contiguous()
-    ok = valid.to(torch.uint8).contiguous()
-    alb_in = tri_albedo.to(torch.float32).contiguous()
-    emi_in = tri_emissive.to(torch.float32).contiguous()
-    nrm_in = tri_n.to(torch.float32).contiguous()
     atlas = torch.empty((n, bsz, bsz, bsz), device=dev,
                         dtype=torch.uint8 if config.atlas_u8
                         else torch.float32)
@@ -449,20 +443,53 @@ def _emit_kernel(bids, brick_voxel, state: BuildState, origins, vs, tris,
     emi = torch.empty_like(alb)
     nrm = torch.empty_like(alb)
     near = torch.empty((n,), dtype=torch.int64, device=dev)
-    if n:
-        lib = _cuda.library()
-        _cuda.check(lib.vri_sdf_emit(
-            bids.data_ptr(), n, bv.data_ptr(), org.data_ptr(),
-            vsc.data_ptr(), config.cascade_resolution, cell_rows.data_ptr(),
-            K, glob_rows.data_ptr(), Kg, tri.data_ptr(), ok.data_ptr(),
-            alb_in.data_ptr(), emi_in.data_ptr(), nrm_in.data_ptr(), bsz,
-            config.max_triangles_per_brick,
-            float(config.truncation_voxels), int(config.atlas_u8),
-            atlas.data_ptr(), alb.data_ptr(), emi.data_ptr(),
-            nrm.data_ptr(), near.data_ptr(), _cuda.stream_ptr(bids)),
-            "sdf_emit")
-        _emit_kernel.launches += 1
+    _emit_call(bids.to(torch.int64).contiguous(), n, None, 0,
+               brick_voxel, state, origins, vs,
+               (torch.stack([a, b, c], 1), valid, tri_albedo, tri_emissive,
+                tri_n), config, (atlas, alb, emi, nrm), near)
     return atlas, alb, emi, nrm, near.sum()
+
+
+def _emit_call(bids, n: int, live_count, count_off: int, brick_voxel,
+               state: BuildState, origins, vs, tris, config: SDFConfig,
+               rows, near, *, direct: bool = False):
+    """One launch of ``sdf_emit`` over the ``n`` entries of ``bids``
+    (int64): all of them (``live_count`` None), or those before the device
+    count ``live_count`` (int32) less ``count_off``; -1 entries are
+    skipped.  ``tris`` is (corners (F, 3, 3), valid, albedo, emissive,
+    normal); each brick's atlas row and colours go to ``rows`` (atlas,
+    albedo, emissive, normal) at its place in ``bids``, or at its own id
+    with ``direct``; ``near`` (n,) gets each entry's near-candidate drops
+    (0 where skipped)."""
+    from vri_tpu_torch import _cuda
+
+    if not n:
+        return
+    # the converted inputs stay referenced until the launch is queued
+    tri, valid, tri_albedo, tri_emissive, tri_n = (
+        x.to(dt).contiguous() for x, dt in zip(
+            tris, (torch.float32, torch.uint8, torch.float32, torch.float32,
+                   torch.float32)))
+    bv = brick_voxel.to(torch.int32).contiguous()
+    org = origins.to(torch.float32).contiguous()
+    vsc = vs.to(torch.float32).contiguous()
+    cell_rows = state.cell_rows.contiguous()
+    glob_rows = state.glob_rows.contiguous()
+    atlas, alb, emi, nrm = rows
+    lib = _cuda.library()
+    _cuda.check(lib.vri_sdf_emit(
+        bids.data_ptr(), n,
+        None if live_count is None else live_count.data_ptr(), count_off,
+        int(direct), bv.data_ptr(), org.data_ptr(), vsc.data_ptr(),
+        config.cascade_resolution, cell_rows.data_ptr(),
+        state.cell_tris.shape[-1], glob_rows.data_ptr(),
+        state.glob_tris.shape[-1], tri.data_ptr(), valid.data_ptr(),
+        tri_albedo.data_ptr(), tri_emissive.data_ptr(), tri_n.data_ptr(),
+        config.brick_size, config.max_triangles_per_brick,
+        float(config.truncation_voxels), int(config.atlas_u8),
+        atlas.data_ptr(), alb.data_ptr(), emi.data_ptr(), nrm.data_ptr(),
+        near.data_ptr(), _cuda.stream_ptr(bids)), "sdf_emit")
+    _emit_kernel.launches += 1
 
 
 _emit_kernel.launches = 0
@@ -919,11 +946,249 @@ def _emit_share(elist, axis_name, brick_voxel, state, origins, vs, tris,
     return bricks, (*rows, mesh_mod.psum(near_drop, ax))
 
 
+# ---------------------------------------------------------------------------
+# The bounded update on the card: fixed-capacity lists, no host sync
+# ---------------------------------------------------------------------------
+
+def _count_update(cells, bricks, *, kernel: bool) -> None:
+    """The update's counts under a recording: its dirty cells and
+    re-emitted bricks (host numbers or device scalars), and
+    ``sdf_update.kernel_path`` once for an update that ran the device
+    pipeline."""
+    profiler.count("sdf_update.cells", cells)
+    profiler.count("sdf_update.bricks", bricks)
+    if kernel:
+        profiler.count("sdf_update.kernel_path", 1)
+
+
+#: csrc/sdf_update.cu's UpdateArgs, field by field: "p" a pointer, "l" a
+#: long long, "d" a double
+_UPDATE_FIELDS = (
+    "verts:p tri_vertices:p F:l num_faces_dev:p num_faces_host:l dirty_in:p "
+    "center:p vs:p N:l r:l dlo:p dhi:p D:l trunc:d emit_reach:d K:l Kg:l "
+    "ucap:l ccap:l bcap:l pairs_cap:l max_bricks:l cell_tris_old:p "
+    "glob_old:p bm_old:p tri9:p valid:p dirty:p tri_n:p lo:p hi:p table:p "
+    "origins:p cell_tris:p cell_count:p cell_rows:p glob_tris:p "
+    "glob_rows:p alive:p brick_voxel:p brick_map:p emit_bricks:p elist:p "
+    "elen:l share_lo:l share_hi:l near_out:p n_near:l atlas:p atlas_u8:l "
+    "bsz:l surf_thresh:d u8_scale:d march_ok:l march_coarse:p "
+    "march_fine0:p march_fine1:p out:p num_bricks:p emit_count:p "
+    "scratch:p").split()
+
+
+class _UpdateArgs(ctypes.Structure):
+    """The update pipeline's argument block (``_UPDATE_FIELDS``)."""
+
+    _fields_ = [(f.split(":")[0], {"p": ctypes.c_void_p,
+                                   "l": ctypes.c_longlong,
+                                   "d": ctypes.c_double}[f.split(":")[1]])
+                for f in _UPDATE_FIELDS]
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as PyTorch rounds a host scalar it
+    combines with a float32 tensor."""
+    return ctypes.c_float(x).value
+
+
+def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
+                   tri_vertices, num_faces, dirty_tri_mask, dirty_lo,
+                   dirty_hi, *, tri_albedo=None, tri_emissive=None,
+                   config: SDFConfig, axis_name: tuple | None = None):
+    """:func:`update_cascades_reference` on the card, bit-equal to it: the
+    lists at the config's capacities (``update_tri_cap``,
+    ``update_cell_cap``, ``update_brick_cap``) with live and overflow
+    counts on the device, built by the kernels of ``csrc/sdf_update.cu``
+    (two C calls around the ``sdf_emit`` launch, no host sync; see the
+    source).  The edited state and cascades are clones of the old ones
+    written in place (``cell_rows`` included, with no per-cell
+    intermediate).  ``axis_name=(axis, n)`` emits rank i's share of the
+    emit list, gathered over the axis; ``(None, n)`` emits share 0 alone
+    (:func:`_emit_share`).  ``_update_kernel.launches`` counts the
+    pipelines."""
+    from vri_tpu_torch import _cuda
+
+    n_cas = config.num_cascades
+    r = config.cascade_resolution
+    K = config.cell_list_cap
+    Kg = config.global_list_cap
+    bsz = config.brick_size
+    max_bricks = config.max_bricks
+    bcap = config.update_brick_cap
+    dev = world_verts.device
+    f = tri_vertices.shape[0]
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def fresh(x, dtype):
+        return x.to(dtype=dtype, memory_format=torch.contiguous_format,
+                    copy=True)
+
+    if tri_albedo is None:
+        tri_albedo = torch.full((f, 3), 0.5, dtype=torch.float32, device=dev)
+    if tri_emissive is None:
+        tri_emissive = torch.zeros((f, 3), dtype=torch.float32, device=dev)
+    ins = dict(
+        verts=world_verts.to(torch.float32).contiguous(),
+        tri_vertices=tri_vertices.to(torch.int32).contiguous(),
+        dirty_in=dirty_tri_mask.to(torch.bool).contiguous(),
+        center=cascades.center.to(torch.float32).contiguous(),
+        vs=cascades.voxel_size.to(torch.float32).contiguous(),
+        dlo=dirty_lo.to(torch.float32).contiguous(),
+        dhi=dirty_hi.to(torch.float32).contiguous(),
+        cell_tris_old=state.cell_tris.to(torch.int32).contiguous(),
+        glob_old=state.glob_tris.to(torch.int32).contiguous(),
+        bm_old=cascades.brick_map.to(torch.int32).contiguous())
+    nf_dev = (num_faces.to(device=dev, dtype=torch.int32)
+              if torch.is_tensor(num_faces) else None)
+    elen = -(-bcap // _EMIT_BLOCK) * _EMIT_BLOCK
+    if axis_name is None:
+        ax, lo, per = None, 0, bcap
+    else:
+        ax, n_shard = axis_name
+        nb = -(-bcap // _EMIT_BLOCK)
+        if nb % n_shard:
+            raise ValueError(f"update_brick_cap blocks {nb} must divide "
+                             f"over {n_shard} devices")
+        per = nb // n_shard * _EMIT_BLOCK
+        lo = (0 if ax is None else ax.index) * per
+    outs = dict(
+        tri9=empty(f, 3, 3), valid=empty(f, dtype=torch.bool),
+        dirty=empty(f, dtype=torch.bool), tri_n=empty(f, 3), lo=empty(f, 3),
+        hi=empty(f, 3), table=empty(f, ROW), origins=empty(n_cas, 3),
+        cell_tris=fresh(state.cell_tris, torch.int32),
+        cell_count=fresh(state.cell_count, torch.int32),
+        cell_rows=fresh(state.cell_rows, torch.float32),
+        glob_tris=empty(n_cas, Kg, dtype=torch.int32),
+        glob_rows=empty(n_cas, Kg, ROW),
+        alive=fresh(state.alive, torch.bool),
+        brick_voxel=fresh(cascades.brick_voxel, torch.int32),
+        brick_map=fresh(cascades.brick_map, torch.int32),
+        emit_bricks=empty(max_bricks, dtype=torch.bool),
+        elist=empty(elen, dtype=torch.int64),
+        near_out=empty(per, dtype=torch.int64),
+        atlas=cascades.atlas.clone(memory_format=torch.contiguous_format),
+        march_coarse=empty(n_cas * 4, 128, dtype=torch.int32),
+        march_fine0=empty(n_cas * 32, 128, dtype=torch.int32),
+        march_fine1=empty(n_cas * 32, 128, dtype=torch.int32),
+        out=empty(6, dtype=torch.int64),
+        num_bricks=empty(dtype=torch.int32),
+        emit_count=empty(1, dtype=torch.int32))
+    colors = {k: fresh(getattr(cascades, k), torch.float32)
+              for k in ("brick_albedo", "brick_emissive", "brick_normal")}
+    sc = r // 16
+    args = _UpdateArgs(
+        F=f, num_faces_host=0 if nf_dev is not None else int(num_faces),
+        num_faces_dev=None if nf_dev is None else nf_dev.data_ptr(),
+        N=n_cas, r=r, D=dirty_lo.shape[0],
+        trunc=_f32(config.truncation_voxels),
+        emit_reach=_f32(max(config.truncation_voxels, 1.5)), K=K, Kg=Kg,
+        ucap=config.update_tri_cap, ccap=config.update_cell_cap, bcap=bcap,
+        pairs_cap=_pairs_cap(config.update_tri_cap, r),
+        max_bricks=max_bricks, elen=elen, share_lo=lo, share_hi=lo + per,
+        n_near=per, atlas_u8=int(config.atlas_u8), bsz=bsz,
+        surf_thresh=_f32(1.5 / (config.truncation_voxels * bsz)),
+        u8_scale=_f32(1.0 / 255.0),
+        march_ok=int(r % 16 == 0 and sc in (1, 2, 4)))
+    for name, t in (*ins.items(), *outs.items()):
+        setattr(args, name, t.data_ptr())
+    lib = _cuda.library()
+    if lib.vri_sdf_update_args_size() != ctypes.sizeof(args):
+        raise RuntimeError("sdf_update: the argument block's layout differs "
+                           "from csrc/sdf_update.cu's")
+    nbytes = lib.vri_sdf_update_scratch(ctypes.addressof(args))
+    if nbytes < 0:
+        raise ValueError("sdf_update: the update's scratch passes 2 GB")
+    scratch = empty(nbytes, dtype=torch.uint8)
+    args.scratch = scratch.data_ptr()
+    stream = _cuda.stream_ptr(world_verts)
+    _cuda.check(lib.vri_sdf_update_lists(ctypes.addressof(args), stream),
+                "sdf_update (lists)")
+    _update_kernel.launches += 1
+
+    # the emit: straight into the cascades' rows, or rank i's share
+    # gathered over the axis and scattered
+    state = dataclasses.replace(
+        state, cell_tris=outs["cell_tris"].reshape(n_cas, 4096, K),
+        cell_count=outs["cell_count"].reshape(n_cas, 4096),
+        cell_rows=outs["cell_rows"], glob_tris=outs["glob_tris"],
+        glob_rows=outs["glob_rows"], alive=outs["alive"],
+        emit_bricks=outs["emit_bricks"])
+    tris = (outs["tri9"], outs["valid"], tri_albedo, tri_emissive,
+            outs["tri_n"])
+    atlas = outs["atlas"]
+    rows = (atlas, colors["brick_albedo"], colors["brick_emissive"],
+            colors["brick_normal"])
+    mine = outs["elist"][lo:lo + per]
+    bricks = outs["out"][5]
+    if ax is None:
+        _emit_call(mine, per, outs["emit_count"], lo, outs["brick_voxel"],
+                   state, outs["origins"], ins["vs"], tris, config, rows,
+                   outs["near_out"], direct=True)
+    else:
+        from vri_tpu_torch.parallel import mesh as mesh_mod
+
+        share = (empty(per, bsz, bsz, bsz, dtype=atlas.dtype),
+                 empty(per, 3), empty(per, 3), empty(per, 3))
+        _emit_call(mine, per, outs["emit_count"], lo, outs["brick_voxel"],
+                   state, outs["origins"], ins["vs"], tris, config, share,
+                   outs["near_out"])
+        ids, got = mesh_mod.gather_padded(mine, share, per, ax)
+        for dst, src in zip(rows, got):
+            dst[ids] = src
+        bricks = ids.shape[0]
+    _cuda.check(lib.vri_sdf_update_finish(ctypes.addressof(args), stream),
+                "sdf_update (finish)")
+    out = outs["out"]
+    near = out[1] if ax is None else mesh_mod.psum(out[1].clone(), ax)
+    _count_update(out[4], bricks, kernel=True)
+    cascades = cascades.replace(
+        brick_map=outs["brick_map"].reshape(cascades.brick_map.shape),
+        brick_voxel=outs["brick_voxel"], num_bricks=outs["num_bricks"],
+        overflow=(cascades.overflow + out[2]).to(torch.int32), atlas=atlas,
+        **colors, march_coarse=outs["march_coarse"],
+        march_fine0=outs["march_fine0"], march_fine1=outs["march_fine1"],
+        near_drop=cascades.near_drop + near)
+    state = dataclasses.replace(
+        state, list_overflow=state.list_overflow + out[3])
+    return cascades, state, out[0]
+
+
+_update_kernel.launches = 0
+
+
 def update_cascades(cascades: SDFCascades, state: BuildState, world_verts,
                     tri_vertices, num_faces, dirty_tri_mask, dirty_lo,
                     dirty_hi, *, tri_albedo=None, tri_emissive=None,
                     config: SDFConfig, axis_name: tuple | None = None):
-    """Bounded incremental cascade update.
+    """Bounded incremental cascade update: on the card the device pipeline
+    (:func:`_update_kernel`, ``csrc/sdf_update.cu``, no host sync), on the
+    CPU the plain version (:func:`update_cascades_reference`), bit-equal to
+    each other.
+
+    ``dirty_tri_mask`` (F,) marks the triangles whose data changed;
+    ``dirty_lo/hi`` (D, 3) are world AABBs covering all changed geometry
+    at its old and new positions (unused rows +BIG/-BIG).  Returns
+    (cascades, state, needs_full); a non-zero ``needs_full`` (a device
+    scalar) counts capacity breaches and the caller must rebuild.  See
+    :func:`update_cascades_reference`."""
+    update = (_update_kernel if world_verts.is_cuda
+              else update_cascades_reference)
+    return update(cascades, state, world_verts, tri_vertices, num_faces,
+                  dirty_tri_mask, dirty_lo, dirty_hi, tri_albedo=tri_albedo,
+                  tri_emissive=tri_emissive, config=config,
+                  axis_name=axis_name)
+
+
+def update_cascades_reference(cascades: SDFCascades, state: BuildState,
+                              world_verts, tri_vertices, num_faces,
+                              dirty_tri_mask, dirty_lo, dirty_hi, *,
+                              tri_albedo=None, tri_emissive=None,
+                              config: SDFConfig,
+                              axis_name: tuple | None = None):
+    """Bounded incremental cascade update, the plain version on any device
+    (live lengths, a host sync a dynamic shape).
 
     ``dirty_tri_mask`` (F,) marks the triangles whose data changed;
     ``dirty_lo/hi`` (D, 3) are world AABBs covering all changed geometry
