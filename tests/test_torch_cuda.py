@@ -1,34 +1,36 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  These tests import no JAX; ``tests/conftest.py`` does, so on a
-machine without JAX run them without it:
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, and its frames and paths as the program runs them.  These tests
+import no JAX; ``tests/conftest.py`` does, so on a machine without JAX
+run them without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
-Each builds the stage (or the work list, or synthetic march tables) with
-the port itself, runs one kernel (raster_tiles, raster_ranged, march_rays,
-bvh_traverse, and the work-list kernels template_walk, setup_walk,
-grouped_step) on CUDA tensors
-and its plain version on the same tensors, and requires exact equality: the kernels are built with -fmad=false and follow their plain
-versions' operation order, so every output agrees bit for bit (also
-raster_ranged's per-tile tested pairs and bvh_traverse's visit counts).
-It also holds march_compact's three march_rays launches bit-equal to
-one-phase march, the trilinear SDF loop on the card against the CPU,
-the temporal frame's launches (one raster_tiles and two march_rays a
-frame), the LOD-masked tiers bit-equal to each other, one bounded
-update and animated frame on the card against the CPU, a band of the
-kitchen through the three tiers and the temporal band frame on the card
-against the CPU, the dense SDF build on the card against the CPU, and
-the sharded frames over a one-rank ``nccl`` mesh bit-equal to the
-single-card frames.  The sorted tier's prep kernels (raster_prep) are
-held bit-equal to their plain version on the cases of
-``tests/test_torch_raster_prep.py`` and on the kitchen at 1080p, with no
-host sync, and the SDF emit kernel (sdf_emit) bit-equal to the plain
-emit on CUDA tensors.  The bounded SDF update's device pipeline
-(sdf_update) is held bit-equal to the plain update on the Cornell scenes
-of ``tests/test_torch_sdf_update.py``, on a breach of each capacity and
-at the animated cell's first update, with no host sync.  On a host
-without a card every test skips.
+The kernel tests build the stage (or the work list, or synthetic march
+tables) with the port itself, run one kernel (raster_tiles,
+raster_ranged, march_rays, bvh_traverse, the work-list kernels
+template_walk, setup_walk and grouped_step, the sorted tier's prep
+raster_prep, the SDF emit sdf_emit, the bounded update's pipeline
+sdf_update) on CUDA tensors and its plain version on the same tensors,
+and require exact equality: the kernels are built with -fmad=false and
+follow their plain versions' operation order, so every output agrees bit
+for bit (also raster_ranged's per-tile tested pairs and bvh_traverse's
+visit counts); the prep, the emit and the update also with no host sync.
+
+The frame tests run the program -- ``Renderer.render`` through every
+raster tier, the BVH and three SDF presets, the direct-only frame, the
+production temporal frame and animated playback through
+``Renderer.render_temporal`` on the benchmark cells' own stages, sizes
+and SDF preset, bands, the city at 1.35M faces, the update
+and the scroll against a rebuild, the scene cache, the app, and the
+sharded frames over one ``nccl`` rank and over four ``gloo`` ranks
+sharing the card -- with every kernel launch counted and each launch of
+R, K6, M and bvh_traverse held bit-equal to its plain version on that
+launch's own inputs (:func:`_run_held`); where the CPU renders the same
+frame with the plain versions, the two agree within the tolerances each
+test names.  On a host without a card every test skips.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -62,14 +64,24 @@ def frame():
     return r, fp, bake_world(r.scene)
 
 
-def test_raster_tiles_matches_plain_version(frame):
+@pytest.mark.parametrize("case", ["kitchen", "kitchen_1080p"])
+def test_raster_tiles_matches_plain_version(frame, case):
+    """R bit-equal to its plain version on the sorted tier's lists: the
+    kitchen fixture at 256x192, and the cells' 49k-face kitchen at
+    1920x1080 (2,025 tiles, the lists the benchmark's frames walk), whose
+    prep overflows nothing."""
     from vri_tpu_torch.ops import rasterize
     from vri_tpu_torch.passes import frame as frame_mod
 
-    r, fp, world = frame
-    prep = rasterize.prepare_sorted(
-        world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj,
-        height=192, width=256, cull_sign=frame_mod._cull_sign(r.scene))
+    if case == "kitchen":
+        r, fp, world = frame
+        args = (world, r.scene.tri_vertices, r.scene.num_faces, fp.view_proj)
+        kw = dict(height=192, width=256,
+                  cull_sign=frame_mod._cull_sign(r.scene))
+    else:
+        args, kw = kitchen_args(1080, 1920, 256, 4, device="cuda")
+    prep = rasterize.prepare_sorted(*args, **kw)
+    assert int(prep["overflow"]) == 0
     args = (prep["coef"], prep["lists"], prep["starts"], prep["counts"])
     kw = dict(num_tx=prep["num_tx"], cap=prep["cap"])
     got = rasterize.raster_tiles(*args, **kw)
@@ -856,37 +868,6 @@ def _random_rays(m, seed):
     return o, d / torch.linalg.norm(d, dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("div", [4, 64])
-def test_march_compact_matches_one_phase_march(frame, div):
-    """march_compact's three march_rays launches give one-phase march's
-    result bit for bit; with a phase 1 of 8 steps (as
-    tests/test_march_kernel.py runs the JAX version) at compact_div 64
-    more rays survive phase 1 than the buffer holds, so the cleanup
-    launch marches."""
-    import dataclasses
-
-    from vri_tpu_torch.ops import march_kernel
-
-    r, _, _ = frame
-    cas = r.ensure_cascades()
-    o, d = _random_rays(50000, seed=1)
-    ref = march_kernel.march(cas, o, d, 10.0, config=SDF, max_steps=72)
-    _, _, _, act = march_kernel.march_rays(
-        march_kernel.ray_table(cas, o, d, 10.0, SDF),
-        march_kernel.pack_meta(cas, SDF), cas.march_coarse,
-        cas.march_fine0, cas.march_fine1, r=64, max_steps=8)
-    before = march_kernel.march_rays.launches
-    got = march_kernel.march_compact(cas, o, d, 10.0, config=SDF,
-                                     max_steps=72, phase1_steps=8,
-                                     compact_div=div)
-    assert march_kernel.march_rays.launches - before == 3
-    if div == 64:
-        assert int(act.sum()) > 1024
-    for f in dataclasses.fields(ref):
-        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
-            f.name
-
-
 def test_trilinear_march_card_matches_cpu(frame):
     """The trilinear loop (approx=False) runs on the rays' device, with
     no kernel launch, and agrees with the CPU run: hit, iterations,
@@ -913,39 +894,6 @@ def test_trilinear_march_card_matches_cpu(frame):
     assert float(same.float().mean()) >= 0.999 and bool(want.hit.any())
     torch.testing.assert_close(got.t.cpu()[both], want.t[both], rtol=1e-5,
                                atol=0)
-
-
-def test_temporal_frame_launches(frame):
-    """Each render_frame_gi_temporal frame at gi_scale=2 launches one
-    raster_tiles and two march_rays (the shadow rays at the shadow_scale
-    subsample, the GI rays at GI resolution) and nothing else."""
-    import dataclasses
-
-    from vri_tpu_torch.ops import bvh, march_kernel, rasterize, worklist
-    from vri_tpu_torch.passes import frame as frame_mod
-
-    r, fp, _ = frame
-    cas = r.ensure_cascades()
-    cfg = dataclasses.replace(SDF, shadow_scale=2)
-    wrappers = (rasterize.raster_tiles, rasterize.raster_ranged,
-                march_kernel.march_rays, bvh.bvh_traverse,
-                worklist.template_walk, worklist.setup_walk,
-                worklist.grouped_step)
-    state = frame_mod.init_temporal(192, 256, 2, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    for i in range(2):
-        counts = [w.launches for w in wrappers]
-        aovs, state = frame_mod.render_frame_gi_temporal(
-            r.scene, fp, cas, state, height=192, width=256, config=cfg,
-            use_cache=True, gi_scale=2, generator=gen)
-        torch.cuda.synchronize()
-        diff = [w.launches - c for w, c in zip(wrappers, counts)]
-        assert diff == [1, 0, 2, 0, 0, 0, 0], diff
-        assert bool(torch.isfinite(aovs["color"]).all())
-        assert int(aovs["raster_overflow_tiles"]) == 0
-    cov = aovs["instance_id"] >= 0
-    assert float((aovs["gi_history"][cov] == 2.0).float().mean()) > 0.9
 
 
 def test_lod_masked_tiers_bit_equal_on_card():
@@ -996,8 +944,8 @@ def test_dynamic_frame_card_matches_cpu():
     99.99% of the voxels, one ``raster_tiles`` and three ``march_rays``
     on the card (the partial bake's shadow rays, the frame's shadow and
     GI rays); ``instance_id`` equal on at least 99.9% of the pixels and
-    colour within 2e-3 where it is (``chip_smoke.py`` phase 10's
-    tolerances)."""
+    colour within 2e-3 where it is (the tolerances of
+    ``test_gi_frame_and_sdf_views_card_match_cpu``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -1020,36 +968,23 @@ def test_dynamic_frame_card_matches_cpu():
     centers = sdf_mod.default_centers(cfg, np.zeros(3), device="cpu")
     cas, st = sdf_build.build_for_scene(s, bake_world(s), centers, cfg)
     cas = sdf_mod.bake_brick_lighting(cas, s, config=cfg, alive=st.alive)
-    ni = int(s.num_instances)
-    k = int((s.instance_aabb_hi - s.instance_aabb_lo)[:ni].max(-1)
-            .values.argmin())
-    off = torch.tensor([0.15, 0.0, 0.1])
-    tf = s.instance_transform.clone()
-    tf[k, :3, 3] += off
-    dlo = torch.full((4, 3), 3.0e38)
-    dhi = torch.full((4, 3), -3.0e38)
-    dlo[0], dhi[0] = s.instance_aabb_lo[k], s.instance_aabb_hi[k]
-    dlo[1], dhi[1] = dlo[0] + off, dhi[0] + off
+    moved = _moved_smallest(s, (0.15, 0.0, 0.1))
     uni = torch.rand((1, res * res, 2), generator=torch.Generator()
                      .manual_seed(0))
     out = {}
     for dev in ("cpu", "cuda"):
         mv = lambda x: x.to(dev) if torch.is_tensor(x) else x  # noqa: E731
-        s_d = type(s)(**{f.name: mv(getattr(s, f.name))
-                         for f in dataclasses.fields(s)})
-        s_d = s_d.replace(instance_transform=tf.to(dev))
-        cas_d = type(cas)(**{f.name: mv(getattr(cas, f.name))
-                             for f in dataclasses.fields(cas)})
-        st_d = type(st)(**{f.name: mv(getattr(st, f.name))
-                           for f in dataclasses.fields(st)})
+        s_d, cas_d, st_d = (type(x)(**{f.name: mv(getattr(x, f.name))
+                                       for f in dataclasses.fields(x)})
+                            for x in (moved[0], cas, st))
         fp = frame_mod.FrameParams.from_camera(d.camera, res, device=dev)
         before = (rasterize.raster_tiles.launches,
                   march_kernel.march_rays.launches)
         aovs, _, cas1, _, nf = frame_mod.render_frame_gi_dynamic(
             s_d, fp, cas_d, st_d,
             frame_mod.init_temporal(res, res, 1, device=dev),
-            s_d.tri_instance == k, dlo.to(dev), dhi.to(dev), height=res,
-            width=res, config=cfg, use_cache=True, uniforms=uni.to(dev))
+            *(x.to(dev) for x in moved[1:]), height=res, width=res,
+            config=cfg, use_cache=True, uniforms=uni.to(dev))
         if dev == "cuda":
             torch.cuda.synchronize()
             assert (rasterize.raster_tiles.launches - before[0],
@@ -1176,6 +1111,33 @@ def test_dense_build_card_matches_cpu():
     assert np.isfinite(b["color"]).all()
 
 
+def _cornell_dynamic(dev):
+    """The Cornell box at 64^2 built and baked on ``dev`` at
+    ``test_dynamic_frame_card_matches_cpu``'s configuration: (config,
+    scene, camera, frame parameters, cascades, build state, and the
+    dynamic frame's inputs with the smallest instance moved by (0.15, 0,
+    0.1): the moved scene, its triangles, the dirty boxes)."""
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    cfg = SDFConfig(num_cascades=2, cascade_resolution=32,
+                    base_voxel_size=0.1, max_bricks=8192,
+                    truncation_voxels=2.0, max_triangles_per_brick=16,
+                    approx_occlusion=True, update_cell_cap=2048)
+    d = RenderDelegate(RenderConfig(width=64, height=64), device=dev)
+    d.populate(scenes.cornell_box())
+    s = d.sync()
+    centers = sdf_mod.default_centers(cfg, np.zeros(3), device=dev)
+    cas, st = sdf_build.build_for_scene(s, bake_world(s), centers, cfg)
+    cas = sdf_mod.bake_brick_lighting(cas, s, config=cfg, alive=st.alive)
+    fp = frame_mod.FrameParams.from_camera(d.camera, 64, device=dev)
+    return (cfg, s, d.camera, fp, cas, st,
+            _moved_smallest(s, (0.15, 0.0, 0.1)))
+
+
 def test_tiled_frames_world_size_1_nccl(monkeypatch):
     """``vri_tpu_torch.parallel.tiling`` over a one-rank ``nccl`` mesh on
     the card (the process group of a ``torchrun --nproc-per-node 1``):
@@ -1191,25 +1153,11 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
     import torch.distributed as dist
 
     from vri_tpu_torch.ops import march_kernel, rasterize
-    from vri_tpu_torch.ops import sdf as sdf_mod
-    from vri_tpu_torch.ops import sdf_build
-    from vri_tpu_torch.hydra.delegate import RenderDelegate
     from vri_tpu_torch.parallel import make_mesh, tiling
     from vri_tpu_torch.passes import frame as frame_mod
-    from vri_tpu_torch.registry import bake_world
 
-    cfg = SDFConfig(num_cascades=2, cascade_resolution=32,
-                    base_voxel_size=0.1, max_bricks=8192,
-                    truncation_voxels=2.0, max_triangles_per_brick=16,
-                    approx_occlusion=True, update_cell_cap=2048)
+    cfg, s, _, fp, cas, st, moved = _cornell_dynamic("cuda")
     res = 64
-    d = RenderDelegate(RenderConfig(width=res, height=res), device="cuda")
-    d.populate(scenes.cornell_box())
-    s = d.sync()
-    centers = sdf_mod.default_centers(cfg, np.zeros(3), device="cuda")
-    cas, st = sdf_build.build_for_scene(s, bake_world(s), centers, cfg)
-    cas = sdf_mod.bake_brick_lighting(cas, s, config=cfg, alive=st.alive)
-    fp = frame_mod.FrameParams.from_camera(d.camera, res, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     u = torch.rand((1, res * res, 2), generator=gen, device="cuda")
     ug = torch.rand((1, (res // 2) ** 2, 2), generator=gen, device="cuda")
@@ -1256,19 +1204,9 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
             for key in ("color", "depth", "gi_history"):
                 assert torch.equal(tiled[key], single[key]), key
             assert torch.equal(states[0].data, states[1].data)
-        ni = int(s.num_instances)
-        k = int((s.instance_aabb_hi - s.instance_aabb_lo)[:ni].max(-1)
-                .values.argmin())
-        off = torch.tensor([0.15, 0.0, 0.1], device="cuda")
-        tf = s.instance_transform.clone()
-        tf[k, :3, 3] += off
-        dlo = torch.full((4, 3), 3.0e38, device="cuda")
-        dhi = torch.full((4, 3), -3.0e38, device="cuda")
-        dlo[0], dhi[0] = s.instance_aabb_lo[k], s.instance_aabb_hi[k]
-        dlo[1], dhi[1] = dlo[0] + off, dhi[0] + off
-        args = (s.replace(instance_transform=tf), fp, cas, st,
+        args = (moved[0], fp, cas, st,
                 frame_mod.init_temporal(res, res, 1, device="cuda"),
-                s.tri_instance == k, dlo, dhi)
+                *moved[1:])
         tiled, lt = run(lambda: tiling.render_frame_tiled_dynamic(
             *args, mesh=mesh, uniforms=u, **kw))
         single, ls = run(lambda: frame_mod.render_frame_gi_dynamic(
@@ -1281,6 +1219,149 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
             assert torch.equal(getattr(tiled[2], f), getattr(single[2], f))
     finally:
         dist.destroy_process_group()
+
+
+def test_tiled_frames_gloo_ranks_share_the_card(tmp_path):
+    """``vri_tpu_torch.parallel`` over four ``gloo`` ranks sharing cuda:0,
+    whose collectives stage CUDA tensors through the host, the ranks
+    started by ``mesh.launch`` as this file's ``--gloo-rank``
+    (:func:`_gloo_rank`), on :func:`_cornell_dynamic`'s scene (16-row
+    bands): the tiled frame at ``samples`` 0 and 1, each rank its band's
+    samples, one R and ``samples`` + 1 M a rank, each held on its own
+    inputs, its ids off the single-card frame's on at most 0.05% of the
+    pixels; the temporal frame (``gi_scale`` 2, two halo rows) over a
+    small pan carrying its history on more than half the covered pixels
+    of every band border row; ``esd_sharded`` and ``scroll_slab`` (by 2
+    and past one slab) equal to ``esd_map`` and ``torch.roll`` on cascade
+    0; the tiled dynamic frame (the sharded update and re-bake) with
+    ``atlas`` and ``voxel_shade`` bit-equal to the single-card dynamic
+    frame's, ``needs_full`` 0; on a 2 x 2 mesh ``merge_scene_partitions``
+    rebuilding the scene from two hosts' partial scenes and
+    ``render_frame_tiled_2d`` giving the 1-D frame's ids."""
+    import os
+
+    from vri_tpu_torch.parallel import mesh as mesh_mod
+
+    _card()
+    out = str(tmp_path / "rank")
+    proc = mesh_mod.launch(4, [os.path.abspath(__file__), "--gloo-rank",
+                               out], capture=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-8000:]
+    for i in range(4):
+        assert os.path.exists(f"{out}{i}.json"), i
+
+
+def _pan(cam, dy: float):
+    """``cam`` moved up by ``dy`` (world units), looking the same way."""
+    import dataclasses
+
+    t = np.eye(4, dtype=np.float32)
+    t[1, 3] = -dy
+    return dataclasses.replace(cam, eye=cam.eye + np.float32([0, dy, 0]),
+                               view=(cam.view @ t).astype(np.float32))
+
+
+def _gloo_rank(out: str) -> None:
+    """One rank of ``test_tiled_frames_gloo_ranks_share_the_card``: its
+    checks on this rank; writes ``<out><rank>.json`` when all hold."""
+    import json
+
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.parallel import halo, make_mesh, multihost, tiling
+    from vri_tpu_torch.parallel import mesh as mesh_mod
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    mesh = make_mesh(backend="gloo", device="cuda:0")
+    dev, rank, n, ax = mesh.device, mesh.rank, mesh.size, mesh.axis()
+    cfg, s, cam, fp, cas, st, moved = _cornell_dynamic(dev)
+    res, band = 64, 64 // n
+    kw = dict(height=res, width=res, config=cfg)
+
+    def band_u(i):
+        return torch.rand((1, band * res, 2), device=dev,
+                          generator=mesh_mod.band_generator(29, i, dev))
+
+    ids = {}
+    for smp in (0, 1):
+        aovs, launches = _run_held(lambda: tiling.render_frame_tiled(
+            s, fp, cas, mesh=mesh, samples=smp,
+            uniforms=band_u(rank) if smp else None, **kw))
+        assert launches == dict(raster_tiles=1, march_rays=1 + smp)
+        uni = torch.cat([band_u(i) for i in range(n)], 1) if smp else None
+        single = frame_mod.render_frame_gi(s, fp, cas, samples=smp,
+                                           uniforms=uni, use_cache=True,
+                                           **kw)
+        ids[smp] = float((aovs["instance_id"]
+                          != single["instance_id"]).float().mean())
+        assert ids[smp] <= 0.0005, ids
+        if smp == 0:
+            ids_1d = aovs["instance_id"]
+    state = frame_mod.init_temporal(band, res, 2, device=dev)
+    gen = mesh_mod.band_generator(292, rank, dev)
+    for c in (cam, _pan(cam, 0.002)):
+        fpi = frame_mod.FrameParams.from_camera(c, res, device=dev)
+        aovs, state = tiling.render_frame_tiled_temporal(
+            s, fpi, cas, state, mesh=mesh, gi_scale=2, halo_rows=2,
+            uniforms=torch.rand((1, (band // 2) * (res // 2), 2),
+                                generator=gen, device=dev), **kw)
+    hist, cov = aovs["gi_history"], aovs["instance_id"] >= 0
+    borders = [float((hist[y][cov[y]] >= 2.0).float().mean())
+               for b in range(1, n) for y in (b * band - 1, b * band)]
+    assert float((hist[cov] >= 2.0).float().mean()) > 0.5
+    assert min(borders) > 0.5, borders
+    occ = cas.brick_map[0] >= 0
+    dense = sdf_build.esd_map(occ[None]).reshape(occ.shape)
+    sharded = mesh_mod.gather_rows(
+        halo.esd_sharded(mesh_mod.shard_rows(occ, mesh), ax, 15), mesh)
+    assert torch.equal(sharded, dense)
+    vol = occ.to(torch.float32)
+    for shift in (2, occ.shape[0] // n + 3):
+        rolled = mesh_mod.gather_rows(halo.scroll_slab(
+            mesh_mod.shard_rows(vol, mesh), shift, 0, ax), mesh)
+        assert torch.equal(rolled, torch.roll(vol, -shift, 0)), shift
+    tiled, launches = _run_held(lambda: tiling.render_frame_tiled_dynamic(
+        moved[0], fp, cas, st, frame_mod.init_temporal(band, res, 2,
+                                                       device=dev),
+        *moved[1:], mesh=mesh, gi_scale=2, halo_rows=2, seed=29, **kw))
+    assert launches["raster_tiles"] == 1 and launches["sdf_update"] == 1
+    single = frame_mod.render_frame_gi_dynamic(
+        moved[0], fp, cas, st, frame_mod.init_temporal(res, res, 2,
+                                                       device=dev),
+        *moved[1:], gi_scale=2, use_cache=True,
+        generator=torch.Generator(device=dev).manual_seed(29), **kw)
+    assert int(tiled[4]) == int(single[4]) == 0
+    for f in ("atlas", "voxel_shade"):
+        assert torch.equal(getattr(tiled[2], f), getattr(single[2], f)), f
+    mesh2 = multihost.make_mesh_2d(2, n // 2, backend="gloo", device=dev)
+    owner = torch.arange(s.instance_transform.shape[0], device=dev) % 2
+    own_i = owner == mesh2.coords[0]
+    part = {}
+    for name, idx in (("positions", s.vertex_instance),
+                      ("tri_vertices", s.tri_instance),
+                      ("tri_uv", s.tri_instance),
+                      ("tri_face", s.tri_instance),
+                      ("instance_transform", None),
+                      ("instance_material", None),
+                      ("instance_aabb_lo", None),
+                      ("instance_aabb_hi", None)):
+        a = getattr(s, name)
+        if a is None or (s.tri_proto is not None
+                         and name in ("positions", "tri_uv", "tri_face")):
+            continue
+        own = own_i if idx is None else own_i[idx.long()]
+        part[name] = torch.where(
+            own.reshape(own.shape + (1,) * (a.dim() - 1)), a,
+            torch.zeros((), dtype=a.dtype, device=dev))
+    merged = multihost.merge_scene_partitions(s.replace(**part), owner,
+                                              mesh2)
+    for name in part:
+        assert torch.equal(getattr(merged, name), getattr(s, name)), name
+    out2 = multihost.render_frame_tiled_2d(merged, fp, cas, mesh=mesh2,
+                                           samples=0, **kw)
+    assert torch.equal(out2["instance_id"], ids_1d)
+    with open(f"{out}{rank}.json", "w") as f:
+        json.dump(dict(rank=rank, ids_off=ids, borders=min(borders)), f)
+    mesh_mod.close(mesh)
 
 
 def _prep_equal(args, kw):
@@ -1355,15 +1436,17 @@ def test_raster_prep_has_no_host_sync(frame):
     assert int(prep["starts"][-1]) > 0 and int(prep["overflow"]) == 0
 
 
-@pytest.mark.parametrize("case", ["kitchen", "dense", "float_atlas"])
+@pytest.mark.parametrize("case", ["kitchen", "kitchen49k_room", "dense",
+                                  "float_atlas"])
 def test_sdf_emit_matches_plain_version(case):
     """The ``sdf_emit`` kernel (``csrc/sdf_emit.cu``) bit-equal to the
     plain emit (``sdf_build._emit_blocks``, eager on the same CUDA
     tensors) on every live brick of a card build: the animated kitchen at
-    this file's SDF settings; a dense case (1 m cells, whose 27
-    neighbourhoods hold thousands of candidates, so the kernel's key
-    buffer is cut many times a brick); the float atlas with 8 triangles a
-    brick.  One launch, no host sync."""
+    this file's SDF settings; the cells' build, the 49k-face kitchen at
+    the room preset (about 95,000 bricks, with no list drop); a dense case
+    (1 m cells, whose 27 neighbourhoods hold thousands of candidates, so
+    the kernel's key buffer is cut many times a brick); the float atlas
+    with 8 triangles a brick.  One launch, no host sync."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -1374,18 +1457,20 @@ def test_sdf_emit_matches_plain_version(case):
     from vri_tpu_torch.renderer import Renderer
 
     cfg, stage = {
-        "kitchen": (SDF, dict(num_objects=24, tess=2)),
+        "kitchen": (SDF, lambda: scenes.kitchen_anim(24, tess=2)),
+        "kitchen49k_room": (SDFConfig.preset("room"), CELL_STAGES["static"]),
         "dense": (dataclasses.replace(
             SDF, num_cascades=1, cascade_resolution=16, base_voxel_size=1.0,
             truncation_voxels=1.0, max_triangles_per_brick=32),
-            dict(num_objects=64, tess=6)),
+            lambda: scenes.kitchen_anim(64, tess=6)),
         "float_atlas": (dataclasses.replace(
             SDF, atlas_u8=False, max_triangles_per_brick=8),
-            dict(num_objects=24, tess=3)),
+            lambda: scenes.kitchen_anim(24, tess=3)),
     }[case]
     r = Renderer(RenderConfig(width=64, height=64, sdf=cfg), device="cuda")
-    r.load_stage(scenes.kitchen_anim(**stage))
+    r.load_stage(stage())
     r.ensure_cascades()
+    assert r.list_overflow == 0 or case != "kitchen49k_room"
     cfg = r._sdf_cfg_effective or cfg
     st, cas, scene = r._build_state, r.cascades, r.scene
     alb, emi = sdf_build._scene_colors(scene)
@@ -1536,6 +1621,25 @@ def test_sdf_update_matches_plain_version(case):
     assert hit > 0, case
 
 
+#: the benchmark's two cells (``perfbench/configs``): the 49k-face kitchen
+#: at 1920x1080 and the room preset, static, and with one prop moving on
+#: a 0.03 m circle, one turn every 9 time codes
+CELL_STAGES = {
+    "static": lambda: scenes.kitchen_stress(num_objects=256, seed=7, tess=4),
+    "anim": lambda: scenes.kitchen_anim(num_objects=256, seed=7, tess=4,
+                                        radius=0.03, period=9)}
+
+
+def _cell_renderer(stage):
+    from vri_tpu_torch.renderer import Renderer
+
+    _card()
+    r = Renderer(RenderConfig(width=1920, height=1080,
+                              sdf=SDFConfig.preset("room")), device="cuda")
+    r.load_stage(CELL_STAGES[stage]())
+    return r
+
+
 @pytest.fixture(scope="module")
 def anim_kitchen():
     """The animated cell's stage and SDF (``kitchen49k-anim-room-1080p``:
@@ -1551,8 +1655,7 @@ def anim_kitchen():
 
     r = Renderer(RenderConfig(width=64, height=64,
                               sdf=SDFConfig.preset("room")), device="cuda")
-    r.load_stage(scenes.kitchen_anim(num_objects=256, seed=7, tess=4,
-                                     radius=0.03, period=9))
+    r.load_stage(CELL_STAGES["anim"]())
     r.ensure_cascades()
     scene = r.scene.base_view()
     ni = int(scene.num_instances)
@@ -1604,3 +1707,635 @@ def test_sdf_update_has_no_host_sync(anim_kitchen):
     assert sdf_build._emit_kernel.launches == before + 3
     assert counts.count("sdf_update.kernel_path") == 3
     assert int(got[2]) == 0
+
+
+# -- whole frames and paths, every launch held on its own inputs -----------------
+
+def _copy(x):
+    return x.clone() if torch.is_tensor(x) else x
+
+
+def _run_held(fn):
+    """``fn()`` with every kernel's launches counted and each launch of R,
+    K6, M and ``bvh_traverse`` held bit-equal to the kernel's plain version
+    on a copy of that launch's own inputs: a frame's kernels are held on
+    the inputs the frame builds, and every counted launch of those four
+    was recorded and held.  Returns (``fn``'s result, {kernel: launches}
+    of the kernels it launched)."""
+    from vri_tpu_torch.ops import (bvh, march_kernel, rasterize, sdf_build,
+                                   worklist)
+
+    # kernel -> (module, wrapper, plain version: None for those not held)
+    table = {"raster_prep": (rasterize, "raster_prep", None),
+             "raster_tiles": (rasterize, "raster_tiles",
+                              rasterize.raster_tiles_reference),
+             "raster_ranged": (rasterize, "raster_ranged",
+                               rasterize.raster_ranged_reference),
+             "march_rays": (march_kernel, "march_rays",
+                            march_kernel.march_rays_reference),
+             "bvh_traverse": (bvh, "bvh_traverse",
+                              bvh.bvh_traverse_reference),
+             "sdf_emit": (sdf_build, "_emit_kernel", None),
+             "sdf_update": (sdf_build, "_update_kernel", None),
+             "template_walk": (worklist, "template_walk", None),
+             "setup_walk": (worklist, "setup_walk", None),
+             "grouped_step": (worklist, "grouped_step", None)}
+    calls, real = [], {}
+
+    def recorder(name, wrapper):
+        def run(*args, **kw):
+            inputs = ([_copy(x) for x in args],
+                      {k: _copy(v) for k, v in kw.items()})
+            out = wrapper(*args, **kw)
+            calls.append((name, inputs, [_copy(x) for x in out]))
+            return out
+        # the wrapper counts its launches on its module's attribute
+        run.launches = wrapper.launches
+        return run
+
+    for name, (mod, attr, plain) in table.items():
+        if plain is not None:
+            real[name] = getattr(mod, attr)
+            setattr(mod, attr, recorder(name, real[name]))
+    before = {n: getattr(m, a).launches for n, (m, a, _) in table.items()}
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: getattr(m, a).launches - before[n]
+                    for n, (m, a, _) in table.items()}
+    finally:
+        for name, wrapper in real.items():
+            mod, attr, _ = table[name]
+            wrapper.launches = getattr(mod, attr).launches
+            setattr(mod, attr, wrapper)
+    for name, (args, kw), got in calls:
+        kw.pop("visits", None)
+        want = table[name][2](*args, **kw)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (name, k)
+    for name in real:
+        held = sum(call[0] == name for call in calls)
+        assert held == launches[name], (name, held, launches[name])
+    return out, {n: c for n, c in launches.items() if c}
+
+
+def test_every_source_builds_with_its_ptxas_report():
+    """Every source under ``csrc/`` builds into its own library, every
+    entry point binds, and each library's kept compiler output holds
+    ptxas's register and spill lines."""
+    import os
+
+    from vri_tpu_torch import _cuda
+
+    _card()
+    _cuda.library()
+    paths = _cuda.build()
+    assert sorted(paths) == sorted(_cuda.SOURCES)
+    for src, path in paths.items():
+        log = _cuda.compiler_log(src)
+        assert os.path.exists(path) and "registers" in log \
+            and "spill" in log, src
+
+
+#: the frame tests' stages: the kitchen at 18,624 faces, past the binned
+#: tier's 2^14, so that every frame takes the sorted tier as the 49k
+#: kitchen's does, and the Cornell box, which takes the binned tier
+STAGES = {"kitchen": lambda: scenes.kitchen_stress(num_objects=96, tess=4),
+          "cornell": scenes.cornell_box}
+#: case -> (stage, SDF preset (None: this file's SDF), render keywords,
+#: launches of the build and two frames).  A sparse build launches one
+#: sdf_emit and its bake one march_rays (each stage holds one light); the
+#: tiny preset's dense build its bake's march_rays alone; the reference
+#: and tiny presets march their GI rays in the trilinear loop.
+FRAME_CASES = {
+    "gi_sorted": ("kitchen", None, dict(gi=True),
+                  dict(raster_prep=2, raster_tiles=2, march_rays=5,
+                       sdf_emit=1)),
+    "gi_binned": ("cornell", None, dict(gi=True),
+                  dict(raster_tiles=2, march_rays=5, sdf_emit=1)),
+    "gi_ranged": ("kitchen", None, dict(gi=True, backend="raster_ranged"),
+                  dict(raster_ranged=2, march_rays=5, sdf_emit=1)),
+    "gi_bvh": ("kitchen", None, dict(gi=True, backend="bvh"),
+               dict(march_rays=5, bvh_traverse=2, sdf_emit=1)),
+    "gi_reference_preset": ("cornell", "reference", dict(gi=True),
+                            dict(raster_tiles=2, march_rays=3, sdf_emit=1)),
+    "gi_dense_tiny": ("cornell", "tiny", dict(gi=True),
+                      dict(raster_tiles=2, march_rays=3)),
+    "direct_raster": ("cornell", None, dict(gi=False),
+                      dict(raster_tiles=2)),
+    "direct_bvh": ("cornell", None, dict(gi=False, backend="bvh"),
+                   dict(bvh_traverse=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(FRAME_CASES))
+def test_renderer_frames_hold_kernels(case):
+    """Two frames of ``Renderer.render`` from a fresh renderer (the first
+    builds the cascades) with fixed GI samples, the launches counted
+    (``FRAME_CASES``) and every launch of R, K6, M and ``bvh_traverse``
+    held on its own inputs: the GI frame through the sorted, binned and
+    ranged tiers and the BVH, at the reference preset (eight cascades)
+    and the tiny preset (the dense build), and the direct-only frame
+    through the raster and the BVH.  Each frame finite, more than half its
+    pixels covered, no raster overflow and no SDF list drop; the ranged
+    frame equal to the sorted tier's, the direct BVH frame's ids to the
+    raster's on at least 99% of the pixels (the BVH culls no back
+    face)."""
+    from vri_tpu_torch.renderer import Renderer
+
+    _card()
+    stage, preset, kw, want = FRAME_CASES[case]
+    h, w = (192, 256) if stage == "kitchen" else (128, 128)
+    sdf = SDF if preset is None else SDFConfig.preset(preset)
+    if kw["gi"]:
+        kw = dict(kw, uniforms=torch.rand(
+            (1, h * w, 2), generator=torch.Generator().manual_seed(7)).cuda())
+    r = Renderer(RenderConfig(width=w, height=h, sdf=sdf), device="cuda")
+    r.load_stage(STAGES[stage]())
+    frames, launches = _run_held(lambda: [r.render(**kw) for _ in range(2)])
+    assert launches == want
+    for aovs in frames:
+        assert np.isfinite(aovs["color"]).all()
+        assert (aovs["instance_id"] >= 0).mean() > 0.5
+        assert int(aovs.get("raster_overflow_tiles", 0)) == 0
+    assert r.list_overflow == 0
+    if kw.get("backend") in ("raster_ranged", "bvh") and kw["gi"]:
+        assert "raster_overflow_tiles" not in frames[1]
+    if case == "gi_ranged":
+        plain = r.render(gi=True, uniforms=kw["uniforms"])
+        for key in ("instance_id", "color"):
+            np.testing.assert_array_equal(frames[1][key], plain[key])
+    if case == "direct_bvh":
+        raster = r.render(gi=False)
+        assert (frames[1]["instance_id"]
+                == raster["instance_id"]).mean() >= 0.99
+
+
+def test_gi_frame_and_sdf_views_card_match_cpu():
+    """The Cornell box at 64^2 at this file's SDF settings, built and
+    rendered on the card and on the CPU (the kernels' plain versions) with
+    the same GI samples: ``instance_id`` equal on at least 99.9% of the
+    pixels and colour within 2e-3 where it is (the eager passes round
+    differently on the two devices).  The six SDF debug views on the card
+    launch no kernel (the trilinear loop marches them) and give finite
+    colour and depth alone; the distance view's hits agree with the CPU's
+    on at least 99.9% of the pixels."""
+    from vri_tpu_torch.config import DebugMode
+    from vri_tpu_torch.renderer import Renderer
+
+    _card()
+    u = torch.rand((1, 64 * 64, 2), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        r = Renderer(RenderConfig(width=64, height=64, sdf=SDF), device=dev)
+        r.load_stage(scenes.cornell_box())
+        out[dev] = (r.render(gi=True, uniforms=u.to(dev)),
+                    r.render(mode=DebugMode.SDF_DISTANCE))
+    for mode in range(DebugMode.SDF_DISTANCE, DebugMode.SDF_CASCADE_ID + 1):
+        view, launches = _run_held(lambda: r.render(mode=mode))
+        assert launches == {} and set(view) == {"color", "depth"}, mode
+        assert np.isfinite(view["color"]).all(), mode
+    (a, view_a), (b, view_b) = out["cpu"], out["cuda"]
+    same = a["instance_id"] == b["instance_id"]
+    assert same.mean() >= 0.999
+    assert np.abs(a["color"] - b["color"]).max(-1)[same].max() <= 2e-3
+    hits = [v["depth"] < 1e30 for v in (view_a, view_b)]
+    assert (hits[0] == hits[1]).mean() >= 0.999 and hits[1].any()
+
+
+@pytest.fixture(scope="module")
+def city():
+    """``bench.py``'s city (4,500 instanced towers, 1.35M faces) packed as
+    ``bench.py`` packs it (``lod_levels`` 3, ``lod_min_faces`` 64), at
+    1920x1080 on the card: its face pool passes the 2^19 from which the
+    raster compacts the frustum-visible faces, and nothing smaller takes
+    that branch by itself."""
+    _card()
+    from vri_tpu_torch import SceneLimits
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+
+    lim = SceneLimits(max_instances=8192, max_vertices=1 << 22,
+                      max_faces=1 << 22)
+    d = RenderDelegate(RenderConfig(width=1920, height=1080, limits=lim,
+                                    lod_levels=3, lod_min_faces=64),
+                       device="cuda")
+    d.populate(scenes.city_stress(num_buildings=4500, tess=5, num_protos=24))
+    scene = d.sync()
+    fp = frame_mod.FrameParams.from_camera(d.camera, 1080, device="cuda")
+    return scene, bake_world(scene), fp
+
+
+def _settled(frame):
+    """The renderer's ladder: ``frame(caps_scale)`` at 1x, 2x and 4x until
+    one reports no overflow; returns that scale."""
+    for scale in (1, 2, 4):
+        if int(frame(scale).overflow) == 0:
+            return scale
+    pytest.fail("overflow at 4x capacities")
+
+
+def test_city_compacted_frame(city):
+    """The city at ``lod_tau`` 0 through the raster dispatch with the
+    compaction budget ``bench.py`` gives it (2^20 faces): at the
+    capacities the ladder settles on, one prep and one R (held on its own
+    lists), no overflow, and tri, t, u and v equal to an uncompacted
+    sorted raster of the frame."""
+    from vri_tpu_torch.ops import rasterize
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    scene, world, fp = city
+    assert scene.tri_vertices.shape[0] >= frame_mod._CULL_COMPACT_MIN_POOL
+
+    def frame(scale):
+        return frame_mod._visibility_raster(
+            scene, world, fp, 1080, 1920, caps_scale=scale, lod_tau=0.0,
+            compact_cap=1 << 20)
+
+    scale = _settled(frame)
+    hit, launches = _run_held(lambda: frame(scale))
+    assert launches == dict(raster_prep=1, raster_tiles=1)
+    assert int(hit.overflow) == 0 and float((hit.tri >= 0).float().mean()) > 0.5
+    full, _ = rasterize.rasterize_sorted(
+        world, scene.tri_vertices, scene.num_faces, fp.view_proj,
+        height=1080, width=1920, cap=4096, pairs_cap=1 << 22,
+        caps_scale=scale, cull_sign=frame_mod._cull_sign(scene))
+    assert int(full.overflow) == 0
+    for key in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(hit, key), getattr(full, key)), key
+
+
+def test_city_lod_frame(city):
+    """The city at ``lod_tau`` 0.75: the face mask goes to the uncompacted
+    sorted tier; at the capacities the ladder settles on, one prep and one
+    R (held on its own lists), no overflow, and no face of a level not
+    chosen wins a pixel."""
+    from vri_tpu_torch.ops import lod
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    scene, world, fp = city
+    mask, _ = lod.face_mask(scene, fp.eye,
+                            1.0 / torch.clamp(fp.pixel_spread, min=1e-8),
+                            0.75)
+    assert 0 < int(mask.sum()) < int(scene.num_faces_total)
+
+    def frame(scale):
+        return frame_mod._visibility_raster(scene, world, fp, 1080, 1920,
+                                            caps_scale=scale, lod_tau=0.75)
+
+    scale = _settled(frame)
+    hit, launches = _run_held(lambda: frame(scale))
+    assert launches == dict(raster_prep=1, raster_tiles=1)
+    assert int(hit.overflow) == 0
+    assert bool(mask[hit.tri[hit.tri >= 0].long()].all())
+
+
+#: the orbit of tests/test_torch_temporal.py's flythrough
+ORBIT = dict(radius=3.2, height=0.3)
+
+
+def _clean_frame(r, aovs):
+    """A production frame with no raster overflow, no frame fault, no SDF
+    list drop and finite colour."""
+    assert int(aovs["raster_overflow_tiles"]) == 0
+    assert int(aovs["frame_faults"]) == 0
+    assert r.list_overflow == 0
+    assert bool(torch.isfinite(aovs["color"]).all())
+
+
+def test_temporal_frame_launches():
+    """The static cell's production frame, ``Renderer.render_temporal``
+    (``gi_scale`` 2, one sample, the radiance cache, the room preset's
+    ``shadow_scale`` 2), on the cells' kitchen at 1920x1080: four frames
+    from an empty history after the build, each one prep, one R and two M
+    (the shadow rays of the ``shadow_scale`` subsample, the GI rays at GI
+    resolution) and no other kernel, every launch held on its own inputs,
+    each frame clean (:func:`_clean_frame`), and the history equal to the
+    frame count on at least 90% of the covered pixels.  Then
+    ``render_flythrough(temporal=True, gi_scale=2)`` over a slow orbit of
+    the Cornell box: finite colour, and the covered pixels' mean history
+    above 1 by the third frame."""
+    import dataclasses
+
+    from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.renderer import Renderer
+
+    r = _cell_renderer("static")
+    r.ensure_cascades(eye=r.camera.eye)
+    state = frame_mod.init_temporal(1080, 1920, 2, device="cuda")
+    for i in range(4):
+        (aovs, state), launches = _run_held(
+            lambda: r.render_temporal(state))
+        assert launches == dict(raster_prep=1, raster_tiles=1, march_rays=2)
+        _clean_frame(r, aovs)
+        cov = aovs["instance_id"] >= 0
+        kept = (aovs["gi_history"][cov] - (i + 1)).abs() <= 1e-3
+        assert float(kept.float().mean()) >= 0.9, i
+    cfg = dataclasses.replace(SDF, shadow_scale=2)
+    rc = Renderer(RenderConfig(width=64, height=64, sdf=cfg), device="cuda")
+    rc.load_stage(scenes.cornell_box())
+    fly = rc.render_flythrough(4, FreeCamera(**ORBIT), dt=1.0 / 60.0,
+                               temporal=True, gi_scale=2)
+    assert all(np.isfinite(f["color"]).all() for f in fly)
+    assert fly[2]["gi_history"][fly[2]["instance_id"] >= 0].mean() > 1.0
+
+
+def test_animated_playback_holds_kernels():
+    """The animated cell's playback: its stage through
+    ``Renderer.render_temporal(time_code=)`` at 1920x1080 and the room
+    preset.  After the build, each of four codes runs the bounded update
+    on the card (one ``sdf_update`` pipeline, one ``sdf_emit``), the
+    partial re-bake and the temporal frame: one prep, one R and three M
+    (the re-bake's shadow rays, the frame's shadow and GI rays) and no
+    other kernel, every R and M launch held on its own inputs; each frame
+    "updated (1 dirty instances)" and clean (:func:`_clean_frame`)."""
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r = _cell_renderer("anim")
+    r.ensure_cascades()
+    state = frame_mod.init_temporal(1080, 1920, 2, device="cuda")
+    for code in (1.0, 2.0, 3.0, 4.0):
+        (aovs, state), launches = _run_held(
+            lambda: r.render_temporal(state, time_code=code))
+        assert launches == dict(raster_prep=1, raster_tiles=1, march_rays=3,
+                                sdf_emit=1, sdf_update=1), code
+        assert r.last_build_label == "updated (1 dirty instances)"
+        _clean_frame(r, aovs)
+
+
+#: tests/test_torch_dynamic.py's ANIM_SDF with 8^3-texel bricks and 64
+#: triangles a brick: no near candidate is dropped, so an update or a
+#: scroll gives a rebuild's voxels exactly
+ANIM_SDF = SDFConfig(
+    num_cascades=2, cascade_resolution=32, base_voxel_size=0.1,
+    max_bricks=16384, truncation_voxels=2.0, max_triangles_per_brick=64,
+    update_cell_cap=2048, update_brick_cap=8192, update_tri_cap=512)
+
+
+def _animated_renderer():
+    from vri_tpu_torch.renderer import Renderer
+
+    r = Renderer(RenderConfig(width=32, height=32, sdf=ANIM_SDF),
+                 device="cuda")
+    r.load_stage(scenes.animated_stage(num_objects=4))
+    return r
+
+
+def _voxel_equal(a, b, atol: float = 0.0):
+    """Occupancy, ESD and atlas per voxel of two cascade sets: with
+    ``atol``, the atlas within ``atol`` and one u8 step; without, the atlas
+    and albedo equal and the march tables too."""
+    ba, bb = a.brick_map.reshape(-1), b.brick_map.reshape(-1)
+    occ = ba >= 0
+    assert torch.equal(occ, bb >= 0)
+    assert torch.equal(torch.where(occ, 0, ba), torch.where(occ, 0, bb))
+    ia, ib = ba[occ].long(), bb[occ].long()
+    if atol:
+        step = a.atlas[ia].float() / 255.0 - b.atlas[ib].float() / 255.0
+        assert float(step.abs().max()) <= atol + 1.0 / 255.0
+        return
+    assert torch.equal(a.atlas[ia], b.atlas[ib])
+    assert torch.equal(a.brick_albedo[ia], b.brick_albedo[ib])
+    for f in ("march_coarse", "march_fine0", "march_fine1"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_animated_stage_updates_equal_a_rebuild():
+    """``animated_stage(num_objects=4)`` through ``render(time_code=t)``
+    for t = 0, 4, 8 on the card: rebuilt, then the bounded update twice
+    (one ``sdf_update`` pipeline each), and the cascades at t = 8
+    voxel-equal to a fresh build there (occupancy, ESD, atlas and albedo
+    per voxel, march tables), no near candidate dropped."""
+    _card()
+    r = _animated_renderer()
+    labels, pipelines = [], []
+    for t in (0.0, 4.0, 8.0):
+        aovs, launches = _run_held(lambda: r.render(gi=True, time_code=t))
+        labels.append(r.last_build_label)
+        pipelines.append(launches.get("sdf_update", 0))
+        assert np.isfinite(aovs["color"]).all()
+    assert labels[0] == "rebuilt", labels
+    assert all(x.startswith("updated (") for x in labels[1:]), labels
+    assert pipelines == [0, 1, 1]
+    fresh = _animated_renderer()
+    fresh._sdf_cfg_effective = r._sdf_cfg_effective
+    fresh.sync(time_code=8.0)
+    fresh.ensure_cascades(eye=r.camera.eye)
+    assert fresh.last_build_label == "rebuilt"
+    assert int(fresh.cascades.near_drop) == 0
+    _voxel_equal(r.cascades, fresh.cascades)
+
+
+def test_scroll_on_card_equals_a_fresh_build():
+    """The clipmap scroll on the card: the animated stage's renderer with
+    its focus moved by two coarse voxels takes the scroll ("scrolled n
+    cascades") without a list drop, and ``scroll_cascades`` there is
+    voxel-equal to a fresh build at the new centers (the atlas within 2e-6
+    and one u8 step), each cell list nesting in the fresh build's or
+    holding it."""
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+
+    _card()
+    r = _animated_renderer()
+    r.render(gi=True)
+    coarse = ANIM_SDF.voxel_size(ANIM_SDF.num_cascades - 1)
+    shift = np.asarray([2.0 * coarse, 0.0, 0.0], np.float32)
+    r.ensure_cascades(focus=r._cascade_focus + shift)
+    assert r.last_build_label.startswith("scrolled "), r.last_build_label
+    assert r.list_overflow == 0
+    sc = r.scene
+    args = (bake_world(sc), sc.tri_vertices, sc.num_faces)
+    c0 = sdf_mod.default_centers(ANIM_SDF, np.zeros(3, np.float32),
+                                 device="cuda")
+    cfg = sdf_build.demand_caps(sc, args[0], c0, ANIM_SDF)
+    c1 = sdf_mod.default_centers(cfg, -shift, device="cuda")
+    scrolled = tuple(bool(x) for x in (c0 != c1).any(-1).tolist())
+    cas0, st0 = sdf_build.build_cascades_binned(*args, c0, config=cfg)
+    cas1, st1, nf = sdf_build.scroll_cascades(cas0, st0, c1, *args,
+                                              config=cfg, scrolled=scrolled)
+    ref, ref_st = sdf_build.build_cascades_binned(*args, c1, config=cfg)
+    assert any(scrolled) and int(nf) == 0
+    assert int(cas0.near_drop) == 0 and int(ref.near_drop) == 0
+    _voxel_equal(cas1, ref, atol=2e-6)
+    a, b = st1.cell_tris, ref_st.cell_tris
+    for n, cell in (a != b).any(-1).nonzero().tolist():
+        sa = set(a[n, cell][a[n, cell] >= 0].tolist())
+        sb = set(b[n, cell][b[n, cell] >= 0].tolist())
+        assert sa <= sb or sb <= sa, (n, cell)
+
+
+def _moved_smallest(scene, off):
+    """The scene with its smallest instance moved by ``off``, that
+    instance's triangles, and its old and new boxes as dirty boxes (4, 3)
+    (the others dead)."""
+    ni = int(scene.num_instances)
+    k = int((scene.instance_aabb_hi - scene.instance_aabb_lo)[:ni]
+            .amax(-1).argmin())
+    off = torch.tensor(off, device=scene.instance_transform.device)
+    tf = scene.instance_transform.clone()
+    tf[k, :3, 3] += off
+    dlo = torch.full((4, 3), 3.0e38, device=off.device)
+    dhi = torch.full((4, 3), -3.0e38, device=off.device)
+    dlo[0], dhi[0] = scene.instance_aabb_lo[k], scene.instance_aabb_hi[k]
+    dlo[1], dhi[1] = dlo[0] + off, dhi[0] + off
+    return (scene.replace(instance_transform=tf), scene.tri_instance == k,
+            dlo, dhi)
+
+
+def test_band_frames_hold_kernels(frame):
+    """Bands of the kitchen fixture's frame, rows [64, 128) of 192, on
+    cascades built around the room's center (the stage camera's focus
+    leaves the moved prop outside the finest cascade): the temporal band
+    frame (``gi_scale`` 2) launches one R and two M, each held on its own
+    inputs, and its ids and depth (rtol 1e-5) differ from the same rows
+    of the full temporal frame on at most 0.5% of the pixels; the dynamic
+    band frame (the smallest prop moved by 0.03) re-emits bricks with one
+    ``sdf_update`` pipeline and one ``sdf_emit`` and launches one R and
+    three M (the re-bake's shadow rays, the band's shadow and GI rays),
+    each R and M held, and needs no rebuild."""
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    r, fp, world = frame
+    centers = sdf_mod.default_centers(SDF, np.zeros(3), device="cuda")
+    cas, st = sdf_build.build_for_scene(r.scene, world, centers, SDF)
+    cas = sdf_mod.bake_brick_lighting(cas, r.scene, config=SDF,
+                                      alive=st.alive)
+    y0, band, full, w = 64, 64, 192, 256
+    kw = dict(width=w, config=SDF, use_cache=True, gi_scale=2)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    (aovs, _), launches = _run_held(lambda: frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, frame_mod.init_temporal(band, w, 2, device="cuda"),
+        height=band, band=(y0, full), generator=gen, **kw))
+    assert launches == dict(raster_tiles=1, march_rays=2)
+    whole, _ = frame_mod.render_frame_gi_temporal(
+        r.scene, fp, cas, frame_mod.init_temporal(full, w, 2, device="cuda"),
+        height=full, generator=gen, **kw)
+    ids, dep = whole["instance_id"][y0:y0 + band], whole["depth"][y0:y0 + band]
+    differ = (aovs["instance_id"] != ids) | (
+        (ids >= 0) & ((aovs["depth"] - dep).abs() > 1e-5 * dep.abs()))
+    assert float(differ.float().mean()) <= 0.005
+    moved = _moved_smallest(r.scene, (0.03, 0.0, 0.0))
+    out, launches = _run_held(lambda: frame_mod.render_frame_gi_dynamic(
+        moved[0], fp, cas, st,
+        frame_mod.init_temporal(band, w, 2, device="cuda"), *moved[1:],
+        height=band, band=(y0, full), generator=gen, **kw))
+    assert launches == dict(raster_tiles=1, march_rays=3, sdf_emit=1,
+                            sdf_update=1)
+    assert int(out[3].emit_bricks.sum()) > 0 and int(out[4]) == 0
+    assert bool(torch.isfinite(out[0]["color"]).all())
+
+
+def test_scene_cache_round_trip_on_card(frame, tmp_path):
+    """The kitchen fixture's scene saved to the scene cache and loaded into
+    a fresh renderer on the card: every field equal (positions within one
+    uint16 step of the scene's extent, uvs within float16 rounding,
+    textures within one u8 step: the cache's quantisations), the loaded
+    scene's GI frame with the same cascades and samples agreeing on at
+    least 99.5% of the ids, and ``validate_scene`` finding no error."""
+    import dataclasses
+
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.renderer import Renderer
+    from vri_tpu_torch.runtime import checks
+
+    r, fp, _ = frame
+    path = str(tmp_path / "scene.npz")
+    r.save_cache(path)
+    r2 = Renderer(RenderConfig(width=256, height=192, sdf=SDF),
+                  device="cuda")
+    r2.load_cache(path, camera=r.camera)
+    a, b = r.scene, r2.scene
+    step = float((a.positions.amax(0) - a.positions.amin(0)).max()) / 65535.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "mip_atlas":
+            continue
+        if not torch.is_tensor(x):
+            assert x == y, f.name
+            continue
+        assert y.is_cuda and x.shape == y.shape and x.dtype == y.dtype, f.name
+        if x.numel() == 0:
+            continue
+        if f.name == "positions":
+            assert float((x - y).abs().max()) <= 1.01 * step
+        elif f.name == "tri_uv":
+            assert bool(((x - y).abs() <= 2.0 ** -11
+                         * torch.clamp(x.abs(), min=1.0)).all())
+        elif f.name == "textures":
+            assert float((x - y).abs().max()) <= 1.0 / 255.0 + 1e-6
+        else:
+            assert torch.equal(x, y), f.name
+    u = torch.rand((1, 192 * 256, 2), generator=torch.Generator()
+                   .manual_seed(27)).cuda()
+    kw = dict(height=192, width=256, config=SDF, use_cache=True, uniforms=u)
+    fa = frame_mod.render_frame_gi(a, fp, r.ensure_cascades(), **kw)
+    fb = frame_mod.render_frame_gi(b, fp, r.ensure_cascades(), **kw)
+    same = (fa["instance_id"] == fb["instance_id"]).float().mean()
+    assert float(same) >= 0.995 and bool(torch.isfinite(fb["color"]).all())
+    assert not [x for x in checks.validate_scene(a) if x.severity == "error"]
+
+
+#: case -> the app's arguments after ``--out DIR`` and the PNGs it writes
+APP_CASES = {
+    "sdf_tiny": (["--builtin", "cornell", "--sdf", "tiny"], 1),
+    "cache": (["--builtin", "cornell", "--cache", "CACHE"], 1),
+    "trace": (["--builtin", "cornell", "--sdf", "tiny", "--trace", "TRACE"],
+              1),
+    "animated": (["--builtin", "animated", "--frames", "4"], 4),
+    "lod": (["--builtin", "kitchen", "--lod", "3"], 1),
+}
+
+
+@pytest.mark.parametrize("case", list(APP_CASES))
+def test_app_on_card(case, tmp_path, monkeypatch):
+    """``python -m vri_tpu_torch.app`` on the card at 128^2: the tiny
+    preset; ``--cache`` written, then read with no stage load; ``--trace``,
+    whose Chrome trace holds the program's ``frame``, ``visibility`` and
+    ``gbuffer`` spans and kernel R's and M's CUDA functions, with
+    ``device_memory_stats`` reporting ``cuda:0``; the animated builtin's
+    four frames; the kitchen with three LOD levels.  Each run exits 0 with
+    its PNGs."""
+    import glob
+    import json
+    import os
+
+    from vri_tpu_torch import app
+    from vri_tpu_torch import renderer as renderer_mod
+    from vri_tpu_torch.runtime import profiler
+
+    _card()
+    extra, n_png = APP_CASES[case]
+    cache, trace = str(tmp_path / "scene.npz"), str(tmp_path / "trace")
+    extra = [cache if x == "CACHE" else trace if x == "TRACE" else x
+             for x in extra]
+    loads = []
+    real = renderer_mod.Renderer.load_stage
+    monkeypatch.setattr(renderer_mod.Renderer, "load_stage",
+                        lambda self, *a: loads.append(a) or real(self, *a))
+    runs = 2 if case == "cache" else 1
+    for i in range(runs):
+        out = str(tmp_path / f"out{i}")
+        assert app.main(["--width", "128", "--height", "128", "--out", out,
+                         *extra]) == 0
+        assert len(glob.glob(os.path.join(out, "*.png"))) == n_png
+    assert len(loads) == 1
+    if case == "cache":
+        assert os.path.exists(cache)
+    if case == "trace":
+        (path,) = glob.glob(os.path.join(trace, "*.json"))
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        assert {"frame", "visibility", "gbuffer"} <= names
+        for kernel in ("raster_tiles_kernel", "march_rays_kernel"):
+            assert any(kernel in n for n in names), kernel
+        assert "cuda:0" in profiler.device_memory_stats()
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--gloo-rank"]:
+    _gloo_rank(sys.argv[2])

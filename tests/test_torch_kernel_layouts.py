@@ -592,8 +592,9 @@ def test_step_merge_equals_the_per_lane_rule(seed):
 
 def test_compiler_log_sits_beside_its_library(tmp_path, monkeypatch):
     """``_cuda.compiler_log`` reads the ptxas output kept beside a
-    source's current library (``chip_smoke.py`` prints the grouped step's
-    registers from it), and is empty before that library is built."""
+    source's current library (``kernel_turns`` prints the registers from
+    it, ``test_torch_cuda.py`` checks every source's), and is empty before
+    that library is built."""
     from vri_tpu_torch import _cuda
 
     monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path))

@@ -1,6 +1,5 @@
-"""The port's trilinear SDF march (``vri_tpu_torch.ops.sdf_trace``) and the
-compacted kernel march (``march_kernel.march_compact``) against
-``vri_tpu.ops.sdf_trace``.
+"""The port's trilinear SDF march (``vri_tpu_torch.ops.sdf_trace``) against
+``vri_tpu.ops.sdf_trace``, and the march dispatch's kernel tier.
 
 Both sides read the same cascades: the JAX package builds and bakes the
 Cornell box at a two-cascade r=64 configuration with ``kernel_march``
@@ -22,12 +21,10 @@ sides round every operation.  Tolerances, and why:
   exhausts the budget (checked).  At a budget the rays exhaust, the JAX
   compact loop marches past it (its cleanup resumes the compacted rays);
   the port's does the same, every output bit-equal.
-* ``march_kernel.march_compact`` (three launches of the kernel's plain
-  version here) equals one-phase ``march`` bit for bit, with
-  ``compact_div`` 4 and 64 (64: more rays survive phase 1 than the
-  buffer holds, so the cleanup launch marches), as
-  ``tests/test_march_kernel.py::test_compact_is_exact`` holds the JAX
-  version.
+* with ``kernel_march`` on, ``march`` (``compact`` or not) and
+  ``occlusion`` (``compact_march`` or not) take one-phase
+  ``march_kernel.march`` (the kernel's plain version here) in one call,
+  bit for bit.
 * ``normal`` and ``direct_radiance_cached`` within 1e-5 (a vector norm
   and light sums, summed in another order).
 * ``sdf_debug_color``, all six modes, on the same march record: within
@@ -204,46 +201,11 @@ def test_compact_loop_equals_plain_loop(marches, approx):
         assert (a is None and b is None) or torch.equal(a, b), f.name
 
 
-@pytest.mark.parametrize("div", [4, 64])
-def test_march_compact_equals_march(sides, div):
-    """Three launches of the plain version (phase 1, the compacted
-    survivors, the full-width cleanup) give one-phase march's result bit
-    for bit; at compact_div 64 the buffer (1,024 rays) is smaller than
-    the survivors of 8 steps, so the cleanup marches."""
-    cas, tcas, _, _ = sides
-    rng = np.random.default_rng(7)
-    m = 4608
-    o = torch.as_tensor(rng.uniform(-0.9, 0.9, (m, 3)).astype(np.float32))
-    d = rng.normal(size=(m, 3)).astype(np.float32)
-    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True))
-    ref = tmarch.march(tcas, o, d, 10.0, config=TCFG, max_steps=STEPS)
-    calls = []
-    real = tmarch.march_rays
-
-    def counted(*args, **kw):
-        out = real(*args, **kw)
-        calls.append(int(out[3].sum()))      # rays still active after it
-        return out
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tmarch, "march_rays", counted)
-        got = tmarch.march_compact(tcas, o, d, 10.0, config=TCFG,
-                                   max_steps=STEPS, phase1_steps=8,
-                                   compact_div=div)
-    print(f"compact_div={div}: {calls[0]} rays active after phase 1, "
-          f"buffer {((m // div) + 1023) // 1024 * 1024}")
-    assert len(calls) == 3
-    if div == 64:
-        assert calls[0] > 1024
-    for f in dataclasses.fields(ref):
-        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
-            f.name
-
-
 def test_trace_compact_dispatch(sides):
     """With kernel_march on, sdf_trace.march(approx=True, compact=True)
-    and occlusion under compact_march take march_compact with the TPU
-    branch's budget max_steps * 2 + 16."""
+    and occlusion under compact_march take one-phase march_kernel.march,
+    one march_rays call each, with the TPU branch's budget
+    max_steps * 2 + 16: bit for bit its result."""
     _, tcas, _, _ = sides
     cfg = dataclasses.replace(TCFG, kernel_march=True, compact_march=True)
     rng = np.random.default_rng(5)
@@ -251,10 +213,22 @@ def test_trace_compact_dispatch(sides):
     d = rng.normal(size=(4096, 3)).astype(np.float32)
     d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True))
     ref = tmarch.march(tcas, o, d, 10.0, config=cfg, max_steps=56)
-    got = ttrace.march(tcas, o, d, 10.0, config=cfg, max_steps=20,
-                       approx=True, compact=True)
-    assert torch.equal(got.t, ref.t) and torch.equal(got.voxel, ref.voxel)
-    occ = ttrace.occlusion(tcas, o, d, 10.0, config=cfg, max_steps=20)
+    calls = []
+    real = tmarch.march_rays
+
+    def counted(*args, **kw):
+        calls.append(kw["max_steps"])
+        return real(*args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmarch, "march_rays", counted)
+        got = ttrace.march(tcas, o, d, 10.0, config=cfg, max_steps=20,
+                           approx=True, compact=True)
+        occ = ttrace.occlusion(tcas, o, d, 10.0, config=cfg, max_steps=20)
+    assert calls == [56, 56]
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
+            f.name
     assert torch.equal(occ, 1.0 - ref.hit.float())
 
 

@@ -1,4 +1,6 @@
-# Copy of vri_tpu/config.py for the port; only the imports differ.
+# Copy of vri_tpu/config.py for the port; besides the imports it drops
+# RenderConfig's TPU knobs, which nothing in the port reads (tile_h,
+# tile_w, tri_chunk, bin_capacity, coarse_bin, supersample, dtype).
 """Runtime configuration system.
 
 The reference hardcodes everything at compile time: window size
@@ -85,8 +87,9 @@ class SDFConfig:
     # direct shadows from the baked per-brick visibility (one gather, no
     # per-pixel shadow march; shadow edges quantize to the voxel size)
     cached_shadows: bool = False
-    # two-stage ray compaction in the march (survivors continue in a
-    # quarter-width buffer; exactness-preserving cleanup loop)
+    # two-stage ray compaction in the trilinear march loop (survivors
+    # continue in a quarter-width buffer; exactness-preserving cleanup
+    # loop); the march kernel refills its lanes and ignores it
     compact_march: bool = False
     # persistent-lane streaming march kernel: each (8,128) lane owns a
     # queue of rays and refills itself in-kernel when its ray finishes,
@@ -183,16 +186,6 @@ class RenderConfig:
 
     width: int = 1920
     height: int = 1080
-    # Pixel tile processed by one Pallas grid step of the visibility kernel.
-    tile_h: int = 8
-    tile_w: int = 128
-    # Triangles staged into VMEM per inner rasterizer iteration.
-    tri_chunk: int = 256
-    # Per-tile binning capacity (triangles overlapping one coarse bin).
-    bin_capacity: int = 1024
-    coarse_bin: int = 64              # coarse bin edge in pixels
-    supersample: int = 1
-    dtype: str = "float32"
     # meshoptimizer-style preprocessing: weld duplicate vertices at sync
     # (the pass the reference vendors but never calls, RenderPass.cpp:1017)
     dedup_vertices: bool = False

@@ -21,12 +21,13 @@ reference's slab test for every ray, so the reference walks each empty
 subtree to its leaves and finds nothing there: on the 49k kitchen, whose
 pool of 65,536 slots holds 2,024 empty leaves, that was 4,041 of the
 4,140.5 nodes and 16,192 of the 16,298 triangle tests of a mean 1080p
-camera ray (H100 runs of ``chip_smoke.py``).  ``bvh_traverse`` is the
-walk's kernel wrapper: it launches ``csrc/bvh_traverse.cu`` (a lane
-walks one ray at a time; persistent warps take the next 32 rays from a
-counter when all their lanes are done; a warp tests the leaves its lanes
-reach in rounds; a stack of (node, t_near), so a pop tests only t_near
-against the best t) for CUDA tensors and runs ``bvh_traverse_reference``,
+camera ray (an H100 run of the kernel with ``visits=True``).
+``bvh_traverse`` is the walk's kernel wrapper: it launches
+``csrc/bvh_traverse.cu`` (a lane walks one ray at a time; persistent
+warps take the next 32 rays from a counter when all their lanes are
+done; a warp tests the leaves its lanes reach in rounds; a stack of
+(node, t_near), so a pop tests only t_near against the best t) for CUDA
+tensors and runs ``bvh_traverse_reference``,
 the plain PyTorch version with the same operation order, for CPU
 tensors.  Both read
 the node and triangle tables that ``build_bvh`` packs once in the

@@ -12,8 +12,7 @@ persistent-lane queues, written for a warp.
 
 ``march_rays`` is the kernel's wrapper: it launches the CUDA kernel for
 CUDA tensors and runs ``march_rays_reference``, the plain PyTorch version
-with the same operation order, for CPU tensors.  ``march_compact`` is the
-JAX package's wavefront-compacted march over three ``march_rays`` calls.
+with the same operation order, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -238,10 +237,11 @@ def finest_voxel_size(sdf: SDFCascades, points: torch.Tensor,
     return torch.where(torch.isfinite(vs), vs, sdf.voxel_size[-1])
 
 
-def _entry(sdf: SDFCascades, origins, dirs, t_max, config: SDFConfig,
-           grace_voxels: float):
-    """Clipmap-entry setup: (t_init, t_max, t_enter, t_grace) per ray,
-    with rays that never meet the clipmap encoded as t_init = t_max + 1."""
+def ray_table(sdf: SDFCascades, origins, dirs, t_max, config: SDFConfig,
+              grace_voxels: float = 1.75) -> torch.Tensor:
+    """(10, m) ray table the kernel reads: origin, direction and the
+    clipmap entry (t_init, t_max, t_enter, t_grace), with rays that never
+    meet the clipmap encoded as t_init = t_max + 1."""
     r = config.cascade_resolution
     m = origins.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32,
@@ -259,15 +259,6 @@ def _entry(sdf: SDFCascades, origins, dirs, t_max, config: SDFConfig,
     t_init = torch.minimum(torch.clamp(t_enter + 1e-4, min=1e-3), t_max)
     never = t_exit < torch.clamp(t_enter, min=0.0)
     t_init = torch.where(never, t_max + 1.0, t_init)
-    return t_init, t_max, t_enter, t_grace
-
-
-def ray_table(sdf: SDFCascades, origins, dirs, t_max, config: SDFConfig,
-              grace_voxels: float = 1.75) -> torch.Tensor:
-    """(10, m) ray table the kernel reads: origin, direction, and the
-    clipmap entry of :func:`_entry`."""
-    t_init, t_max, t_enter, t_grace = _entry(sdf, origins, dirs, t_max,
-                                             config, grace_voxels)
     return torch.stack([origins[:, 0], origins[:, 1], origins[:, 2],
                         dirs[:, 0], dirs[:, 1], dirs[:, 2],
                         t_init, t_max, t_enter, t_grace]).contiguous()
@@ -293,63 +284,6 @@ def march(sdf: SDFCascades, origins: torch.Tensor, dirs: torch.Tensor,
         ray_table(sdf, origins, dirs, t_max, config, grace_voxels),
         pack_meta(sdf, config), sdf.march_coarse, sdf.march_fine0,
         sdf.march_fine1, r=config.cascade_resolution, max_steps=max_steps)
-    return _payload(sdf, config, origins, dirs, t, hv, it, payload)
-
-
-def march_compact(sdf: SDFCascades, origins: torch.Tensor,
-                  dirs: torch.Tensor, t_max, *, config: SDFConfig,
-                  max_steps: int | None = None, payload: bool = True,
-                  grace_voxels: float = 1.75, phase1_steps: int = 24,
-                  compact_div: int = 4) -> SDFHit:
-    """Wavefront-compacted march, equal to :func:`march` on every ray, in
-    three ``march_rays`` launches: every ray for ``phase1_steps`` steps;
-    the rays still active, in ray order (a stable sort), resumed from
-    their t in a buffer of ceil(m / ``compact_div``) rays rounded up to
-    1,024 (padding lanes start past t_max, so they never march); then a
-    full-width cleanup that marches only the active rays that did not fit
-    the buffer.  A ray's march is a function of its t alone (the kernel
-    fetches a cell's words on entry), so resuming is exact.  Below 4,096
-    rays, or when ``max_steps <= phase1_steps``, one ``march``."""
-    max_steps = max_steps or config.march_max_steps
-    m = origins.shape[0]
-    if m < 4096 or max_steps <= phase1_steps:
-        return march(sdf, origins, dirs, t_max, config=config,
-                     max_steps=max_steps, payload=payload,
-                     grace_voxels=grace_voxels)
-    t_init, t_max, t_enter, t_grace = _entry(sdf, origins, dirs, t_max,
-                                             config, grace_voxels)
-    tables = (pack_meta(sdf, config), sdf.march_coarse, sdf.march_fine0,
-              sdf.march_fine1)
-
-    def run(o, d, t0, tm, te, tg, steps):
-        rays = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                            d[:, 2], t0, tm, te, tg]).contiguous()
-        t, hv, it, act = march_rays(rays, *tables,
-                                    r=config.cascade_resolution,
-                                    max_steps=steps)
-        return t, hv, it, act.bool()
-
-    t, hv, it, act = run(origins, dirs, t_init, t_max, t_enter, t_grace,
-                         phase1_steps)
-    cap = ((m // compact_div) + 1023) // 1024 * 1024
-    idx = torch.argsort((~act).to(torch.uint8), stable=True)[:cap]
-    upd = act[idx]
-    t2, hv2, it2, _ = run(origins[idx], dirs[idx],
-                          torch.where(upd, t[idx], t_max[idx] + 1.0),
-                          t_max[idx], t_enter[idx], t_grace[idx],
-                          max_steps - phase1_steps)
-    # actives that did not fit the buffer (only when more than cap rays
-    # survived phase 1): the cleanup finishes exactly these
-    act_over = act.index_put((idx,), torch.zeros_like(upd))
-    t = t.index_put((idx,), torch.where(upd, t2, t[idx]))
-    hv = hv.index_put((idx,), torch.where(upd, hv2, hv[idx]))
-    it = it.index_put((idx,), torch.where(upd, it2 + phase1_steps, it[idx]))
-    t3, hv3, it3, _ = run(origins, dirs,
-                          torch.where(act_over, t, t_max + 1.0), t_max,
-                          t_enter, t_grace, max_steps - phase1_steps)
-    t = torch.where(act_over, t3, t)
-    hv = torch.where(act_over, hv3, hv)
-    it = torch.where(act_over, it3 + it, it)
     return _payload(sdf, config, origins, dirs, t, hv, it, payload)
 
 

@@ -5,10 +5,10 @@ Two tiers, dispatched as the JAX package's TPU branch does
 (``sdf_trace.py:218-229`` and ``:311-321``):
 
 * the approximate tier -- occlusion, shadow and GI-gather rays at voxel
-  precision -- runs the march kernel (``march_kernel.march``, or
-  ``march_compact`` with ``compact``) with the step budget
-  ``ks = max_steps * 2 + 16``: kernel steps are voxel-granular, so the
-  budget is scaled;
+  precision -- runs the march kernel (``march_kernel.march``, one launch
+  whatever ``compact`` or ``config.compact_march`` say) with the step
+  budget ``ks = max_steps * 2 + 16``: kernel steps are voxel-granular, so
+  the budget is scaled;
 * everything else -- ``approx=False`` (the ``reference`` preset's GI
   rays, the SDF debug views) and the nearest-texel tier without
   ``config.kernel_march`` -- runs the lock-step sphere march of
@@ -209,19 +209,18 @@ def march(sdf: SDFCascades, origins: torch.Tensor, dirs: torch.Tensor,
     """Sphere march rays (M, 3) through the cascades.
 
     ``approx=True`` with ``config.kernel_march`` on a supported resolution
-    runs the voxel-precision march kernel (``march_compact`` with
-    ``compact``).  Otherwise the lock-step loop marches: trilinear samples
-    unless ``approx`` (nearest texel).  ``compact=True`` runs the loop
-    8 steps at full width, gathers the surviving rays (a stable sort,
-    at most a quarter of them) into a smaller buffer for the remaining
-    budget, then finishes at full width whatever did not fit, as the JAX
-    loop does."""
+    runs the voxel-precision march kernel in one launch, ``compact`` or
+    not: its persistent lanes already refill as rays end.  Otherwise the
+    lock-step loop marches: trilinear samples unless ``approx`` (nearest
+    texel).  There ``compact=True`` runs the loop 8 steps at full width,
+    gathers the surviving rays (a stable sort, at most a quarter of them)
+    into a smaller buffer for the remaining budget, then finishes at full
+    width whatever did not fit, as the JAX loop does."""
     from vri_tpu_torch.ops import march_kernel
 
     if approx and config.kernel_march and march_kernel.supports(config):
-        fn = march_kernel.march_compact if compact else march_kernel.march
-        return fn(sdf, origins, dirs, t_max, config=config,
-                  max_steps=_kernel_steps(max_steps, config))
+        return march_kernel.march(sdf, origins, dirs, t_max, config=config,
+                                  max_steps=_kernel_steps(max_steps, config))
     m = origins.shape[0]
     dev = origins.device
     i32 = torch.int32
@@ -300,16 +299,16 @@ def occlusion(sdf: SDFCascades, origins: torch.Tensor, dirs: torch.Tensor,
               t_max, *, config: SDFConfig, max_steps: int | None = None
               ) -> torch.Tensor:
     """Shadow factor in [0,1]: 0 = blocked.  With ``config.kernel_march``
-    on a supported resolution, the march kernel (hit / t only; in three
-    launches under ``config.compact_march``); otherwise :func:`march` at
-    ``config.approx_occlusion``."""
+    on a supported resolution, the march kernel (hit / t only, one launch
+    whatever ``config.compact_march`` says); otherwise :func:`march` at
+    ``config.approx_occlusion``, its loop in two stages under
+    ``config.compact_march``."""
     from vri_tpu_torch.ops import march_kernel
 
     if config.kernel_march and march_kernel.supports(config):
-        fn = (march_kernel.march_compact if config.compact_march
-              else march_kernel.march)
-        rec = fn(sdf, origins, dirs, t_max, config=config,
-                 max_steps=_kernel_steps(max_steps, config), payload=False)
+        rec = march_kernel.march(sdf, origins, dirs, t_max, config=config,
+                                 max_steps=_kernel_steps(max_steps, config),
+                                 payload=False)
         return 1.0 - rec.hit.float()
     rec = march(sdf, origins, dirs, t_max, config=config,
                 max_steps=max_steps, approx=config.approx_occlusion,

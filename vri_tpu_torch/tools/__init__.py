@@ -13,7 +13,7 @@ which scalar arithmetic runs instead.
 * ``micro_grouped``: the grouped step (``ops/worklist.grouped_step``);
 * ``prof_worklist``: the stages of the sorted raster tier (kernel R).
 
-It also holds what these tools share with ``chip_smoke.py``: the card
+It also holds what these tools share with ``kernel_turns``: the card
 line, the CUDA-event timer, the ray sets that hold ``bvh_traverse``
 against its plain version (:func:`bvh_ray_sets`) and the work-list chunks
 that cover their tiles (:func:`covering_chunks`).
@@ -78,7 +78,7 @@ def time_ms(fn, iters: int, device) -> float:
 
 def bvh_ray_sets(r, h: int, w: int):
     """The rays that hold ``bvh_traverse`` through renderer ``r``'s stage
-    (``chip_smoke.py`` phase 12, ``kernel_turns``): the h x w camera rays
+    (``kernel_turns``' main-path stage): the h x w camera rays
     and 2^18 random rays in the instances' bounds with per-ray t_max.
     Returns {label: (origins, dirs, t_max)}."""
     import numpy as np

@@ -25,11 +25,11 @@ design that lost and left the sources is timed as an other tree: a copy
 of ``vri_tpu_torch/csrc`` with that kernel's losing source in its place.
 On the main path's stage (the 49k kitchen at 1920x1080, "room" SDF
 preset) it holds every build bit-equal to this tree's kernel on the
-inputs of ``chip_smoke.py``'s phases 3 (R: the frame's tile lists), 4
-(K6: the ranged tier's chunks), 6 (M: the frame's shadow and GI rays)
-and 12 (``bvh_traverse``: the 1080p camera rays and 2^18 random rays
-with per-ray t_max, visit counts included); the work-list kernels on
-the tools' rows of phases 15-17 (``micro_steps`` packed as T5,
+main path's inputs (:func:`inputs`): R on the frame's tile lists, K6 on
+the ranged tier's chunks, M on the frame's shadow and GI rays and
+``bvh_traverse`` on the 1080p camera rays and 2^18 random rays with
+per-ray t_max, visit counts included; the work-list kernels on the
+tools' rows (:func:`worklist_inputs`: ``micro_steps`` packed as T5,
 ``micro_worklist`` full-highest and full-2pass as T4, ``micro_attrib``
 s0-s6 as T3, ``micro_pass1`` v0-v3 as T1, ``micro_grouped`` W 8 and 32
 as T2), on the same work lists over covering triangle templates, on
@@ -410,11 +410,11 @@ def longest_first(wt, wc, fl):
 
 def worklist_inputs(dev, kernels):
     """Per picked work-list kernel, {label: (args, kw)}: the tools' rows
-    of ``chip_smoke.py``'s phases 15-17 (``micro_steps`` packed,
-    ``micro_worklist`` full-highest and full-2pass, ``micro_attrib``
-    s0-s6, ``micro_pass1`` v0-v3, ``micro_grouped`` W 8 and 32), the
-    same work lists over chunks that cover their tiles, and the grouped
-    step's forced-tie templates at W 8 and 32."""
+    (``micro_steps`` packed, ``micro_worklist`` full-highest and
+    full-2pass, ``micro_attrib`` s0-s6, ``micro_pass1`` v0-v3,
+    ``micro_grouped`` W 8 and 32), the same work lists over chunks that
+    cover their tiles, and the grouped step's forced-tie templates at W 8
+    and 32."""
     import torch
 
     from vri_tpu_torch.ops import worklist
@@ -511,8 +511,9 @@ def lds_probe(card: str, reps: int) -> dict:
 
 
 def inputs(dev, kernels):
-    """The renderer and, per picked kernel, {label: (args, kw)}: phases 3
-    (R), 4 (K6), 6 (M) and 12 (``bvh_traverse``) of chip_smoke.py."""
+    """The renderer and, per picked kernel, {label: (args, kw)}: R on the
+    kitchen's 1080p tile lists, K6 on its ranged chunks, M on its shadow
+    and GI rays and ``bvh_traverse`` on :func:`bvh_ray_sets`."""
     import torch
 
     from vri_tpu_torch import RenderConfig, SDFConfig, scenes
