@@ -10,7 +10,8 @@ tables) with the port itself, run one kernel (raster_tiles,
 raster_ranged, march_rays, bvh_traverse, the work-list kernels
 template_walk, setup_walk and grouped_step, the sorted tier's prep
 raster_prep, the SDF emit sdf_emit, the bounded update's pipeline
-sdf_update) on CUDA tensors and its plain version on the same tensors,
+sdf_update, the temporal frame's history stage temporal_history) on CUDA
+tensors and its plain version on the same tensors,
 and require exact equality: the kernels are built with -fmad=false and
 follow their plain versions' operation order, so every output agrees bit
 for bit (also raster_ranged's per-tile tested pairs and bvh_traverse's
@@ -24,10 +25,10 @@ and SDF preset, bands, the city at 1.35M faces, the update
 and the scroll against a rebuild, the scene cache, the app, and the
 sharded frames over one ``nccl`` rank and over four ``gloo`` ranks
 sharing the card -- with every kernel launch counted and each launch of
-R, K6, M and bvh_traverse held bit-equal to its plain version on that
-launch's own inputs (:func:`_run_held`); where the CPU renders the same
-frame with the plain versions, the two agree within the tolerances each
-test names.  On a host without a card every test skips.
+R, K6, M, bvh_traverse and temporal_history held bit-equal to its plain
+version on that launch's own inputs (:func:`_run_held`); where the CPU
+renders the same frame with the plain versions, the two agree within the
+tolerances each test names.  On a host without a card every test skips.
 """
 
 import sys
@@ -1145,7 +1146,8 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
     frames bit-equal to ``render_frame_gi``, ``render_frame_gi_temporal``
     and ``render_frame_gi_dynamic`` with the same uniforms, on the
     Cornell box at 64^2 with ``test_dynamic_frame_card_matches_cpu``'s
-    configuration and motion; the same launches of each kernel."""
+    configuration and motion; the same launches of each kernel (R, M and,
+    in the temporal and dynamic frames, one ``temporal_history``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import socket
@@ -1173,11 +1175,13 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
 
     def run(fn):
         before = (rasterize.raster_tiles.launches,
-                  march_kernel.march_rays.launches)
+                  march_kernel.march_rays.launches,
+                  frame_mod.temporal_history.launches)
         out = fn()
         torch.cuda.synchronize()
         return out, (rasterize.raster_tiles.launches - before[0],
-                     march_kernel.march_rays.launches - before[1])
+                     march_kernel.march_rays.launches - before[1],
+                     frame_mod.temporal_history.launches - before[2])
 
     try:
         assert (mesh.backend, mesh.size, mesh.device) == (
@@ -1186,7 +1190,7 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
             s, fp, cas, mesh=mesh, uniforms=u, **kw))
         single, ls = run(lambda: frame_mod.render_frame_gi(
             s, fp, cas, uniforms=u, use_cache=True, **kw))
-        assert lt == ls == (1, 2)
+        assert lt == ls == (1, 2, 0)
         for key in ("color", "depth", "instance_id"):
             assert torch.equal(tiled[key], single[key]), key
         states = [frame_mod.init_temporal(res, res, 2, device="cuda")
@@ -1200,7 +1204,7 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
                 lambda: frame_mod.render_frame_gi_temporal(
                     s, fp, cas, states[1], gi_scale=2, uniforms=ug,
                     use_cache=True, **kw))
-            assert lt == ls == (1, 2)
+            assert lt == ls == (1, 2, 1)
             for key in ("color", "depth", "gi_history"):
                 assert torch.equal(tiled[key], single[key]), key
             assert torch.equal(states[0].data, states[1].data)
@@ -1211,7 +1215,7 @@ def test_tiled_frames_world_size_1_nccl(monkeypatch):
             *args, mesh=mesh, uniforms=u, **kw))
         single, ls = run(lambda: frame_mod.render_frame_gi_dynamic(
             *args, uniforms=u, use_cache=True, **kw))
-        assert lt == ls == (1, 3)
+        assert lt == ls == (1, 3, 1)
         assert int(tiled[4]) == int(single[4]) == 0
         for key in ("color", "depth", "gi_history"):
             assert torch.equal(tiled[0][key], single[0][key]), key
@@ -1324,6 +1328,7 @@ def _gloo_rank(out: str) -> None:
                                                        device=dev),
         *moved[1:], mesh=mesh, gi_scale=2, halo_rows=2, seed=29, **kw))
     assert launches["raster_tiles"] == 1 and launches["sdf_update"] == 1
+    assert launches["temporal_history"] == 1
     single = frame_mod.render_frame_gi_dynamic(
         moved[0], fp, cas, st, frame_mod.init_temporal(res, res, 2,
                                                        device=dev),
@@ -1709,6 +1714,141 @@ def test_sdf_update_has_no_host_sync(anim_kitchen):
     assert int(got[2]) == 0
 
 
+# -- the temporal frame's history stage ----------------------------------------
+
+#: case -> the frame's rows, columns and gi_scale, the previous camera's
+#: offset in pixels (x, y), and optionally a band (first row, the whole
+#: frame's rows), ghost rows of history above and below, points behind
+#: the previous camera, NaN and inf history rows.  122 GI columns: i /
+#: 122 and i * (1 / 122) floor apart on some pixels; one GI column: every
+#: tap reads the wrap pair of the plain version's roll
+HISTORY_CASES = {
+    "scale1": dict(h=48, w=122, s=1, move=(0.3, 0.2)),
+    "scale2": dict(h=48, w=64, s=2, move=(1.6, -0.7)),
+    "band": dict(h=32, w=64, s=2, move=(0.6, 2.3), band=(32, 96)),
+    "halo2": dict(h=32, w=64, s=2, move=(0.4, 1.7), band=(32, 96), halo=2),
+    "off_screen": dict(h=48, w=64, s=2, move=(9.0, -6.0), behind=0.1),
+    "last_column_row": dict(h=48, w=64, s=2, move=(0.45, 0.45)),
+    "one_column": dict(h=16, w=1, s=1, move=(0.2, 0.3)),
+    "nonfinite": dict(h=48, w=64, s=2, move=(0.5, 0.5), nonfinite=True),
+    "cell1080": dict(h=1080, w=1920, s=2, move=(0.35, 0.15)),
+}
+
+
+def _history_case(case, device):
+    """(the wrapper's tensors, its keywords) for ``HISTORY_CASES[case]``:
+    world points on the plane z = 0 under the current camera's pixels (one
+    in ten raised towards it, a depth edge), a history written by a camera
+    panned by ``move`` pixels (its depth the plane's, half of it up to 4%
+    off, about the depth test's tolerance, 15% of its rows disoccluded, a
+    count of 0 to 16), 5% of the normals flipped and 5% of the pixels
+    invalid."""
+    from vri_tpu_torch.hydra.camera import make_camera
+
+    c = HISTORY_CASES[case]
+    h, w, s, halo = c["h"], c["w"], c["s"], c.get("halo", 0)
+    y0, full = c.get("band", (0, h))
+    hs, ws = h // s, w // s
+    rng = np.random.default_rng(list(HISTORY_CASES).index(case))
+    step = 2.0 * np.tan(np.radians(22.5)) * 3.0 / full    # a pixel at z = 0
+    mx, my = c["move"]
+    eye_b = np.float32([0.0, 0.0, 3.0])
+    eye_a = eye_b + np.float32([mx * step, -my * step, 0.0])
+    cam_b = make_camera(eye_b, eye_b * [1, 1, 0], 45.0, w / full)
+    cam_a = make_camera(eye_a, eye_a * [1, 1, 0], 45.0, w / full)
+
+    def on_plane(cam, rows, cols):
+        y, x = np.meshgrid(rows, cols, indexing="ij")
+        ndc = np.stack([(x + 0.5) / w * 2 - 1, 1 - (y + 0.5) / full * 2],
+                       -1)
+        inv = np.linalg.inv(cam.view_proj.astype(np.float64))
+        q = np.concatenate([ndc.reshape(-1, 2), np.full((ndc.size // 2, 1),
+                                                        0.5),
+                            np.ones((ndc.size // 2, 1))], 1) @ inv.T
+        d = q[:, :3] / q[:, 3:] - cam.eye
+        return cam.eye + d * (-cam.eye[2] / d[:, 2:])
+
+    pos = on_plane(cam_b, np.arange(y0, y0 + h), np.arange(w))
+    pos = pos.astype(np.float32)
+    edge = rng.random(h * w) < 0.1
+    pos[edge] += (eye_b - pos[edge]) * 0.3
+    if c.get("behind"):
+        pos[rng.random(h * w) < c["behind"], 2] = 4.0
+    nrm = np.float32([0.0, 0.0, 1.0]) + rng.normal(0.0, 0.2, (h * w, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm[rng.random(h * w) < 0.05] *= -1.0
+    nrm = nrm.astype(np.float32)
+    valid = rng.random(h * w) > 0.05
+    sub = (np.arange(0, h, s)[:, None] * w + np.arange(0, w, s)).reshape(-1)
+
+    rows = np.arange(y0 // s - halo, y0 // s + hs + halo) * s
+    p_a = on_plane(cam_a, rows, np.arange(0, w, s))
+    m = len(p_a)
+    data = np.zeros((m, 8), np.float32)
+    data[:, 0:3] = rng.random((m, 3))
+    data[:, 3] = np.linalg.norm(p_a - cam_a.eye, axis=-1)
+    data[:, 3] *= 1.0 + (rng.random(m) < 0.5) * rng.uniform(0.0, 0.04, m)
+    data[rng.random(m) < 0.15, 3] *= 1.3
+    data[:, 4:7] = nrm[rng.integers(0, h * w, m)]
+    data[:, 7] = rng.integers(0, 17, m)
+    if c.get("nonfinite"):
+        k = rng.choice(m, 6, replace=False)
+        data[k[:3]] = np.nan
+        data[k[3:], :4] = np.inf
+    depth = np.linalg.norm(pos - eye_b, axis=-1).astype(np.float32)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    args = (t(data), t(cam_a.view_proj.astype(np.float32)), t(cam_a.eye),
+            t(pos[sub]), t(nrm[sub]), t(valid[sub]),
+            t(rng.random((hs * ws, 3), np.float32)), t(depth), t(eye_b),
+            t(rng.random((h * w, 3), np.float32)
+              * (rng.random((h * w, 1)) < 0.1)),
+            t(rng.random((h * w, 3), np.float32)),
+            t(rng.random((h * w, 3), np.float32)), t(valid))
+    kw = dict(height=h, width=w, gi_scale=s, history_cap=16.0, y0=y0 // s,
+              proj_height=full // s if "band" in c else None, halo=halo)
+    return args, kw
+
+
+def _same(a, b):
+    """Equal, NaN where the other is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.parametrize("case", list(HISTORY_CASES))
+def test_temporal_history_matches_plain_version(case):
+    """``frame.temporal_history`` (``csrc/temporal.cu``) against its plain
+    version on the same CUDA tensors: colour, frame count and new history
+    bit-equal (a NaN where the plain version has one) at ``gi_scale`` 1
+    and 2, on a band, on a history with two ghost rows a side, under a
+    camera move that sends taps off the screen and behind the camera, at
+    the last column and row, on one GI column, through NaN and inf history
+    rows, and at the static cell's 1920x1080; each launch counted once,
+    its outputs fresh and its inputs, the history included, unchanged."""
+    from vri_tpu_torch.passes import frame as frame_mod
+
+    _card()
+    args, kw = _history_case(case, "cuda")
+    before = [a.clone() for a in args]
+    launches = frame_mod.temporal_history.launches
+    got = frame_mod.temporal_history(*args, **kw)
+    assert frame_mod.temporal_history.launches == launches + 1
+    want = frame_mod.temporal_history_reference(*args, **kw)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and _same(g, w), (case, k)
+    for a, b in zip(args, before):
+        assert torch.equal(a, b) or _same(a, b)
+    assert all(g.data_ptr() != a.data_ptr() for g in got for a in args)
+    kept = want[1] > 1.0
+    if case == "nonfinite":
+        assert bool(torch.isnan(want[0]).any())
+    elif case not in ("off_screen", "one_column"):
+        assert float(kept.float().mean()) > 0.3, case
+
+
 # -- whole frames and paths, every launch held on its own inputs -----------------
 
 def _copy(x):
@@ -1717,13 +1857,14 @@ def _copy(x):
 
 def _run_held(fn):
     """``fn()`` with every kernel's launches counted and each launch of R,
-    K6, M and ``bvh_traverse`` held bit-equal to the kernel's plain version
-    on a copy of that launch's own inputs: a frame's kernels are held on
-    the inputs the frame builds, and every counted launch of those four
-    was recorded and held.  Returns (``fn``'s result, {kernel: launches}
-    of the kernels it launched)."""
+    K6, M, ``bvh_traverse`` and ``temporal_history`` held bit-equal to the
+    kernel's plain version on a copy of that launch's own inputs: a
+    frame's kernels are held on the inputs the frame builds, and every
+    counted launch of those five was recorded and held.  Returns (``fn``'s
+    result, {kernel: launches} of the kernels it launched)."""
     from vri_tpu_torch.ops import (bvh, march_kernel, rasterize, sdf_build,
                                    worklist)
+    from vri_tpu_torch.passes import frame as frame_mod
 
     # kernel -> (module, wrapper, plain version: None for those not held)
     table = {"raster_prep": (rasterize, "raster_prep", None),
@@ -1739,7 +1880,9 @@ def _run_held(fn):
              "sdf_update": (sdf_build, "_update_kernel", None),
              "template_walk": (worklist, "template_walk", None),
              "setup_walk": (worklist, "setup_walk", None),
-             "grouped_step": (worklist, "grouped_step", None)}
+             "grouped_step": (worklist, "grouped_step", None),
+             "temporal_history": (frame_mod, "temporal_history",
+                                  frame_mod.temporal_history_reference)}
     calls, real = [], {}
 
     def recorder(name, wrapper):
@@ -2008,11 +2151,13 @@ def test_temporal_frame_launches():
     """The static cell's production frame, ``Renderer.render_temporal``
     (``gi_scale`` 2, one sample, the radiance cache, the room preset's
     ``shadow_scale`` 2), on the cells' kitchen at 1920x1080: four frames
-    from an empty history after the build, each one prep, one R and two M
+    from an empty history after the build, each one prep, one R, two M
     (the shadow rays of the ``shadow_scale`` subsample, the GI rays at GI
-    resolution) and no other kernel, every launch held on its own inputs,
-    each frame clean (:func:`_clean_frame`), and the history equal to the
-    frame count on at least 90% of the covered pixels.  Then
+    resolution) and one ``temporal_history`` and no other kernel, every
+    launch held on its own inputs, ``history.kernel_path`` counted once
+    for each frame under a recording, each frame clean
+    (:func:`_clean_frame`), and the history equal to the frame count on
+    at least 90% of the covered pixels.  Then
     ``render_flythrough(temporal=True, gi_scale=2)`` over a slow orbit of
     the Cornell box: finite colour, and the covered pixels' mean history
     above 1 by the third frame."""
@@ -2021,14 +2166,24 @@ def test_temporal_frame_launches():
     from vri_tpu_torch.hydra.camera import FreeCamera
     from vri_tpu_torch.passes import frame as frame_mod
     from vri_tpu_torch.renderer import Renderer
+    from vri_tpu_torch.runtime import profiler
 
     r = _cell_renderer("static")
     r.ensure_cascades(eye=r.camera.eye)
     state = frame_mod.init_temporal(1080, 1920, 2, device="cuda")
     for i in range(4):
-        (aovs, state), launches = _run_held(
-            lambda: r.render_temporal(state))
-        assert launches == dict(raster_prep=1, raster_tiles=1, march_rays=2)
+        profiler.start_recording()
+        try:
+            (aovs, state), launches = _run_held(
+                lambda: r.render_temporal(state))
+        finally:
+            spans = profiler.stop_recording()
+        assert launches == dict(raster_prep=1, raster_tiles=1, march_rays=2,
+                                temporal_history=1)
+        frames = {sp.frame for sp in spans if sp.name == "frame"}
+        paths = [c.frame for c in profiler.recorded_counts()
+                 if c.name == "history.kernel_path"]
+        assert len(frames) == 1 and paths == list(frames)
         _clean_frame(r, aovs)
         cov = aovs["instance_id"] >= 0
         kept = (aovs["gi_history"][cov] - (i + 1)).abs() <= 1e-3
@@ -2047,9 +2202,10 @@ def test_animated_playback_holds_kernels():
     ``Renderer.render_temporal(time_code=)`` at 1920x1080 and the room
     preset.  After the build, each of four codes runs the bounded update
     on the card (one ``sdf_update`` pipeline, one ``sdf_emit``), the
-    partial re-bake and the temporal frame: one prep, one R and three M
-    (the re-bake's shadow rays, the frame's shadow and GI rays) and no
-    other kernel, every R and M launch held on its own inputs; each frame
+    partial re-bake and the temporal frame: one prep, one R, three M (the
+    re-bake's shadow rays, the frame's shadow and GI rays) and one
+    ``temporal_history`` and no other kernel, every R, M and
+    ``temporal_history`` launch held on its own inputs; each frame
     "updated (1 dirty instances)" and clean (:func:`_clean_frame`)."""
     from vri_tpu_torch.passes import frame as frame_mod
 
@@ -2060,7 +2216,8 @@ def test_animated_playback_holds_kernels():
         (aovs, state), launches = _run_held(
             lambda: r.render_temporal(state, time_code=code))
         assert launches == dict(raster_prep=1, raster_tiles=1, march_rays=3,
-                                sdf_emit=1, sdf_update=1), code
+                                sdf_emit=1, sdf_update=1,
+                                temporal_history=1), code
         assert r.last_build_label == "updated (1 dirty instances)"
         _clean_frame(r, aovs)
 
@@ -2190,13 +2347,14 @@ def test_band_frames_hold_kernels(frame):
     """Bands of the kitchen fixture's frame, rows [64, 128) of 192, on
     cascades built around the room's center (the stage camera's focus
     leaves the moved prop outside the finest cascade): the temporal band
-    frame (``gi_scale`` 2) launches one R and two M, each held on its own
-    inputs, and its ids and depth (rtol 1e-5) differ from the same rows
-    of the full temporal frame on at most 0.5% of the pixels; the dynamic
-    band frame (the smallest prop moved by 0.03) re-emits bricks with one
-    ``sdf_update`` pipeline and one ``sdf_emit`` and launches one R and
-    three M (the re-bake's shadow rays, the band's shadow and GI rays),
-    each R and M held, and needs no rebuild."""
+    frame (``gi_scale`` 2) launches one R, two M and one
+    ``temporal_history``, each held on its own inputs, and its ids and
+    depth (rtol 1e-5) differ from the same rows of the full temporal frame
+    on at most 0.5% of the pixels; the dynamic band frame (the smallest
+    prop moved by 0.03) re-emits bricks with one ``sdf_update`` pipeline
+    and one ``sdf_emit`` and launches one R, three M (the re-bake's shadow
+    rays, the band's shadow and GI rays) and one ``temporal_history``,
+    each R, M and ``temporal_history`` held, and needs no rebuild."""
     from vri_tpu_torch.ops import sdf as sdf_mod
     from vri_tpu_torch.ops import sdf_build
     from vri_tpu_torch.passes import frame as frame_mod
@@ -2212,7 +2370,7 @@ def test_band_frames_hold_kernels(frame):
     (aovs, _), launches = _run_held(lambda: frame_mod.render_frame_gi_temporal(
         r.scene, fp, cas, frame_mod.init_temporal(band, w, 2, device="cuda"),
         height=band, band=(y0, full), generator=gen, **kw))
-    assert launches == dict(raster_tiles=1, march_rays=2)
+    assert launches == dict(raster_tiles=1, march_rays=2, temporal_history=1)
     whole, _ = frame_mod.render_frame_gi_temporal(
         r.scene, fp, cas, frame_mod.init_temporal(full, w, 2, device="cuda"),
         height=full, generator=gen, **kw)
@@ -2226,7 +2384,7 @@ def test_band_frames_hold_kernels(frame):
         frame_mod.init_temporal(band, w, 2, device="cuda"), *moved[1:],
         height=band, band=(y0, full), generator=gen, **kw))
     assert launches == dict(raster_tiles=1, march_rays=3, sdf_emit=1,
-                            sdf_update=1)
+                            sdf_update=1, temporal_history=1)
     assert int(out[3].emit_bricks.sum()) > 0 and int(out[4]) == 0
     assert bool(torch.isfinite(out[0]["color"]).all())
 

@@ -27,7 +27,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster_tiles.cu", "raster_ranged.cu", "raster_prep.cu",
            "march_rays.cu", "bvh_traverse.cu", "worklist.cu",
-           "worklist_grouped.cu", "sdf_emit.cu", "sdf_update.cu")
+           "worklist_grouped.cu", "sdf_emit.cu", "sdf_update.cu",
+           "temporal.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -69,6 +70,9 @@ _ENTRIES = {
     "vri_sdf_update_scratch": ("sdf_update.cu", [_P]),
     "vri_sdf_update_lists": ("sdf_update.cu", [_P, _P]),
     "vri_sdf_update_finish": ("sdf_update.cu", [_P, _P]),
+    "vri_temporal_history": ("temporal.cu",
+                             [_P, _L] + [_P] * 12 + [_I] * 7 + [_F, _F]
+                             + [_P] * 4),
 }
 
 _lib = None

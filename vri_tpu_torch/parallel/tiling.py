@@ -137,9 +137,10 @@ def _temporal_band(scene, frame, cascades, state: TemporalState,
     """The temporal band body: ``frame.gi_band_inputs`` on the rank's
     band, the history band extended by ``halo_rows`` ghost rows from the
     ring neighbours (fill 0 beyond the frame: count 0, which the taps
-    reject), the reprojection (taps in the band's coordinates, read
-    through the ghost rows: ``frame._reproject(halo=)``), the blend.
-    Returns (aovs, new state, the band's valid pixels)."""
+    reject), then ``frame.temporal_history(halo=)``: the reprojection
+    (taps in the band's coordinates, read through the ghost rows), the
+    blend and the compose.  Returns (aovs, new state, the band's valid
+    pixels)."""
     s = gi_scale
     band_h, y0 = _band(axis, height, s)
     if width % s:
@@ -151,25 +152,14 @@ def _temporal_band(scene, frame, cascades, state: TemporalState,
         backend=backend, samples=samples, use_cache=use_cache, gi_scale=s,
         y0=y0, proj_height=height, generator=gen, uniforms=uni)
     ext = halo_mod.exchange_halo_fill(state.data.reshape(hs, ws * 8), h,
-                                      axis, 0.0)
-    ext_state = TemporalState(data=ext.reshape((hs + 2 * h) * ws, 8),
-                              view_proj=state.view_proj, eye=state.eye)
-    h_ind, h_count = frame_mod._reproject(
-        ext_state, sub.position, sub.normal, valid_s, hs, ws,
+                                      axis, 0.0).reshape((hs + 2 * h) * ws, 8)
+    color, count_full, data = frame_mod.temporal_history(
+        ext, state.view_proj, state.eye, sub.position, sub.normal, valid_s,
+        ind, gb.depth, frame.eye, gb.emissive, gb.albedo, direct, gb.valid,
+        height=band_h, width=width, gi_scale=s, history_cap=history_cap,
         y0=axis.index * hs, proj_height=height // s, halo=h)
-    ind_blend_s, count = frame_mod.temporal_blend(ind, h_ind, h_count,
-                                                  history_cap)
-    if s > 1:
-        t_s = norm3(sub.position - frame.eye[None, :])
-        ind_blend = frame_mod._upsample(ind_blend_s, hs, ws, s)
-        count_full = frame_mod._upsample(count, hs, ws, s)
-    else:
-        t_s = gb.depth
-        ind_blend, count_full = ind_blend_s, count
-    new_state = frame_mod.pack_temporal(ind_blend_s, t_s, sub.normal, count,
-                                        frame.view_proj, frame.eye)
-    color = gb.emissive + gb.albedo * (direct + ind_blend)
-    color = torch.where(gb.valid[:, None], color, 0.0)
+    new_state = TemporalState(data=data, view_proj=frame.view_proj,
+                              eye=frame.eye)
     aovs = {"color": all_gather(color.reshape(band_h, width, 3), axis),
             "depth": all_gather(gb.depth.reshape(band_h, width), axis),
             "instance_id": all_gather(gb.instance.reshape(band_h, width),

@@ -495,13 +495,6 @@ def init_temporal(height: int, width: int, gi_scale: int = 1, *,
         eye=torch.zeros((3,), dtype=torch.float32, device=device))
 
 
-def pack_temporal(indirect, depth, normal, count, view_proj, eye
-                  ) -> TemporalState:
-    data = torch.cat([indirect, depth[:, None], normal, count[:, None]],
-                     dim=1)
-    return TemporalState(data=data, view_proj=view_proj, eye=eye)
-
-
 def _reproject(state: TemporalState, position, normal, valid, height: int,
                width: int, depth_tol: float = 0.02, y0: int = 0,
                proj_height: int | None = None, query_y0=0, halo: int = 0):
@@ -625,6 +618,112 @@ def temporal_blend(ind, h_ind, h_count, history_cap: float):
     return h_ind + (ind - h_ind) / count[:, None], count
 
 
+#: the temporal frame's depth tolerance for a history tap (relative, before
+#: the velocity widening)
+_DEPTH_TOL = 0.02
+
+
+def temporal_history_reference(data, view_proj, eye, position, normal,
+                               valid, ind, depth, new_eye, emissive, albedo,
+                               direct, full_valid, *, height: int,
+                               width: int, gi_scale: int = 1,
+                               history_cap: float = 16.0, y0: int = 0,
+                               proj_height: int | None = None,
+                               halo: int = 0):
+    """The temporal frame's ``history`` stage, the plain version: the
+    reprojected history fetch (:func:`_reproject` on the history ``data``
+    written with ``view_proj`` / ``eye``), the blend, the new history rows
+    and the compose.  ``position``, ``normal``, ``valid`` and ``ind`` are
+    the GI-resolution queries and their indirect sample; ``emissive``,
+    ``albedo``, ``direct`` and ``full_valid`` the ``height`` x ``width``
+    frame's, ``gi_scale`` times the GI resolution.  The new rows keep
+    ``depth`` (the G-buffer's) at ``gi_scale`` 1, else the distance to
+    ``new_eye``.  ``y0``, ``proj_height`` and ``halo`` are
+    :func:`_reproject`'s, in GI rows; ``data`` holds the history's rows and
+    ``halo`` ghost rows above and below them.  Returns (colour (H * W, 3),
+    each pixel's frame count (H * W,), the new history (N, 8))."""
+    s = gi_scale
+    hs, ws = height // s, width // s
+    state = TemporalState(data=data, view_proj=view_proj, eye=eye)
+    h_ind, h_count = _reproject(state, position, normal, valid,
+                                data.shape[0] // ws - 2 * halo, ws,
+                                depth_tol=_DEPTH_TOL, y0=y0,
+                                proj_height=proj_height, halo=halo)
+    ind_state, count = temporal_blend(ind, h_ind, h_count, history_cap)
+    if s > 1:
+        t_s = norm3(position - new_eye[None, :])
+        ind_blend = _upsample(ind_state, hs, ws, s)
+        count_full = _upsample(count, hs, ws, s)
+    else:
+        t_s, ind_blend, count_full = depth, ind_state, count
+    new = torch.cat([ind_state, t_s[:, None], normal, count[:, None]], dim=1)
+    color = emissive + albedo * (direct + ind_blend)
+    color = torch.where(full_valid[:, None], color, 0.0)
+    return color, count_full, new
+
+
+def temporal_history(data, view_proj, eye, position, normal, valid, ind,
+                     depth, new_eye, emissive, albedo, direct, full_valid, *,
+                     height: int, width: int, gi_scale: int = 1,
+                     history_cap: float = 16.0, y0: int = 0,
+                     proj_height: int | None = None, halo: int = 0):
+    """The ``history`` stage (:func:`temporal_history_reference`, the same
+    arguments and outputs): CUDA tensors launch ``csrc/temporal.cu``, one
+    thread a GI pixel, bit-equal to the plain version and with fresh
+    outputs (the incoming history is only read); CPU tensors run the plain
+    version.  ``temporal_history.launches`` counts the launches, and a
+    recording counts ``history.kernel_path`` once for each."""
+    from vri_tpu_torch import _cuda
+
+    kw = dict(height=height, width=width, gi_scale=gi_scale,
+              history_cap=history_cap, y0=y0, proj_height=proj_height,
+              halo=halo)
+    ins = (data, view_proj, eye, position, normal, valid, ind, depth,
+           new_eye, emissive, albedo, direct, full_valid)
+    if all(x.device.type == "cpu" for x in ins):
+        return temporal_history_reference(*ins, **kw)
+    dev = data.device
+    if not all(x.is_cuda and x.device == dev for x in ins):
+        raise ValueError("temporal_history: inputs must all be on one CUDA "
+                         "device (or all on the CPU)")
+    s = gi_scale
+    ws = width // s
+    n = position.shape[0]
+    if height % s or width % s or n != (height // s) * ws or \
+            data.shape[0] % ws or data.shape[1:] != (8,):
+        raise ValueError(f"temporal_history: {n} GI pixels and a "
+                         f"{tuple(data.shape)} history do not fit a "
+                         f"{height}x{width} frame at gi_scale {s}")
+    if any(x.dtype != (torch.bool if k in (5, 12) else torch.float32)
+           for k, x in enumerate(ins)):
+        raise ValueError("temporal_history: float32 inputs and bool masks")
+    (data, view_proj, eye, position, normal, valid, ind, depth, new_eye,
+     emissive, albedo, direct, full_valid) = (x.contiguous() for x in ins)
+    if data.data_ptr() % 16:
+        raise ValueError("temporal_history: the history must be 16-byte "
+                         "aligned")
+    hist_h = data.shape[0] // ws - 2 * halo
+    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    color = torch.empty((height * width, 3), dtype=torch.float32, device=dev)
+    count = torch.empty((height * width,), dtype=torch.float32, device=dev)
+    code = _cuda.library().vri_temporal_history(
+        data.data_ptr(), data.shape[0], view_proj.data_ptr(), eye.data_ptr(),
+        position.data_ptr(), normal.data_ptr(), valid.data_ptr(),
+        ind.data_ptr(), depth.data_ptr(), new_eye.data_ptr(),
+        emissive.data_ptr(), albedo.data_ptr(), direct.data_ptr(),
+        full_valid.data_ptr(), n, ws, data.shape[0] // ws, s, int(y0),
+        int(proj_height or hist_h), halo,
+        _DEPTH_TOL, history_cap, out.data_ptr(), color.data_ptr(),
+        count.data_ptr(), _cuda.stream_ptr(data))
+    _cuda.check(code, "temporal_history")
+    temporal_history.launches += 1
+    profiler.count("history.kernel_path", 1)
+    return color, count, out
+
+
+temporal_history.launches = 0
+
+
 @profiler.frame_root
 def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
                              cascades, state: TemporalState, *,
@@ -649,8 +748,8 @@ def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
     reprojects outside the band restarts.
 
     Each call is one ``frame`` root span over the stages of
-    :func:`gi_band_inputs` and ``history`` (reprojection, blend, pack,
-    upsample and the final compose)."""
+    :func:`gi_band_inputs` and ``history`` (:func:`temporal_history`:
+    reprojection, blend, the new history and the compose)."""
     y0, proj_h = band if band is not None else (0, None)
     hit, gb, direct, sub, valid_s, ind = gi_band_inputs(
         scene, frame, cascades, height=height, width=width, config=config,
@@ -658,31 +757,14 @@ def render_frame_gi_temporal(scene: SceneBuffers, frame: FrameParams,
         gi_scale=gi_scale, lod_tau=lod_tau, y0=y0, proj_height=proj_h,
         generator=generator, uniforms=uniforms)
     with profiler.span("history"):
-        if gi_scale <= 1:
-            h_ind, h_count = _reproject(state, gb.position, gb.normal,
-                                        gb.valid, height, width, y0=y0,
-                                        proj_height=proj_h)
-            ind_blend, count = temporal_blend(ind, h_ind, h_count,
-                                              history_cap)
-            ind_state, t_s, n_s = ind_blend, gb.depth, gb.normal
-            count_full = count
-        else:
-            hs, ws = height // gi_scale, width // gi_scale
-            h_ind, h_count = _reproject(
-                state, sub.position, sub.normal, valid_s, hs, ws,
-                y0=y0 // gi_scale,
-                proj_height=None if proj_h is None else proj_h // gi_scale)
-            ind_state, count = temporal_blend(ind, h_ind, h_count,
-                                              history_cap)
-            t_s = norm3(sub.position - frame.eye[None, :])
-            n_s = sub.normal
-            ind_blend = _upsample(ind_state, hs, ws, gi_scale)
-            count_full = _upsample(count, hs, ws, gi_scale)
-        new_state = pack_temporal(ind_state, t_s, n_s, count,
-                                  frame.view_proj, frame.eye)
-
-        color = gb.emissive + gb.albedo * (direct + ind_blend)
-        color = torch.where(gb.valid[:, None], color, 0.0)
+        color, count_full, data = temporal_history(
+            state.data, state.view_proj, state.eye, sub.position,
+            sub.normal, valid_s, ind, gb.depth, frame.eye, gb.emissive,
+            gb.albedo, direct, gb.valid, height=height, width=width,
+            gi_scale=gi_scale, history_cap=history_cap, y0=y0 // gi_scale,
+            proj_height=None if proj_h is None else proj_h // gi_scale)
+        new_state = TemporalState(data=data, view_proj=frame.view_proj,
+                                  eye=frame.eye)
         aovs = {
             "color": color.reshape(height, width, 3),
             "depth": gb.depth.reshape(height, width),
