@@ -31,6 +31,7 @@ renders the same frame with the plain versions, the two agree within the
 tolerances each test names.  On a host without a card every test skips.
 """
 
+import dataclasses
 import sys
 
 import numpy as np
@@ -2323,6 +2324,111 @@ def test_scroll_on_card_equals_a_fresh_build():
         sa = set(a[n, cell][a[n, cell] >= 0].tolist())
         sb = set(b[n, cell][b[n, cell] >= 0].tolist())
         assert sa <= sb or sb <= sa, (n, cell)
+
+
+#: the orbit cell's SDF settings: the room preset with the scroll's
+#: brick cap (``update_brick_cap``) raised
+ORBIT_SDF = dataclasses.replace(SDFConfig.preset("room"),
+                                update_brick_cap=16384)
+
+
+def test_orbit_playback_holds_kernels():
+    """The orbit cell's camera path (``kitchen49k.gi_orbit``): the cells'
+    kitchen through ``Renderer.render_temporal(camera=)`` at 1920x1080 and
+    the room preset, built at the orbit's first camera, then 12 frames
+    along it (0.0838 m a frame), which scroll cascades 0 and 1.  Each
+    frame: one prep, one R, two M (the frame's shadow and GI rays) and a
+    third where the frame scrolled (the bake after it), one
+    ``temporal_history``, no ``sdf_update``, and one ``sdf_emit`` for each
+    cascade axis that moved a cell and had bricks to emit (the entering
+    cells and the edge layers beside them, one emit); every launch held on
+    its own inputs, ``history.kernel_path`` counted once, no scroll fallen
+    back to a build (``sdf_scroll.rebuilds``), each cascade's center that
+    of the frame's focus, the frame clean (:func:`_clean_frame`).  At the
+    end the cascades match a fresh build at their centers: occupancy, ESD
+    and albedo equal, the atlas within one u8 step (surviving bricks keep
+    texels emitted at an older origin) on all but 1e-4 of the occupied
+    voxels (the emit's top-k breaks equal distances by candidate order,
+    which bricks a scroll keeps emitted from earlier lists: one voxel of
+    121,080 on this path on an H100), and each cell list nesting in the
+    fresh build's or holding it."""
+    from vri_tpu_torch.hydra.camera import FreeCamera
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.passes import frame as frame_mod
+    from vri_tpu_torch.registry import bake_world
+    from vri_tpu_torch.renderer import Renderer
+    from vri_tpu_torch.runtime import profiler
+
+    _card()
+    # the orbit cell's SDF (perfbench/configs/kitchen49k-orbit-room-1080p
+    # .json): the room preset, the scroll's bricks past the update's cap
+    r = Renderer(RenderConfig(width=1920, height=1080, sdf=ORBIT_SDF),
+                 device="cuda")
+    r.load_stage(CELL_STAGES["static"]())
+    orbit = FreeCamera(center=(0.0, 0.6, 0.0), radius=3.2, height=1.8,
+                       fov_y_deg=55.0, far=200.0)
+    cams = [orbit.at_time(1.0 + n / 30.0, 1920 / 1080) for n in range(13)]
+    r.ensure_cascades(eye=cams[0].eye)
+    start = r._centers.clone()
+    state = frame_mod.init_temporal(1080, 1920, 2, device="cuda")
+    scrolls = []
+    for cam in cams[1:]:
+        before = r._centers.clone()
+        profiler.start_recording()
+        try:
+            (aovs, state), launches = _run_held(
+                lambda: r.render_temporal(state, camera=cam))
+        finally:
+            spans = profiler.stop_recording()
+        recorded = profiler.recorded_counts()
+        counts = {}
+        for c in recorded:
+            counts[c.name] = counts.get(c.name, 0) + c.value
+        axes = int((r._centers != before).sum())
+        emits = [c.value for c in recorded if c.name == "sdf_scroll.bricks"]
+        print(f"{axes} axes scrolled, bricks an emit {emits}, {launches}")
+        assert len(emits) == axes
+        want = dict(raster_prep=1, raster_tiles=1,
+                    march_rays=2 + (axes > 0), temporal_history=1)
+        if any(emits):
+            want["sdf_emit"] = sum(e > 0 for e in emits)
+        assert launches == want, (launches, emits)
+        frames = {sp.frame for sp in spans if sp.name == "frame"}
+        paths = [c.frame for c in recorded if c.name == "history.kernel_path"]
+        assert len(frames) == 1 and paths == list(frames)
+        assert counts.get("sdf_scroll.rebuilds", 0) == 0, counts
+        assert not r.last_build_label.startswith("rebuilt")
+        cfg = r._sdf_cfg_effective or r.config.sdf
+        assert torch.equal(r._centers, sdf_mod.default_centers(
+            cfg, r._focus(cam.eye), device="cpu"))
+        assert torch.equal(r.cascades.center.cpu(), r._centers)
+        _clean_frame(r, aovs)
+        scrolls.append(launches.get("sdf_emit", 0))
+    moved = (r._centers != start).any(-1)
+    print(f"emit launches a frame {scrolls}; cascades moved "
+          f"{moved.int().tolist()}")
+    assert bool(moved[0]) and bool(moved[1])
+    sc = r.scene
+    ref, ref_st = sdf_build.build_for_scene(sc, bake_world(sc),
+                                            r.cascades.center, cfg)
+    assert int(ref_st.list_overflow) == 0
+    ba, bb = r.cascades.brick_map.reshape(-1), ref.brick_map.reshape(-1)
+    occ = ba >= 0
+    assert torch.equal(occ, bb >= 0)
+    assert torch.equal(torch.where(occ, 0, ba), torch.where(occ, 0, bb))
+    ia, ib = ba[occ].long(), bb[occ].long()
+    assert torch.equal(r.cascades.brick_albedo[ia], ref.brick_albedo[ib])
+    steps = (r.cascades.atlas[ia].float() - ref.atlas[ib].float()).abs()
+    past = int((steps.reshape(ia.shape[0], -1).max(1).values > 1).sum())
+    print(f"{past} of {ia.shape[0]} voxels past one u8 step")
+    assert past <= 1e-4 * ia.shape[0]
+    a, b = r._build_state.cell_tris, ref_st.cell_tris
+    cells = (a != b).any(-1).nonzero()
+    a, b = (x[cells[:, 0], cells[:, 1]].cpu() for x in (a, b))
+    for sa, sb in zip(a, b):
+        sa, sb = set(sa[sa >= 0].tolist()), set(sb[sb >= 0].tolist())
+        assert sa <= sb or sb <= sa
 
 
 def _moved_smallest(scene, off):

@@ -32,6 +32,12 @@ cases do, and marches shadow rays with K3 interpreted
   port's own full bake of the updated cascades, irradiance, visibility
   and ``voxel_shade`` bit-equal (every point's march is independent of
   the others).
+* The port's scroll also re-emits the surviving cells beside the moved
+  window edges, which the JAX package's keeps as they were emitted from
+  the old window's candidates; it runs with ``update_cell_cap`` raised to
+  hold them.  Against the JAX scroll every field above is exactly equal
+  but for those bricks' ``emit_bricks``, atlas, albedo, emissive and
+  normal, which equal a fresh port build's at the new centers per voxel.
 * The port's update against the port's own full build at the moved
   vertices: voxel-equal (occupancy, ESD, atlas and albedo per voxel) with
   equal march tables.  The scroll against a fresh port build at the new
@@ -85,6 +91,9 @@ EXACT = ("brick_map", "alive", "brick_voxel", "num_bricks", "overflow",
          "near_drop", "cell_tris", "cell_count", "glob_tris",
          "list_overflow", "emit_bricks", "atlas", "brick_albedo",
          "brick_emissive", "brick_normal", "march_coarse")
+#: per-brick fields the port's scroll re-emits in the edge layers
+EDGE_FIELDS = ("emit_bricks", "atlas", "brick_albedo", "brick_emissive",
+               "brick_normal")
 
 
 def _jax_scene():
@@ -243,17 +252,41 @@ def sides(tmp_path_factory):
     got["tiny"] = tbuild.update_for_scene(cas0, st0, ts, *args, tiny)[2]
     c1 = tsdf.default_centers(TCFG, SCROLL_TO, device="cpu")
     scrolled = tuple(bool(x) for x in case("scroll")["scrolled"])
-    got["scroll"] = tbuild.scroll_for_scene(
-        cas0, st0, ts, torch.as_tensor(world), c1, scrolled, TCFG)
-    gray = case("gray")
     tw = torch.as_tensor(world)
+    # the port's scroll also re-emits the surviving cells beside the moved
+    # window edges, past the JAX package's update_cell_cap on this
+    # two-cascade, two-axis move
+    wide = dataclasses.replace(TCFG, update_cell_cap=2 * 4096)
+    got["scroll"] = tbuild.scroll_for_scene(cas0, st0, ts, tw, c1, scrolled,
+                                            wide)
+    got["fresh"] = tbuild.build_for_scene(ts, tw, c1, TCFG)
+    got["edges"] = _edge_bricks(got["scroll"][0], cas0.center)
+    gray = case("gray")
     got["scroll_gray"] = tbuild.scroll_cascades(
         tsdf.cascades_from_numpy(gray, "cpu"),
         tsdf.build_state_from_numpy(gray, "cpu"), c1, tw, ts.tri_vertices,
-        ts.num_faces, config=TCFG, scrolled=scrolled)
+        ts.num_faces, config=wide, scrolled=scrolled)
     got["fresh_gray"] = tbuild.build_cascades_binned(
         tw, ts.tri_vertices, ts.num_faces, c1, config=TCFG)
     return ref, case, got
+
+
+def _edge_bricks(cas, old_centers) -> torch.Tensor:
+    """(max_bricks,) bool: the live bricks of the scrolled cascades ``cas``
+    in the surviving cells beside a window edge the scroll from
+    ``old_centers`` moved (``sdf_build._edge_cells``), which the port's
+    scroll re-emits and the JAX package's keeps."""
+    r = TCFG.cascade_resolution
+    s = r // 16
+    cw = cas.voxel_size * s
+    dc = torch.round((cas.center - old_centers) / cw[:, None]).long()
+    edge = torch.stack([tbuild._edge_cells(d.tolist(), "cpu") for d in dc])
+    bv = cas.brick_voxel.long()
+    rem = bv % r ** 3
+    z, y, x = rem // (r * r) // s, rem // r % r // s, rem % r // s
+    slots = torch.arange(bv.shape[0], dtype=torch.int32)
+    return edge[bv // r ** 3, z, y, x] & (cas.brick_map.reshape(-1)[bv]
+                                          == slots)
 
 
 def _field(cas, st, name):
@@ -268,12 +301,15 @@ def test_path_matches_reference_exactly(sides, path, name):
     ref = case(path)
     cas, st, _ = got[path]
     want = ref[name]
-    have = _field(cas, st, name)
+    have = _field(cas, st, name).reshape(want.shape)
     if name == "emit_bricks":
         print(f"{path}: {int(want.sum())} bricks re-emitted, "
               f"{int(ref['num_bricks'])} live")
-    np.testing.assert_array_equal(have.reshape(want.shape), want,
-                                  err_msg=f"{path} {name}")
+    if path == "scroll" and name in EDGE_FIELDS:
+        # the edge layers' bricks: test_scroll_edge_layers_match_fresh_build
+        keep = ~got["edges"].numpy()
+        have, want = have[keep], want[keep]
+    np.testing.assert_array_equal(have, want, err_msg=f"{path} {name}")
 
 
 @pytest.mark.parametrize("path", ["update", "scroll", "tiny"])
@@ -381,3 +417,25 @@ def test_scroll_matches_port_fresh_build(sides):
             assert sa <= sb or sb <= sa, (n, cell, sa, sb)
     print(f"scroll: {differ} cell lists differ from the fresh build's, "
           "each nesting")
+
+
+def test_scroll_edge_layers_match_fresh_build(sides):
+    """The bricks the port's scroll re-emits beside the moved window edges
+    (and the JAX package's keeps): each voxel's atlas, albedo, emissive
+    and normal equal the port's fresh build's at the new centers."""
+    _, _, got = sides
+    cas, st, _ = got["scroll"]
+    ref, _ = got["fresh"]
+    edge = got["edges"]
+    emitted = st.emit_bricks
+    print(f"scroll: {int(edge.sum())} edge-layer bricks, "
+          f"{int(emitted.sum())} emitted")
+    assert int(edge.sum()) > 0 and bool(emitted[edge].all())
+    vox = cas.brick_voxel[edge].long()
+    ids = ref.brick_map.reshape(-1)[vox].long()
+    assert bool((ids >= 0).all())
+    for f in ("atlas", "brick_albedo", "brick_emissive", "brick_normal"):
+        a, b = getattr(cas, f)[edge], getattr(ref, f)[ids]
+        print(f"{f}: {int((a != b).reshape(a.shape[0], -1).any(1).sum())} "
+              "bricks differ")
+        assert torch.equal(a, b), f

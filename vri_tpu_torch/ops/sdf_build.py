@@ -22,11 +22,12 @@ Because the work is per cell, updates are bounded: ``update_cascades``
 re-bins only the cells the dirty instances' boxes touch, re-allocates
 bricks through a free-slot pool and re-emits only the bricks within reach
 of the changed geometry; ``scroll_cascades`` recenters a cascade by
-shifting its maps a whole cell at a time and treats the entering cells as
-dirty.  Where the JAX package keeps the first ``cap`` hits of a
-fixed-size ``nonzero`` and counts the rest, the port takes the hits in
-the same index order, keeps as many and counts the rest the same way; a
-capacity breach makes ``needs_full`` non-zero and the caller rebuilds.
+shifting its maps a whole cell at a time and treats the entering cells,
+and the surviving cells beside the moved window edges, as dirty.  Where
+the JAX package keeps the first ``cap`` hits of a fixed-size ``nonzero``
+and counts the rest, the port takes the hits in the same index order,
+keeps as many and counts the rest the same way; a capacity breach makes
+``needs_full`` non-zero and the caller rebuilds.
 On the card the update is one pipeline of kernels on those fixed
 capacities (``csrc/sdf_update.cu``), with no host sync; the plain
 version, which the CPU runs, works on live lengths and reads each size
@@ -37,8 +38,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
+import torch.nn.functional as F
 
 from vri_tpu_torch.config import SDFConfig
 from vri_tpu_torch.ops import geometry
@@ -786,13 +789,15 @@ def _cell_meta(cell_ids, origins, vs, r):
 def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
                        new_tris, new_count, tris, table, origins, vs,
                        config: SDFConfig, dirty_lo=None, dirty_hi=None,
-                       axis_name: tuple | None = None):
+                       axis_name: tuple | None = None,
+                       count: str = "sdf_update.bricks"):
     """Shared bounded-update core: install the new lists of ``cell_ids``
     (global cell ids (C,), every one live), diff the cells' occupancy,
     re-allocate bricks through the free-slot pool, re-emit the affected
     bricks and refresh the ESD and the march tables.  ``dirty_lo/hi``
     (D, 3), when given, trim the re-emit set to the voxels within reach
-    of the changed geometry.  Returns (cascades, state, emit_overflow).
+    of the changed geometry.  The re-emitted bricks are counted under
+    ``count``.  Returns (cascades, state, emit_overflow).
 
     The JAX function pads the cells to ``update_cell_cap`` and the emit
     set to ``update_brick_cap``; pad lanes change nothing, so the port
@@ -888,7 +893,7 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
     else:
         ebrick, (blocks, albs, emis, nrms, near_drop) = _emit_share(
             elist, axis_name, brick_voxel, state, origins, vs, tris, config)
-    profiler.count("sdf_update.bricks", ebrick.shape[0])
+    profiler.count(count, ebrick.shape[0])
     atlas = cascades.atlas.clone()
     atlas[ebrick] = blocks
     brick_albedo = cascades.brick_albedo.clone()
@@ -1303,6 +1308,26 @@ def _roll3(grid, d, fill):
     return out, entering
 
 
+def _edge_cells(dc, device) -> torch.Tensor:
+    """(16, 16, 16) bool (z, y, x): the surviving cells of a window shifted
+    by ``dc`` cells (xyz) within one cell of a cell position that entered
+    or left it.  A brick's emit reads the lists of its cell's 27
+    neighbours that lie in the window, so a fresh build at the new window
+    emits these cells' bricks from other candidates than they were
+    emitted from: the layer behind the entering cells and the new edge
+    facing the cells that left.  No cell for an unshifted window."""
+    ar = torch.arange(-1, 17, device=device)
+    z, y, x = torch.meshgrid(ar, ar, ar, indexing="ij")
+
+    def inside(ox, oy, oz):
+        return ((x + ox >= 0) & (x + ox < 16) & (y + oy >= 0)
+                & (y + oy < 16) & (z + oz >= 0) & (z + oz < 16))
+    kept = inside(*dc)
+    moved = (inside(0, 0, 0) != kept).float()[None, None]
+    near = F.max_pool3d(moved, 3, stride=1)[0, 0] > 0
+    return near & kept[1:17, 1:17, 1:17]
+
+
 def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
                     world_verts, tri_vertices, num_faces, *, tri_albedo=None,
                     tri_emissive=None, config: SDFConfig, scrolled: tuple):
@@ -1310,8 +1335,14 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
     reusing every surviving brick.  ``new_centers`` must be snapped to
     whole cells (s voxels) per cascade.  Surviving bricks keep their atlas
     content (world voxel positions are absolute, only the map window
-    moves); only the entering slab re-bins and re-emits.  Returns
-    (cascades, state, needs_full)."""
+    moves); the entering slab re-bins and re-emits, and so do the
+    surviving cells beside each moved edge (:func:`_edge_cells`), whose
+    bricks were emitted from the old window's candidates: the JAX
+    package's scroll re-emits the entering slab only, and its cascades
+    then differ from a fresh build at the new centers there.  Under a
+    recording it counts the entering cells (``sdf_scroll.cells``) and the
+    bricks it emits (``sdf_scroll.bricks``).  Returns (cascades, state,
+    needs_full)."""
     n_cas = config.num_cascades
     r = config.cascade_resolution
     s = r // 16
@@ -1337,7 +1368,8 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
     cell_tris = state.cell_tris.clone()
     cell_count = state.cell_count.clone()
     cell_rows = state.cell_rows.reshape(n_cas, 4096, K, ROW).clone()
-    entering = torch.zeros((n_cas, 4096), dtype=torch.bool, device=dev)
+    dirty = torch.zeros((n_cas, 4096), dtype=torch.bool, device=dev)
+    n_entering = 0
     needs_full = torch.zeros((), dtype=torch.int64, device=dev)
     for n in range(n_cas):
         if not scrolled[n]:
@@ -1366,7 +1398,8 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
                                0)[0].reshape(4096)
         cell_rows[n] = _roll3(cell_rows[n].reshape(16, 16, 16, K, ROW), dc,
                               0.0)[0].reshape(4096, K, ROW)
-        entering[n] = ent.reshape(4096)
+        dirty[n] = (ent | _edge_cells(dc, dev)).reshape(4096)
+        n_entering += 4096 - math.prod(16 - min(abs(k), 16) for k in dc)
 
     state = dataclasses.replace(
         state, cell_tris=cell_tris, cell_count=cell_count,
@@ -1374,8 +1407,8 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
     cascades = cascades.replace(center=new_centers, brick_map=brick_map,
                                 brick_voxel=brick_voxel)
 
-    # a fresh bin at the new origin gives the entering cells' lists and
-    # the global lists of each scrolled cascade
+    # a fresh bin at the new origin gives the dirty cells' lists and the
+    # global lists of each scrolled cascade
     glob_tris = state.glob_tris.clone()
     fresh = {}
     list_overflow = state.list_overflow
@@ -1393,8 +1426,9 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
         state, glob_tris=glob_tris, list_overflow=list_overflow,
         glob_rows=_rows_from_lists(glob_tris, table))
 
-    cell_ids, over = _first(entering.reshape(-1), config.update_cell_cap)
+    cell_ids, over = _first(dirty.reshape(-1), config.update_cell_cap)
     needs_full = needs_full + over
+    profiler.count("sdf_scroll.cells", n_entering)
     cid = cell_ids.long()
     new_tris = torch.full((cid.shape[0], K), -1, dtype=torch.int32,
                           device=dev)
@@ -1407,5 +1441,6 @@ def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
     cascades, state, emit_overflow = _apply_dirty_cells(
         cascades, state, cid, new_tris, new_count,
         (a, b, c, valid, tri_albedo, tri_emissive, tri_n), table,
-        new_origins, vs, config)
+        new_origins, vs, config, count="sdf_scroll.bricks")
     return cascades, state, needs_full + emit_overflow
+

@@ -8,9 +8,10 @@ cannot hold; then the radiance bake), saves and loads the synced scene
 as a scene cache, and renders GI frames, direct-only frames with
 ``gi=False``, SDF debug views, frames at a stage time code, temporal
 flythroughs and the production temporal frame of a static or animated
-stage with its history on the device (``render_temporal``) on ``device``
-(the CUDA card unless the caller asks for the CPU).  GI samples come from a ``torch.Generator`` seeded with the frame
-index.
+stage, from its camera or a moving one, with its history on the device
+(``render_temporal``) on ``device`` (the CUDA card unless the caller asks
+for the CPU).  GI samples come from a ``torch.Generator`` seeded with the
+frame index.
 
 The raster overflow ladder is the reference's: an overflowed frame makes
 later frames use 2x, then 4x list capacities, and after an overflow at
@@ -57,13 +58,16 @@ class Renderer:
         self._build_state = None
         self._sdf_cfg_effective = None
         self._cascade_focus = None
+        #: the cascades' centers on the host (None before the first build)
+        self._centers: torch.Tensor | None = None
+        #: (scene version, lo, hi): the scene's instance bounds on the host
+        self._bounds = None
         self._scene_version = -1
         self._sync_count = 0
         self.frame_index = 0
         #: wall milliseconds of the last cascade build, update or scroll
         #: with its bake, and which of them it was ("rebuilt", "rebuilt
-        #: (dense)", "updated (n dirty instances)", "scrolled n cascades",
-        #: "unchanged center")
+        #: (dense)", "updated (n dirty instances)", "scrolled n cascades")
         self.last_build_ms: float | None = None
         self.last_build_label: str | None = None
         # list-raster overflow escalation: 1 -> 2x -> 4x list capacities
@@ -113,16 +117,17 @@ class Renderer:
     # -- SDF cascades -----------------------------------------------------------
 
     def ensure_cascades(self, eye=None, focus=None, force: bool = False):
-        """Bring the cascades up to date when geometry changed or the focus
-        moved more than one coarse voxel, then bake the radiance.  A
-        transforms-only edit of at most 32 instances runs the bounded
-        ``sdf_build.update_cascades`` over the dirty cells; a moved focus
-        on an unchanged scene runs ``sdf_build.scroll_cascades``, which
-        keeps every surviving brick; anything else, or a capacity breach
-        of either (``needs_full``), is a full build with list caps scaled
-        to the measured demand.  A configuration the cell binning cannot
-        hold (``sdf_build.supports``) takes the dense build, and without
-        its build state every later change rebuilds."""
+        """Bring the cascades up to date when geometry changed or some
+        cascade's center for the focus moved (:meth:`_moved`), then bake
+        the radiance.  A transforms-only edit of at most 32 instances runs
+        the bounded ``sdf_build.update_cascades`` over the dirty cells; a
+        moved focus on an unchanged scene scrolls each moved cascade
+        (:meth:`_try_scroll`), which keeps every surviving brick; anything
+        else, or a capacity breach of either (``needs_full``), is a full
+        build with list caps scaled to the measured demand.  A
+        configuration the cell binning cannot hold (``sdf_build.supports``)
+        takes the dense build, and without its build state every later
+        change rebuilds."""
         if self.scene is None:
             raise RuntimeError("load_stage() first")
         cfg = self._sdf_cfg_effective or self.config.sdf
@@ -175,6 +180,7 @@ class Renderer:
                 alive=None if state is None else state.alive)
         self._build_state = state
         self._cascade_focus = focus
+        self._centers = self.cascades.center.cpu()
         self._scene_version = self._sync_count
         list_ov = 0 if state is None else int(state.list_overflow)
         self.last_build_ms = 1e3 * (time.perf_counter() - t0)
@@ -190,21 +196,28 @@ class Renderer:
 
     def _focus(self, eye=None) -> np.ndarray:
         """The cascades' focus for ``eye`` (the camera's by default): the
-        eye clamped into the scene's AABB."""
+        eye clamped into the scene's AABB (read to the host once a scene
+        version)."""
         if eye is None:
             eye = (self.camera.eye if self.camera is not None
                    else np.zeros(3, np.float32))
-        ni = max(int(self.scene.num_instances), 1)
-        lo = self.scene.instance_aabb_lo[:ni].cpu().numpy().min(0)
-        hi = self.scene.instance_aabb_hi[:ni].cpu().numpy().max(0)
+        if self._bounds is None or self._bounds[0] != self._sync_count:
+            ni = max(int(self.scene.num_instances), 1)
+            self._bounds = (
+                self._sync_count,
+                self.scene.instance_aabb_lo[:ni].cpu().numpy().min(0),
+                self.scene.instance_aabb_hi[:ni].cpu().numpy().max(0))
+        _, lo, hi = self._bounds
         return np.clip(np.asarray(eye, np.float32), lo, hi)
 
     def _moved(self, focus, cfg) -> bool:
-        """Whether ``focus`` left the cascades' focus by more than one
-        coarse voxel (or no cascades were built)."""
-        coarse = cfg.voxel_size(cfg.num_cascades - 1)
-        return (self._cascade_focus is None
-                or np.abs(focus - self._cascade_focus).max() > coarse)
+        """Whether some cascade's center for ``focus`` (``sdf.
+        default_centers``: each cascade snapped to its own cells) differs
+        from the cascades' (or no cascades were built): the clipmap
+        follows the focus a cell at a time."""
+        return self._centers is None or not torch.equal(
+            sdf_mod.default_centers(cfg, focus, device="cpu"),
+            self._centers)
 
     def _transforms_update(self, moved: bool):
         """The registry's last update when the bounded SDF update can
@@ -256,20 +269,31 @@ class Renderer:
                 f"updated ({len(upd['dirty_instances'])} dirty instances)")
 
     def _try_scroll(self, scene_b, world, focus, cfg):
-        """Clipmap scroll to the focus's centers; None when a capacity
-        overflowed."""
-        new_centers = sdf_mod.default_centers(cfg, focus, device=self.device)
-        delta = (new_centers - self.cascades.center).cpu().numpy()
-        scrolled = tuple(bool(np.any(d != 0.0)) for d in delta)
-        if not any(scrolled):
-            return self.cascades, self._build_state, "unchanged center"
-        cascades, state, needs_full = sdf_build.scroll_for_scene(
-            self.cascades, self._build_state, scene_b, world, new_centers,
-            scrolled, cfg)
-        if int(needs_full):
-            log.info("SDF scroll overflowed; full rebuild")
-            return None
-        return cascades, state, f"scrolled {sum(scrolled)} cascades"
+        """Clipmap scroll to the focus's centers, one cascade and one axis
+        at a time so that each scroll's cells (the entering slab and the
+        layers beside the moved edges) fit ``update_cell_cap``, under the
+        span ``sdf_scroll``.  Returns (cascades, state, label), or None
+        when a scroll breached a capacity: the caller rebuilds, counted
+        under ``sdf_scroll.rebuilds``."""
+        n_cas = cfg.num_cascades
+        new = sdf_mod.default_centers(cfg, focus, device="cpu")
+        now = self._centers.clone()
+        moved = [n for n in range(n_cas) if not torch.equal(new[n], now[n])]
+        cascades, state = self.cascades, self._build_state
+        with profiler.span("sdf_scroll"):
+            for n, k in ((n, k) for n in moved for k in range(3)):
+                if new[n, k] == now[n, k]:
+                    continue
+                now = now.clone()
+                now[n, k] = new[n, k]
+                cascades, state, needs_full = sdf_build.scroll_for_scene(
+                    cascades, state, scene_b, world, now.to(self.device),
+                    tuple(i == n for i in range(n_cas)), cfg)
+                if int(needs_full):
+                    log.info("SDF scroll overflowed; full rebuild")
+                    profiler.count("sdf_scroll.rebuilds", 1)
+                    return None
+        return cascades, state, f"scrolled {len(moved)} cascades"
 
     @property
     def list_overflow(self) -> int:
@@ -339,14 +363,17 @@ class Renderer:
 
     @profiler.frame_root
     def render_temporal(self, state: frame_mod.TemporalState, *,
+                        camera: Optional[CameraState] = None,
                         time_code: float | None = None,
                         uniforms: torch.Tensor | None = None,
                         samples: int = 1, gi_scale: int = 2,
                         history_cap: float = 16.0,
                         backend: str = "raster"):
-        """One production temporal GI frame from the stage's camera, with
-        the history ``state`` kept on the device (``frame.init_temporal``
-        starts one).  Returns (aovs, new_state).
+        """One production temporal GI frame from ``camera`` (a viewer's
+        free camera, a per-frame input and no scene edit: it never makes
+        the cascades stale) or else the stage's camera, with the history
+        ``state`` kept on the device (``frame.init_temporal`` starts one).
+        Returns (aovs, new_state).
 
         ``time_code`` first syncs the stage at that time (the
         ``scene_sync`` span).  After a sync that moved the transforms of at
@@ -359,7 +386,10 @@ class Renderer:
         ``frame.render_frame_gi_temporal`` on the cascades as they are;
         anything else (a first frame, a moved focus, a geometry edit, a
         stage with LOD chains) first brings the cascades up to date with
-        :meth:`ensure_cascades`.  When the update breaches a capacity
+        :meth:`ensure_cascades`: a camera that moved some cascade's
+        snapped center scrolls those cascades and bakes the radiance
+        again, so each cascade stays centered on the camera a cell at a
+        time.  When the update breaches a capacity
         (``needs_full``, read once a frame) the cascades are rebuilt before
         the call returns.  ``aovs["frame_faults"]`` is a device scalar,
         the raster's overflowed tiles plus ``needs_full``: a frame with
@@ -371,7 +401,7 @@ class Renderer:
         if time_code is not None:
             with profiler.span("scene_sync"):
                 self.sync(time_code=time_code)
-        cam = self.camera
+        cam = camera or self.camera
         if cam is None:
             raise RuntimeError("no camera")
         h, w = self.config.height, self.config.width
@@ -386,8 +416,8 @@ class Renderer:
                   history_cap=history_cap, lod_tau=self.config.lod_tau,
                   generator=gen, uniforms=uniforms)
         cfg = self._sdf_cfg_effective or self.config.sdf
-        moved = self.cascades is None or self._moved(self._focus(cam.eye),
-                                                     cfg)
+        focus = self._focus(cam.eye)
+        moved = self.cascades is None or self._moved(focus, cfg)
         upd = self._transforms_update(moved)
         needs_full = None
         if upd is not None and self.scene.base_view() is self.scene:
@@ -398,14 +428,14 @@ class Renderer:
             needs_full = update[-1]
             done = self._adopt_update(upd, *update)
             if done is None:
-                self.ensure_cascades(eye=cam.eye, force=True)
+                self.ensure_cascades(focus=focus, force=True)
             else:
                 self.cascades, self._build_state, self.last_build_label = \
                     done
                 self._scene_version = self._sync_count
         else:
             if moved or self._scene_version != self._sync_count:
-                self.ensure_cascades(eye=cam.eye)
+                self.ensure_cascades(focus=focus)
             aovs, state = frame_mod.render_frame_gi_temporal(
                 self.scene, fp, self.cascades, state,
                 config=self.config.sdf, **kw)
@@ -438,11 +468,11 @@ class Renderer:
                           backend: str = "raster", temporal: bool = False,
                           gi_scale: int = 1, samples: int = 1) -> list:
         """Frames along a scripted camera path (``free_cam.at_time(i *
-        dt)``), as numpy AOV dicts.  ``temporal=True`` accumulates the GI
-        through the reprojected history
-        (``frame.render_frame_gi_temporal``), so reduced per-frame ray
-        budgets (``gi_scale=2``, ``samples=1``) converge like a
-        many-sample accumulation."""
+        dt)``), as numpy AOV dicts.  ``temporal=True`` renders each through
+        :meth:`render_temporal` from that camera, accumulating the GI
+        through the reprojected history, so reduced per-frame ray budgets
+        (``gi_scale=2``, ``samples=1``) converge like a many-sample
+        accumulation."""
         aspect = self.config.width / self.config.height
         h, w = self.config.height, self.config.width
         frames = []
@@ -454,15 +484,8 @@ class Renderer:
                 frames.append(self.render(camera=cam, gi=gi, backend=backend,
                                           gi_scale=gi_scale, samples=samples))
                 continue
-            cascades = self.ensure_cascades(eye=cam.eye)
-            fp = frame_mod.FrameParams.from_camera(cam, h, device=self.device)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.frame_index)
-            self.frame_index += 1
-            aovs, state = frame_mod.render_frame_gi_temporal(
-                self.scene, fp, cascades, state, height=h, width=w,
-                config=self.config.sdf, backend=backend, samples=samples,
-                use_cache=True, gi_scale=gi_scale,
-                lod_tau=self.config.lod_tau, generator=gen)
+            aovs, state = self.render_temporal(
+                state, camera=cam, samples=samples, gi_scale=gi_scale,
+                backend=backend)
             frames.append({k: v.cpu().numpy() for k, v in aovs.items()})
         return frames
