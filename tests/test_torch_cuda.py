@@ -10,12 +10,14 @@ tables) with the port itself, run one kernel (raster_tiles,
 raster_ranged, march_rays, bvh_traverse, the work-list kernels
 template_walk, setup_walk and grouped_step, the sorted tier's prep
 raster_prep, the SDF emit sdf_emit, the bounded update's pipeline
-sdf_update, the temporal frame's history stage temporal_history) on CUDA
-tensors and its plain version on the same tensors,
+sdf_update, the clipmap scroll's pipeline sdf_scroll, the temporal frame's
+history stage temporal_history) on CUDA tensors and its plain version on
+the same tensors,
 and require exact equality: the kernels are built with -fmad=false and
 follow their plain versions' operation order, so every output agrees bit
 for bit (also raster_ranged's per-tile tested pairs and bvh_traverse's
-visit counts); the prep, the emit and the update also with no host sync.
+visit counts); the prep, the emit, the update and the scroll also with no
+host sync.
 
 The frame tests run the program -- ``Renderer.render`` through every
 raster tier, the BVH and three SDF presets, the direct-only frame, the
@@ -25,8 +27,9 @@ and SDF preset, bands, the city at 1.35M faces, the update
 and the scroll against a rebuild, the scene cache, the app, and the
 sharded frames over one ``nccl`` rank and over four ``gloo`` ranks
 sharing the card -- with every kernel launch counted and each launch of
-R, K6, M, bvh_traverse and temporal_history held bit-equal to its plain
-version on that launch's own inputs (:func:`_run_held`); where the CPU
+R, K6, M, bvh_traverse, temporal_history and the scroll's pipeline held
+bit-equal to its plain version on that launch's own inputs
+(:func:`_run_held`); where the CPU
 renders the same frame with the plain versions, the two agree within the
 tolerances each test names.  On a host without a card every test skips.
 """
@@ -1627,6 +1630,104 @@ def test_sdf_update_matches_plain_version(case):
     assert hit > 0, case
 
 
+#: case -> (config changes, the build's focus, the cascades that scroll,
+#: the whole cells they move (xyz)); each focus puts the Cornell box at a
+#: moved edge of the window or in its entering slab, and each breach
+#: case's counter must read non-zero
+SCROLL_CASES = {
+    "cascade0_orbit_x": ({}, (1.5, 0.3, -0.2), (0,), (-3, 0, 0)),
+    "cascade0_positive_z": ({}, (0.2, -0.1, -1.8), (0,), (0, 0, 3)),
+    "coarse_cascade_y": ({}, (0.1, 3.5, 0.2), (1,), (0, -3, 0)),
+    "coarse_cascade_positive_x": ({}, (-4.0, 0.2, 0.1), (1,), (2, 0, 0)),
+    "everything_enters": ({}, (1.5, 0.3, -0.2), (0,), (-17, 0, 0)),
+    "cells_past_cap": (dict(update_cell_cap=8), (1.5, 0.3, -0.2), (0,),
+                       (-3, 0, 0)),
+    "bricks_past_cap": (dict(update_brick_cap=32), (1.5, 0.3, -0.2), (0,),
+                        (-3, 0, 0)),
+    "free_slots_exhausted": ({}, (1.5, 0.3, -0.2), (0,), (-3, 0, 0)),
+    "bin_past_k": (dict(cell_list_cap=2), (1.5, 0.3, -0.2), (0,),
+                   (-3, 0, 0)),
+    "float_atlas": (dict(atlas_u8=False), (4.0, 0.0, 0.0), (1,),
+                    (-3, 0, 0)),
+    "two_cascades": ({}, (1.5, 0.3, -0.2), (0, 1), (-2, 0, 1)),
+}
+
+
+def _cornell_scroll(case):
+    """(scroll arguments, keywords, the built cascades and state) of the
+    Cornell box built on the card at ``UPDATE_CFG`` with the case's
+    changes around its focus, its cascades moved by its cells; the free
+    slots case leaves 3 slots past the build's bricks (``max_bricks``)."""
+    from vri_tpu_torch.hydra.delegate import RenderDelegate
+    from vri_tpu_torch.ops import sdf as sdf_mod
+    from vri_tpu_torch.ops import sdf_build
+    from vri_tpu_torch.registry import bake_world
+
+    over, focus, moved, cells = SCROLL_CASES[case]
+    d = RenderDelegate(RenderConfig(width=32, height=32), device="cuda")
+    d.populate(scenes.cornell_box())
+    s = d.sync()
+    world = bake_world(s)
+    cfg = SDFConfig(**{**UPDATE_CFG, **over})
+    centers = sdf_mod.default_centers(cfg, np.asarray(focus, np.float32),
+                                      device="cuda")
+    if case == "free_slots_exhausted":
+        base = SDFConfig(**UPDATE_CFG)
+        cas, _ = sdf_build.build_for_scene(s, world, centers, base)
+        cfg = dataclasses.replace(base, max_bricks=int(cas.num_bricks) + 3)
+    cas, st = sdf_build.build_for_scene(s, world, centers, cfg)
+    new = centers.clone()
+    for n in moved:
+        cw = cfg.voxel_size(n) * (cfg.cascade_resolution // 16)
+        new[n] += torch.tensor(cells, dtype=torch.float32,
+                               device="cuda") * cw
+    alb, emi = sdf_build._scene_colors(s)
+    scrolled = tuple(n in moved for n in range(cfg.num_cascades))
+    return ((cas, st, new, world, s.tri_vertices, s.num_faces),
+            dict(tri_albedo=alb, tri_emissive=emi, config=cfg,
+                 scrolled=scrolled), cas, st)
+
+
+@pytest.mark.parametrize("case", list(SCROLL_CASES))
+def test_sdf_scroll_matches_plain_version(case):
+    """The clipmap scroll's device pipeline (``scroll_cascades`` on CUDA
+    tensors: the fresh bin, ``vri_sdf_scroll_lists``, one ``sdf_emit``
+    launch, ``vri_sdf_update_finish``) bit-equal to the plain scroll
+    (``scroll_cascades_reference``, eager on the same tensors): every field
+    of the cascades and the build state, and ``needs_full``, for one
+    scroll of cascade 0 and of the coarse cascade along each sign of an
+    axis, a shift of 17 cells (every cell enters), two cascades at once,
+    one breach each of ``update_cell_cap``, ``update_brick_cap``, the free
+    slots and the bin's K, and the float atlas; one pipeline and one
+    ``sdf_emit`` launch a scroll, and no host sync."""
+    _card()
+    from vri_tpu_torch.ops import sdf_build
+
+    args, kw, cas, st = _cornell_scroll(case)
+    want = sdf_build.scroll_cascades_reference(*args, **kw)
+    torch.cuda.synchronize()
+    emits = sdf_build._emit_kernel.launches
+    pipelines = sdf_build._scroll_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sdf_build.scroll_cascades(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert sdf_build._emit_kernel.launches == emits + 1
+    assert sdf_build._scroll_kernel.launches == pipelines + 1
+    _update_equal(got, want, case)
+    c2, s2, n2 = want
+    hit = {"cells_past_cap": int(n2), "bricks_past_cap": int(n2),
+           "bin_past_k": int(n2) * int(s2.list_overflow - st.list_overflow),
+           "free_slots_exhausted": int(c2.overflow - cas.overflow),
+           }.get(case, int(s2.emit_bricks.sum()))
+    assert hit > 0, case
+    assert int(n2) == 0 or case in ("cells_past_cap", "bricks_past_cap",
+                                     "bin_past_k", "everything_enters",
+                                     "two_cascades")
+
+
 #: the benchmark's two cells (``perfbench/configs``): the 49k-face kitchen
 #: at 1920x1080 and the room preset, static, and with one prop moving on
 #: a 0.03 m circle, one turn every 9 time codes
@@ -1858,11 +1959,13 @@ def _copy(x):
 
 def _run_held(fn):
     """``fn()`` with every kernel's launches counted and each launch of R,
-    K6, M, ``bvh_traverse`` and ``temporal_history`` held bit-equal to the
-    kernel's plain version on a copy of that launch's own inputs: a
-    frame's kernels are held on the inputs the frame builds, and every
-    counted launch of those five was recorded and held.  Returns (``fn``'s
-    result, {kernel: launches} of the kernels it launched)."""
+    K6, M, ``bvh_traverse`` and ``temporal_history``, and each scroll
+    pipeline (``sdf_scroll``), held bit-equal to its plain version on a
+    copy of that launch's own inputs (the scroll's cascades and build
+    state are read, not written, by both): a frame's kernels are held on
+    the inputs the frame builds, and every counted launch of those six was
+    recorded and held.  Returns (``fn``'s result, {kernel: launches} of
+    the kernels it launched)."""
     from vri_tpu_torch.ops import (bvh, march_kernel, rasterize, sdf_build,
                                    worklist)
     from vri_tpu_torch.passes import frame as frame_mod
@@ -1879,6 +1982,8 @@ def _run_held(fn):
                               bvh.bvh_traverse_reference),
              "sdf_emit": (sdf_build, "_emit_kernel", None),
              "sdf_update": (sdf_build, "_update_kernel", None),
+             "sdf_scroll": (sdf_build, "_scroll_kernel",
+                            sdf_build.scroll_cascades_reference),
              "template_walk": (worklist, "template_walk", None),
              "setup_walk": (worklist, "setup_walk", None),
              "grouped_step": (worklist, "grouped_step", None),
@@ -1915,6 +2020,9 @@ def _run_held(fn):
     for name, (args, kw), got in calls:
         kw.pop("visits", None)
         want = table[name][2](*args, **kw)
+        if name == "sdf_scroll":
+            _update_equal(got, want, name)
+            continue
         for k, (g, w) in enumerate(zip(got, want)):
             assert torch.equal(g, w), (name, k)
     for name in real:
@@ -2339,10 +2447,13 @@ def test_orbit_playback_holds_kernels():
     along it (0.0838 m a frame), which scroll cascades 0 and 1.  Each
     frame: one prep, one R, two M (the frame's shadow and GI rays) and a
     third where the frame scrolled (the bake after it), one
-    ``temporal_history``, no ``sdf_update``, and one ``sdf_emit`` for each
-    cascade axis that moved a cell and had bricks to emit (the entering
-    cells and the edge layers beside them, one emit); every launch held on
-    its own inputs, ``history.kernel_path`` counted once, no scroll fallen
+    ``temporal_history``, no ``sdf_update``, and for each cascade axis that
+    moved a cell one scroll pipeline (``sdf_scroll``) and one ``sdf_emit``
+    (the entering cells and the edge layers beside them, one emit reading
+    its count on the device, so also at zero bricks); every launch held on
+    its own inputs, every scroll against ``scroll_cascades_reference`` on
+    its own inputs, the plain ``_apply_dirty_cells`` never on CUDA
+    tensors, ``history.kernel_path`` counted once, no scroll fallen
     back to a build (``sdf_scroll.rebuilds``), each cascade's center that
     of the frame's focus, the frame clean (:func:`_clean_frame`).  At the
     end the cascades match a fresh build at their centers: occupancy, ESD
@@ -2372,27 +2483,42 @@ def test_orbit_playback_holds_kernels():
     r.ensure_cascades(eye=cams[0].eye)
     start = r._centers.clone()
     state = frame_mod.init_temporal(1080, 1920, 2, device="cuda")
-    scrolls = []
+    plain = sdf_build._apply_dirty_cells
+
+    def card_never(cascades, *args, **kw):
+        assert not cascades.brick_map.is_cuda, "the plain scroll on the card"
+        return plain(cascades, *args, **kw)
+
+    def frame(cam):
+        sdf_build._apply_dirty_cells = card_never
+        try:
+            return r.render_temporal(state, camera=cam)
+        finally:
+            sdf_build._apply_dirty_cells = plain
+
+    scrolls, pipelines, moves = [], sdf_build._scroll_kernel.launches, 0
     for cam in cams[1:]:
         before = r._centers.clone()
         profiler.start_recording()
         try:
-            (aovs, state), launches = _run_held(
-                lambda: r.render_temporal(state, camera=cam))
+            (aovs, state), launches = _run_held(lambda: frame(cam))
         finally:
             spans = profiler.stop_recording()
-        recorded = profiler.recorded_counts()
+        # the frame's own counts: the plain scrolls that _run_held holds
+        # the pipelines against run after the frame, outside it
+        recorded = [c for c in profiler.recorded_counts() if c.frame >= 0]
         counts = {}
         for c in recorded:
             counts[c.name] = counts.get(c.name, 0) + c.value
         axes = int((r._centers != before).sum())
+        moves += axes
         emits = [c.value for c in recorded if c.name == "sdf_scroll.bricks"]
         print(f"{axes} axes scrolled, bricks an emit {emits}, {launches}")
         assert len(emits) == axes
         want = dict(raster_prep=1, raster_tiles=1,
                     march_rays=2 + (axes > 0), temporal_history=1)
-        if any(emits):
-            want["sdf_emit"] = sum(e > 0 for e in emits)
+        if axes:
+            want.update(sdf_emit=axes, sdf_scroll=axes)
         assert launches == want, (launches, emits)
         frames = {sp.frame for sp in spans if sp.name == "frame"}
         paths = [c.frame for c in recorded if c.name == "history.kernel_path"]
@@ -2409,6 +2535,7 @@ def test_orbit_playback_holds_kernels():
     print(f"emit launches a frame {scrolls}; cascades moved "
           f"{moved.int().tolist()}")
     assert bool(moved[0]) and bool(moved[1])
+    assert sdf_build._scroll_kernel.launches == pipelines + moves > pipelines
     sc = r.scene
     ref, ref_st = sdf_build.build_for_scene(sc, bake_world(sc),
                                             r.cascades.center, cfg)

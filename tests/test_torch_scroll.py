@@ -198,3 +198,30 @@ def test_scrolled_cascades_equal_a_fresh_build(orbit):
         assert sa <= sb or sb <= sa, (n, cell)
     print(f"{differ} cell lists differ from the fresh build's, each "
           "nesting")
+
+
+def test_the_cpu_scroll_is_the_plain_version(orbit, monkeypatch):
+    """CPU tensors take ``scroll_cascades_reference``: the card's pipeline
+    (``_scroll_kernel``) never runs, and the scroll records its entering
+    cells and re-emitted bricks as before."""
+    _, r = orbit
+
+    def card_only(*a, **k):
+        raise AssertionError("the device pipeline ran on CPU tensors")
+    monkeypatch.setattr(sdf_build, "_scroll_kernel", card_only)
+    cfg = r._sdf_cfg_effective or r.config.sdf
+    scene = r.scene.base_view()
+    new = r.cascades.center.clone()
+    new[1, 0] += cfg.voxel_size(1) * (cfg.cascade_resolution // 16)
+    profiler.start_recording()
+    try:
+        cas, st, nf = sdf_build.scroll_for_scene(
+            r.cascades, r._build_state, scene, bake_world(scene), new,
+            (False, True, False), cfg)
+    finally:
+        profiler.stop_recording()
+    counts = {c.name: c.value for c in profiler.recorded_counts()}
+    assert int(nf) == 0 and torch.equal(cas.center, new)
+    # one cell along x: a 16 x 16 slab enters
+    assert counts["sdf_scroll.cells"] == 256
+    assert counts["sdf_scroll.bricks"] == float(st.emit_bricks.sum()) > 0

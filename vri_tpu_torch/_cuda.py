@@ -70,6 +70,7 @@ _ENTRIES = {
     "vri_sdf_update_scratch": ("sdf_update.cu", [_P]),
     "vri_sdf_update_lists": ("sdf_update.cu", [_P, _P]),
     "vri_sdf_update_finish": ("sdf_update.cu", [_P, _P]),
+    "vri_sdf_scroll_lists": ("sdf_update.cu", [_P, _P]),
     "vri_temporal_history": ("temporal.cu",
                              [_P, _L] + [_P] * 12 + [_I] * 7 + [_F, _F]
                              + [_P] * 4),

@@ -41,10 +41,27 @@
 //   9. update_finish (after the emit): needs_full, near_drop, num_bricks,
 //      the counts; march_fine and march_coarse rebuild the march tables.
 //
+// The clipmap scroll (scroll_cascades) has its own entry,
+// vri_sdf_scroll_lists, and shares the passes from the install on:
+//   S1. tri_prep as above (no dirty triangle).
+//   S2. shift_cells, shift_map, shift_bricks: each state table written once
+//       into its new buffer, a scrolled cascade shifted by its whole cells
+//       (lists, counts, rows) or voxels (brick map; the surviving bricks'
+//       voxels re-based, the bricks that scrolled out no longer alive),
+//       every other cascade copied.
+//   S3. mark_scroll: the dirty cells (the entering slab and the surviving
+//       cells beside the moved edges), a fixed list at update_cell_cap.
+//   S4. glob_scroll, a block a cascade: the fresh bin's global list for a
+//       scrolled cascade, the old one otherwise, and the rows.
+//   5-9 with cell_merge in its scroll mode (the fresh bin's list and rows
+//       installed as they are) and no dirty-box trim of the emit.
+// The fresh bin of the scrolled cascades stays in PyTorch (_bin_cascades).
+//
 // Bound: launches and latency.  At the animated kitchen's update (about
 // 200 dirty triangles, a few hundred cells, 4k bricks) every pass but the
 // emit moves a few MB; the cell_rows clone (outside, in PyTorch) and the
-// emit kernel are the update's device time.
+// emit kernel are the update's device time.  The scroll's one pass over
+// cell_rows (3.8 GB at the orbit's K 3,520) is bound by bytes.
 //
 // Bit equality with the plain update run on the card: every float
 // expression keeps PyTorch's order of operations and rounding and the
@@ -268,6 +285,22 @@ struct UpdateArgs {
                                  // list_overflow, cells, bricks
   int* num_bricks;
   int* emit_count;               // the emit list's live count
+  // the scroll's (null or 0 in the update): bm_old above is then the
+  // shifted brick map the dirty cells diff against, cell_tris_old and
+  // glob_old the old lists; the fresh bin holds the scrolled cascades in
+  // cascade order
+  const float* center_old;
+  long long scrolled;            // bit n: cascade n scrolls
+  const int* cell_count_old;
+  const float* cell_rows_old;
+  const unsigned char* alive_old;
+  const int* brick_voxel_old;
+  const int* brick_map_old;
+  const int* fresh_tris;         // (S, 4096, K)
+  const int* fresh_count;        // (S, 4096)
+  const int* fresh_glob;         // (S, Kg)
+  const long long* fresh_over;   // (S,)
+  long long* entering;           // the entering cells
   void* scratch;
 };
 
@@ -432,7 +465,7 @@ tri_prep(UpdateArgs a) {
   for (int c = 0; c < kRow; ++c)
     a.table[f * kRow + c] = ok ? row[c] : pad_row(c);
   a.valid[f] = ok;
-  a.dirty[f] = ok && a.dirty_in[f];
+  a.dirty[f] = ok && a.dirty_in != nullptr && a.dirty_in[f];
 }
 
 // ---------------------------------------------------------------------------
@@ -681,28 +714,11 @@ __device__ __forceinline__ long long voxel(long long r, const float* vs,
   return (long long)n * r * r * r + ((long long)w[2] * r + w[1]) * r + w[0];
 }
 
-__global__ void __launch_bounds__(kThreads)
-cell_merge(UpdateArgs a, Scratch s) {
-  __shared__ int sh[kThreads];
-  __shared__ float stage[kStage * kRow];
-  __shared__ int occf[kMaxS3];
-  const int ci = blockIdx.x;
-  const int sc = (int)(a.r / 16);
-  const int s3 = sc * sc * sc;
-  const long long mbase = (long long)ci * s3;
-  if (ci >= s.ccount[0]) {
-    for (int v = threadIdx.x; v < s3; v += kThreads) {
-      s.occm[mbase + v] = 0;
-      s.newm[mbase + v] = 0;
-      s.emitm[mbase + v] = 0;
-    }
-    return;
-  }
+// The update's list of a dirty cell: (old minus dirty) ++ the re-bin's
+// list, cut to K; returns its live length.
+__device__ int merge_list(const UpdateArgs& a, const Scratch& s, int cg,
+                          int n, const int* c, int* sh) {
   const int K = (int)a.K;
-  const int cg = s.clist[ci];
-  const int n = cg / 4096;
-  int c[3];
-  cell_coords(cg % 4096, c);
   const long long lrow = (long long)cg * K;
   const int* old = a.cell_tris_old + lrow;
   int* lst = a.cell_tris + lrow;
@@ -749,11 +765,62 @@ cell_merge(UpdateArgs a, Scratch s) {
   const int merged = kept + (added < K ? added : K);
   const int live = merged < K ? merged : K;
   for (int i = live + threadIdx.x; i < K; i += kThreads) lst[i] = -1;
-  if (threadIdx.x == 0) {
-    a.cell_count[cg] = live;
-    if (merged > K) atomicAdd((unsigned long long*)&s.accum[0],
-                              (unsigned long long)(merged - K));
+  if (threadIdx.x == 0 && merged > K)
+    atomicAdd((unsigned long long*)&s.accum[0],
+              (unsigned long long)(merged - K));
+  return live;
+}
+
+// Scrolled cascade n's place in the fresh bin (the scrolled cascades in
+// cascade order).
+__device__ __forceinline__ int fresh_slot(const UpdateArgs& a, int n) {
+  return __popcll(a.scrolled & ((1ll << n) - 1));
+}
+
+// The scroll's list of a dirty cell: the fresh bin's, as it is; returns
+// its live length.
+__device__ int fresh_list(const UpdateArgs& a, int cg, int n) {
+  const int K = (int)a.K;
+  const long long at = (long long)fresh_slot(a, n) * 4096 + cg % 4096;
+  const int* src = a.fresh_tris + at * K;
+  int* lst = a.cell_tris + (long long)cg * K;
+  for (int i = threadIdx.x; i < K; i += kThreads) lst[i] = src[i];
+  return a.fresh_count[at];
+}
+
+// kScroll: the update's merge and its emit trimmed by the D dirty boxes
+// (false), or the scroll's fresh list and every occupied voxel emitted.
+template <bool kScroll>
+__global__ void __launch_bounds__(kThreads)
+cell_merge(UpdateArgs a, Scratch s) {
+  __shared__ int sh[kThreads];
+  __shared__ float stage[kStage * kRow];
+  __shared__ int occf[kMaxS3];
+  const int ci = blockIdx.x;
+  const int sc = (int)(a.r / 16);
+  const int s3 = sc * sc * sc;
+  const long long mbase = (long long)ci * s3;
+  if (ci >= s.ccount[0]) {
+    for (int v = threadIdx.x; v < s3; v += kThreads) {
+      s.occm[mbase + v] = 0;
+      s.newm[mbase + v] = 0;
+      s.emitm[mbase + v] = 0;
+    }
+    return;
   }
+  const int K = (int)a.K;
+  const int cg = s.clist[ci];
+  const int n = cg / 4096;
+  int c[3];
+  cell_coords(cg % 4096, c);
+  const long long lrow = (long long)cg * K;
+  const int* lst = a.cell_tris + lrow;
+  int live;
+  if constexpr (kScroll)
+    live = fresh_list(a, cg, n);
+  else
+    live = merge_list(a, s, cg, n, c, sh);
+  if (threadIdx.x == 0) a.cell_count[cg] = live;
   __syncthreads();
   // the rows, straight into the new cell_rows
   float* rows = a.cell_rows + lrow * kRow;
@@ -810,8 +877,8 @@ cell_merge(UpdateArgs a, Scratch s) {
   }
   __syncthreads();
 
-  // the voxels: freed (alive cleared), new, to re-emit (within reach of
-  // the dirty boxes)
+  // the voxels: freed (alive cleared), new, to re-emit (the update's
+  // within reach of the dirty boxes)
   const float half = 0.5f * vsz;
   const float e = (float)a.emit_reach * vsz;
   for (int v = threadIdx.x; v < s3; v += kThreads) {
@@ -820,13 +887,15 @@ cell_merge(UpdateArgs a, Scratch s) {
     const int oid = a.bm_old[vox];
     const bool occ = occf[v] != 0;
     if (oid >= 0 && !occ && oid < a.max_bricks) a.alive[oid] = 0;
-    bool near = false;
-    for (long long d = 0; d < a.D; ++d) {
-      bool ok = true;
-      for (int k = 0; k < 3; ++k)
-        ok = ok && (q[k] - half <= a.dhi[d * 3 + k] + e)
-             && (q[k] + half >= a.dlo[d * 3 + k] - e);
-      near = near || ok;
+    bool near = kScroll;
+    if constexpr (!kScroll) {
+      for (long long d = 0; d < a.D; ++d) {
+        bool ok = true;
+        for (int k = 0; k < 3; ++k)
+          ok = ok && (q[k] - half <= a.dhi[d * 3 + k] + e)
+               && (q[k] + half >= a.dlo[d * 3 + k] - e);
+        near = near || ok;
+      }
     }
     s.occm[mbase + v] = occ;
     s.newm[mbase + v] = oid < 0 && occ;
@@ -1058,6 +1127,212 @@ march_coarse(UpdateArgs a, Scratch s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// S. the scroll: the shifted copy of the state, its dirty cells and global
+//    lists
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ long long floor_div(long long x, long long y) {
+  const long long q = x / y;
+  return (x % y != 0 && (x < 0) != (y < 0)) ? q - 1 : q;
+}
+
+// The whole-voxel shift (xyz) of cascade n, round((new origin - old
+// origin) / vs) as scroll_cascades_reference takes it; 0 where the cascade
+// does not scroll.
+__device__ void shift_of(const UpdateArgs& a, int n, long long* d) {
+  const float half_r = (float)(0.5 * (double)a.r);
+  const float v = a.vs[n];
+  const bool on = (a.scrolled >> n) & 1;
+  for (int k = 0; k < 3; ++k) {
+    const float no = a.center[n * 3 + k] - half_r * v;
+    const float oo = a.center_old[n * 3 + k] - half_r * v;
+    d[k] = on ? (long long)(int)rintf((no - oo) / v) : 0;
+  }
+}
+
+__device__ __forceinline__ bool in_window(long long x, long long y,
+                                          long long z, long long w) {
+  return x >= 0 && x < w && y >= 0 && y < w && z >= 0 && z < w;
+}
+
+// A block a cell of the new tables: the old cell dc = d / s cells on (its
+// list, count and rows), or -1, 0 and 0.0 where that lies outside the
+// window.
+__global__ void __launch_bounds__(kThreads)
+shift_cells(UpdateArgs a) {
+  const long long g = blockIdx.x;
+  const int n = (int)(g / 4096);
+  int c[3];
+  cell_coords((int)(g % 4096), c);
+  long long d[3];
+  shift_of(a, n, d);
+  const long long s = a.r / 16;
+  const long long x = c[0] + floor_div(d[0], s), y = c[1] + floor_div(d[1], s),
+                  z = c[2] + floor_div(d[2], s);
+  const bool in = in_window(x, y, z, 16);
+  const long long from = (long long)n * 4096 + (in ? (z * 16 + y) * 16 + x
+                                                   : 0);
+  const long long K = a.K;
+  for (long long i = threadIdx.x; i < K; i += kThreads)
+    a.cell_tris[g * K + i] = in ? a.cell_tris_old[from * K + i] : -1;
+  if (threadIdx.x == 0) a.cell_count[g] = in ? a.cell_count_old[from] : 0;
+  const long long m = K * kRow;
+  float* dst = a.cell_rows + g * m;
+  const float* src = a.cell_rows_old + from * m;
+  if (m % 4 == 0 && ((uintptr_t)dst | (uintptr_t)src) % 16 == 0) {
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (long long i = threadIdx.x; i < m / 4; i += kThreads)
+      d4[i] = in ? s4[i] : zero;
+  } else {
+    for (long long i = threadIdx.x; i < m; i += kThreads)
+      dst[i] = in ? src[i] : 0.f;
+  }
+}
+
+// A thread a voxel of the new brick map: the old voxel d on, or -1.
+__global__ void __launch_bounds__(kThreads)
+shift_map(UpdateArgs a) {
+  const long long r = a.r, r3 = r * r * r;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.N * r3) return;
+  const int n = (int)(i / r3);
+  const long long rem = i % r3;
+  long long d[3];
+  shift_of(a, n, d);
+  const long long x = rem % r + d[0], y = (rem / r) % r + d[1],
+                  z = rem / (r * r) + d[2];
+  a.brick_map[i] = in_window(x, y, z, r)
+                       ? a.brick_map_old[n * r3 + (z * r + y) * r + x] : -1;
+}
+
+// A thread a brick: a live brick of a scrolled cascade keeps its atlas row
+// at its voxel d back, or is no longer alive where that left the window.
+__global__ void __launch_bounds__(kThreads)
+shift_bricks(UpdateArgs a) {
+  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= a.max_bricks) return;
+  const long long r = a.r, r3 = r * r * r;
+  int bv = a.brick_voxel_old[b];
+  bool alive = a.alive_old[b] != 0;
+  const long long n = floor_div(bv, r3);
+  if (alive && n >= 0 && n < a.N && ((a.scrolled >> n) & 1)) {
+    long long d[3];
+    shift_of(a, (int)n, d);
+    const long long rem = bv - n * r3;
+    const long long x = rem % r - d[0], y = (rem / r) % r - d[1],
+                    z = rem / (r * r) - d[2];
+    if (in_window(x, y, z, r))
+      bv = (int)(n * r3 + (z * r + y) * r + x);
+    else
+      alive = false;
+  }
+  a.brick_voxel[b] = bv;
+  a.alive[b] = alive;
+}
+
+// A thread a cell: dirty where it entered the window or lies within one
+// cell of a position that entered or left it (scroll_cascades_reference's
+// _edge_cells); thread 0 counts the entering cells and sets the scalars
+// update_scalars reads: no dirty triangle or re-bin, and the fresh bin's
+// overflow both a list overflow and a breach.
+__global__ void __launch_bounds__(kThreads)
+mark_scroll(UpdateArgs a, Scratch s) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long sc = a.r / 16;
+  if (g == 0) {
+    long long entering = 0, over = 0;
+    for (int n = 0; n < a.N; ++n) {
+      s.total[n] = 0;
+      s.nlarge[n] = 0;
+      if (!((a.scrolled >> n) & 1)) continue;
+      long long d[3], kept = 1;
+      shift_of(a, n, d);
+      for (int k = 0; k < 3; ++k) {
+        long long m = floor_div(d[k], sc);
+        m = m < 0 ? -m : m;
+        kept *= 16 - (m < 16 ? m : 16);
+      }
+      entering += 4096 - kept;
+      over += a.fresh_over[fresh_slot(a, n)];
+    }
+    *a.entering = entering;
+    s.dcount[0] = s.dcount[1] = 0;
+    s.accum[0] = s.accum[1] = over;
+  }
+  if (g >= a.N * 4096) return;
+  const int n = (int)(g / 4096);
+  int c[3];
+  cell_coords((int)(g % 4096), c);
+  long long d[3];
+  shift_of(a, n, d);
+  long long dc[3];
+  for (int k = 0; k < 3; ++k) dc[k] = floor_div(d[k], sc);
+  const bool kept = in_window(c[0] + dc[0], c[1] + dc[1], c[2] + dc[2], 16);
+  bool edge = false;
+  for (int o = 0; o < 27; ++o) {
+    const long long x = c[0] + o % 3 - 1, y = c[1] + (o / 3) % 3 - 1,
+                    z = c[2] + o / 9 - 1;
+    edge = edge || in_window(x, y, z, 16)
+                       != in_window(x + dc[0], y + dc[1], z + dc[2], 16);
+  }
+  s.cellm[g] = !kept || edge;
+}
+
+// A block a cascade: the global list (the fresh bin's for a scrolled
+// cascade, the old one otherwise) and its rows; the rows the occupancy
+// tests run to the last live entry.
+__global__ void __launch_bounds__(kThreads)
+glob_scroll(UpdateArgs a, Scratch s) {
+  __shared__ int last;
+  const int n = blockIdx.x;
+  const long long Kg = a.Kg;
+  const bool on = (a.scrolled >> n) & 1;
+  const int* src = on ? a.fresh_glob + fresh_slot(a, n) * Kg
+                      : a.glob_old + n * Kg;
+  int* out = a.glob_tris + n * Kg;
+  if (threadIdx.x == 0) last = -1;
+  __syncthreads();
+  for (long long i = threadIdx.x; i < Kg; i += kThreads) {
+    out[i] = src[i];
+    if (src[i] >= 0) atomicMax(&last, (int)i);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s.gcount[n] = last + 1;
+  float* rows = a.glob_rows + n * Kg * kRow;
+  for (long long i = threadIdx.x; i < Kg * kRow; i += kThreads) {
+    const int id = src[i / kRow];
+    const int col = (int)(i % kRow);
+    rows[i] = id >= 0 ? a.table[(long long)id * kRow + col] : pad_row(col);
+  }
+}
+
+// The passes after the dirty cells' diff, shared by the update and the
+// scroll: allocation, the brick map's scatter, the ESD and the emit list.
+void alloc_to_emit_list(const UpdateArgs& a, const Scratch& s,
+                        cudaStream_t st) {
+  const long long sc = a.r / 16;
+  const long long s3 = sc * sc * sc;
+  const auto blocks = [](long long n) {
+    const long long b = (n + kThreads - 1) / kThreads;
+    return (unsigned)(b < 1 ? 1 : b);
+  };
+  fixed_list(a.alive, a.max_bricks, 1, (int)(a.ccap * s3), s.freel, nullptr,
+             s.fcount, s.bcount, st);
+  fixed_list(s.newm, a.ccap * s3, 0, 0, nullptr, s.rank, s.ncount, s.bcount,
+             st);
+  alloc_scatter<<<blocks(a.ccap * s3), kThreads, 0, st>>>(a, s);
+  const int et = a.r < kThreads ? (int)a.r : kThreads;
+  const dim3 lines((unsigned)a.r, (unsigned)a.r, (unsigned)a.N);
+  for (int axis = 0; axis < 3; ++axis)
+    esd_pass<<<lines, et, (size_t)a.r, st>>>(a, s, axis);
+  fixed_list(s.emitm, a.ccap * s3, 0, (int)a.bcap, s.epos, nullptr, s.ecount,
+             s.bcount, st);
+  emit_list<<<blocks(a.elen), kThreads, 0, st>>>(a, s);
+}
+
 }  // namespace
 
 extern "C" int vri_sdf_update_args_size() { return (int)sizeof(UpdateArgs); }
@@ -1099,19 +1374,40 @@ extern "C" int vri_sdf_update_lists(const UpdateArgs* pa, void* stream) {
   rebin_scan<<<(unsigned)a.N, kThreads, 0, st>>>(a, s);
   rebin_count<<<per_tri, kThreads, 0, st>>>(a, s);
   glob_merge<<<(unsigned)a.N, kThreads, 0, st>>>(a, s);
-  cell_merge<<<(unsigned)a.ccap, kThreads, 0, st>>>(a, s);
-  fixed_list(a.alive, a.max_bricks, 1, (int)(a.ccap * s3), s.freel, nullptr,
-             s.fcount, s.bcount, st);
-  fixed_list(s.newm, a.ccap * s3, 0, 0, nullptr, s.rank, s.ncount, s.bcount,
-             st);
-  alloc_scatter<<<blocks(a.ccap * s3), kThreads, 0, st>>>(a, s);
-  const int et = a.r < kThreads ? (int)a.r : kThreads;
-  const dim3 lines((unsigned)a.r, (unsigned)a.r, (unsigned)a.N);
-  for (int axis = 0; axis < 3; ++axis)
-    esd_pass<<<lines, et, (size_t)a.r, st>>>(a, s, axis);
-  fixed_list(s.emitm, a.ccap * s3, 0, (int)a.bcap, s.epos, nullptr, s.ecount,
+  cell_merge<false><<<(unsigned)a.ccap, kThreads, 0, st>>>(a, s);
+  alloc_to_emit_list(a, s, st);
+  return (int)cudaGetLastError();
+}
+
+// The scroll up to the emit: the shifted copy of the state and cascades,
+// the dirty cells with the fresh bin's lists and rows installed, their
+// occupancy, the allocation, the brick map and ESD, and the emit list.
+extern "C" int vri_sdf_scroll_lists(const UpdateArgs* pa, void* stream) {
+  const UpdateArgs a = *pa;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long sc = a.r / 16;
+  const long long s3 = sc * sc * sc;
+  if (a.r % 16 != 0 || s3 > kMaxS3 || a.r > 1024 || a.N > 62) return -2;
+  if (a.ccap * s3 >= (1LL << 31)) return -3;
+  const Layout l = layout(a);
+  const Scratch s = scratch(a);
+  cudaMemsetAsync(a.scratch, 0, l.zero_bytes, st);
+  cudaMemsetAsync(a.emit_bricks, 0, a.max_bricks, st);
+  const auto blocks = [](long long n) {
+    const long long b = (n + kThreads - 1) / kThreads;
+    return (unsigned)(b < 1 ? 1 : b);
+  };
+  long long m = a.F > a.N * 3 ? a.F : a.N * 3;
+  tri_prep<<<blocks(m), kThreads, 0, st>>>(a);
+  shift_cells<<<(unsigned)(a.N * 4096), kThreads, 0, st>>>(a);
+  shift_map<<<blocks(a.N * a.r * a.r * a.r), kThreads, 0, st>>>(a);
+  shift_bricks<<<blocks(a.max_bricks), kThreads, 0, st>>>(a);
+  mark_scroll<<<blocks(a.N * 4096), kThreads, 0, st>>>(a, s);
+  fixed_list(s.cellm, a.N * 4096, 0, (int)a.ccap, s.clist, nullptr, s.ccount,
              s.bcount, st);
-  emit_list<<<blocks(a.elen), kThreads, 0, st>>>(a, s);
+  glob_scroll<<<(unsigned)a.N, kThreads, 0, st>>>(a, s);
+  cell_merge<true><<<(unsigned)a.ccap, kThreads, 0, st>>>(a, s);
+  alloc_to_emit_list(a, s, st);
   return (int)cudaGetLastError();
 }
 

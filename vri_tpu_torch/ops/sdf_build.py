@@ -28,10 +28,10 @@ the JAX package keeps the first ``cap`` hits of a fixed-size ``nonzero``
 and counts the rest, the port takes the hits in the same index order,
 keeps as many and counts the rest the same way; a capacity breach makes
 ``needs_full`` non-zero and the caller rebuilds.
-On the card the update is one pipeline of kernels on those fixed
-capacities (``csrc/sdf_update.cu``), with no host sync; the plain
-version, which the CPU runs, works on live lengths and reads each size
-back to the host.
+On the card the update and the scroll are each one pipeline of kernels on
+those fixed capacities (``csrc/sdf_update.cu``), with no host sync; the
+plain versions, which the CPU runs, work on live lengths and read each
+size back to the host.
 """
 
 from __future__ import annotations
@@ -791,7 +791,8 @@ def _apply_dirty_cells(cascades: SDFCascades, state: BuildState, cell_ids,
                        config: SDFConfig, dirty_lo=None, dirty_hi=None,
                        axis_name: tuple | None = None,
                        count: str = "sdf_update.bricks"):
-    """Shared bounded-update core: install the new lists of ``cell_ids``
+    """The plain update's and the plain scroll's core (the card runs
+    ``csrc/sdf_update.cu`` instead): install the new lists of ``cell_ids``
     (global cell ids (C,), every one live), diff the cells' occupancy,
     re-allocate bricks through the free-slot pool, re-emit the affected
     bricks and refresh the ESD and the march tables.  ``dirty_lo/hi``
@@ -978,11 +979,14 @@ _UPDATE_FIELDS = (
     "elen:l share_lo:l share_hi:l near_out:p n_near:l atlas:p atlas_u8:l "
     "bsz:l surf_thresh:d u8_scale:d march_ok:l march_coarse:p "
     "march_fine0:p march_fine1:p out:p num_bricks:p emit_count:p "
-    "scratch:p").split()
+    "center_old:p scrolled:l cell_count_old:p cell_rows_old:p alive_old:p "
+    "brick_voxel_old:p brick_map_old:p fresh_tris:p fresh_count:p "
+    "fresh_glob:p fresh_over:p entering:p scratch:p").split()
 
 
 class _UpdateArgs(ctypes.Structure):
-    """The update pipeline's argument block (``_UPDATE_FIELDS``)."""
+    """The argument block of the update's and the scroll's pipelines
+    (``_UPDATE_FIELDS``)."""
 
     _fields_ = [(f.split(":")[0], {"p": ctypes.c_void_p,
                                    "l": ctypes.c_longlong,
@@ -994,6 +998,136 @@ def _f32(x: float) -> float:
     """``x`` rounded to float32, as PyTorch rounds a host scalar it
     combines with a float32 tensor."""
     return ctypes.c_float(x).value
+
+
+def _pipeline_buffers(cascades, state, world_verts, tri_vertices,
+                      tri_albedo, tri_emissive, config: SDFConfig, *,
+                      edit: bool, per: int):
+    """The buffers of one run of the ``csrc/sdf_update.cu`` pipeline: its
+    inputs (those the update and the scroll share), the per-triangle
+    outputs, the new state and cascades (clones of the old ones that the
+    update edits in place with ``edit``, else buffers the scroll writes
+    whole), the emit list with ``per`` entries of near-candidate drops, the
+    scalars, and the atlas rows (clones: the emit writes some of them).
+    Returns (ins, outs, colors, tri_albedo, tri_emissive)."""
+    n_cas = config.num_cascades
+    Kg = config.global_list_cap
+    max_bricks = config.max_bricks
+    dev = world_verts.device
+    f = tri_vertices.shape[0]
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def fresh(x, dtype):
+        return x.to(dtype=dtype, memory_format=torch.contiguous_format,
+                    copy=True)
+
+    def new(x, dtype):
+        return fresh(x, dtype) if edit else empty(*x.shape, dtype=dtype)
+
+    if tri_albedo is None:
+        tri_albedo = torch.full((f, 3), 0.5, dtype=torch.float32, device=dev)
+    if tri_emissive is None:
+        tri_emissive = torch.zeros((f, 3), dtype=torch.float32, device=dev)
+    ins = dict(
+        verts=world_verts.to(torch.float32).contiguous(),
+        tri_vertices=tri_vertices.to(torch.int32).contiguous(),
+        vs=cascades.voxel_size.to(torch.float32).contiguous(),
+        cell_tris_old=state.cell_tris.to(torch.int32).contiguous(),
+        glob_old=state.glob_tris.to(torch.int32).contiguous())
+    outs = dict(
+        tri9=empty(f, 3, 3), valid=empty(f, dtype=torch.bool),
+        dirty=empty(f, dtype=torch.bool), tri_n=empty(f, 3), lo=empty(f, 3),
+        hi=empty(f, 3), table=empty(f, ROW), origins=empty(n_cas, 3),
+        cell_tris=new(state.cell_tris, torch.int32),
+        cell_count=new(state.cell_count, torch.int32),
+        cell_rows=new(state.cell_rows, torch.float32),
+        glob_tris=empty(n_cas, Kg, dtype=torch.int32),
+        glob_rows=empty(n_cas, Kg, ROW),
+        alive=new(state.alive, torch.bool),
+        brick_voxel=new(cascades.brick_voxel, torch.int32),
+        brick_map=new(cascades.brick_map, torch.int32),
+        emit_bricks=empty(max_bricks, dtype=torch.bool),
+        elist=empty(-(-config.update_brick_cap // _EMIT_BLOCK)
+                    * _EMIT_BLOCK, dtype=torch.int64),
+        near_out=empty(per, dtype=torch.int64),
+        atlas=cascades.atlas.clone(memory_format=torch.contiguous_format),
+        march_coarse=empty(n_cas * 4, 128, dtype=torch.int32),
+        march_fine0=empty(n_cas * 32, 128, dtype=torch.int32),
+        march_fine1=empty(n_cas * 32, 128, dtype=torch.int32),
+        out=empty(6, dtype=torch.int64),
+        num_bricks=empty(dtype=torch.int32),
+        emit_count=empty(1, dtype=torch.int32))
+    colors = {k: fresh(getattr(cascades, k), torch.float32)
+              for k in ("brick_albedo", "brick_emissive", "brick_normal")}
+    return ins, outs, colors, tri_albedo, tri_emissive
+
+
+def _pipeline_args(num_faces, ins, outs, config: SDFConfig, *, lo: int,
+                   per: int, **fields):
+    """The argument block of one run of the pipeline over ``ins`` and
+    ``outs`` (``fields``: the update's or the scroll's own), checked
+    against the source's layout, and its scratch; ``ins`` keeps the
+    converted inputs referenced.  Returns (library, args, scratch)."""
+    from vri_tpu_torch import _cuda
+
+    r = config.cascade_resolution
+    dev = outs["out"].device
+    if torch.is_tensor(num_faces):
+        ins["num_faces_dev"] = num_faces.to(device=dev, dtype=torch.int32)
+    sc = r // 16
+    args = _UpdateArgs(
+        F=outs["valid"].shape[0],
+        num_faces_host=0 if torch.is_tensor(num_faces) else int(num_faces),
+        N=config.num_cascades, r=r, trunc=_f32(config.truncation_voxels),
+        emit_reach=_f32(max(config.truncation_voxels, 1.5)),
+        K=config.cell_list_cap, Kg=config.global_list_cap,
+        ccap=config.update_cell_cap, bcap=config.update_brick_cap,
+        max_bricks=config.max_bricks, elen=outs["elist"].shape[0],
+        share_lo=lo, share_hi=lo + per, n_near=per,
+        atlas_u8=int(config.atlas_u8), bsz=config.brick_size,
+        surf_thresh=_f32(1.5 / (config.truncation_voxels
+                                * config.brick_size)),
+        u8_scale=_f32(1.0 / 255.0),
+        march_ok=int(r % 16 == 0 and sc in (1, 2, 4)), **fields)
+    for name, t in (*ins.items(), *outs.items()):
+        setattr(args, name, t.data_ptr())
+    lib = _cuda.library()
+    if lib.vri_sdf_update_args_size() != ctypes.sizeof(args):
+        raise RuntimeError("sdf_update: the argument block's layout differs "
+                           "from csrc/sdf_update.cu's")
+    nbytes = lib.vri_sdf_update_scratch(ctypes.addressof(args))
+    if nbytes < 0:
+        raise ValueError("sdf_update: the update's scratch passes 2 GB")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    args.scratch = scratch.data_ptr()
+    return lib, args, scratch
+
+
+def _pipeline_state(state: BuildState, outs, config: SDFConfig):
+    """The build state the pipeline wrote into ``outs``."""
+    return dataclasses.replace(
+        state, cell_tris=outs["cell_tris"].reshape(
+            config.num_cascades, 4096, config.cell_list_cap),
+        cell_count=outs["cell_count"].reshape(config.num_cascades, 4096),
+        cell_rows=outs["cell_rows"], glob_tris=outs["glob_tris"],
+        glob_rows=outs["glob_rows"], alive=outs["alive"],
+        emit_bricks=outs["emit_bricks"])
+
+
+def _pipeline_cascades(cascades: SDFCascades, outs, colors, near,
+                       **fields) -> SDFCascades:
+    """The cascades the pipeline wrote into ``outs`` and ``colors``, its
+    near-candidate drops ``near`` added (``fields``: others replaced)."""
+    out = outs["out"]
+    return cascades.replace(
+        brick_map=outs["brick_map"].reshape(cascades.brick_map.shape),
+        brick_voxel=outs["brick_voxel"], num_bricks=outs["num_bricks"],
+        overflow=(cascades.overflow + out[2]).to(torch.int32),
+        atlas=outs["atlas"], **colors, march_coarse=outs["march_coarse"],
+        march_fine0=outs["march_fine0"], march_fine1=outs["march_fine1"],
+        near_drop=cascades.near_drop + near, **fields)
 
 
 def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
@@ -1013,41 +1147,10 @@ def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
     pipelines."""
     from vri_tpu_torch import _cuda
 
-    n_cas = config.num_cascades
     r = config.cascade_resolution
-    K = config.cell_list_cap
-    Kg = config.global_list_cap
     bsz = config.brick_size
-    max_bricks = config.max_bricks
     bcap = config.update_brick_cap
     dev = world_verts.device
-    f = tri_vertices.shape[0]
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    def fresh(x, dtype):
-        return x.to(dtype=dtype, memory_format=torch.contiguous_format,
-                    copy=True)
-
-    if tri_albedo is None:
-        tri_albedo = torch.full((f, 3), 0.5, dtype=torch.float32, device=dev)
-    if tri_emissive is None:
-        tri_emissive = torch.zeros((f, 3), dtype=torch.float32, device=dev)
-    ins = dict(
-        verts=world_verts.to(torch.float32).contiguous(),
-        tri_vertices=tri_vertices.to(torch.int32).contiguous(),
-        dirty_in=dirty_tri_mask.to(torch.bool).contiguous(),
-        center=cascades.center.to(torch.float32).contiguous(),
-        vs=cascades.voxel_size.to(torch.float32).contiguous(),
-        dlo=dirty_lo.to(torch.float32).contiguous(),
-        dhi=dirty_hi.to(torch.float32).contiguous(),
-        cell_tris_old=state.cell_tris.to(torch.int32).contiguous(),
-        glob_old=state.glob_tris.to(torch.int32).contiguous(),
-        bm_old=cascades.brick_map.to(torch.int32).contiguous())
-    nf_dev = (num_faces.to(device=dev, dtype=torch.int32)
-              if torch.is_tensor(num_faces) else None)
-    elen = -(-bcap // _EMIT_BLOCK) * _EMIT_BLOCK
     if axis_name is None:
         ax, lo, per = None, 0, bcap
     else:
@@ -1058,55 +1161,19 @@ def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
                              f"over {n_shard} devices")
         per = nb // n_shard * _EMIT_BLOCK
         lo = (0 if ax is None else ax.index) * per
-    outs = dict(
-        tri9=empty(f, 3, 3), valid=empty(f, dtype=torch.bool),
-        dirty=empty(f, dtype=torch.bool), tri_n=empty(f, 3), lo=empty(f, 3),
-        hi=empty(f, 3), table=empty(f, ROW), origins=empty(n_cas, 3),
-        cell_tris=fresh(state.cell_tris, torch.int32),
-        cell_count=fresh(state.cell_count, torch.int32),
-        cell_rows=fresh(state.cell_rows, torch.float32),
-        glob_tris=empty(n_cas, Kg, dtype=torch.int32),
-        glob_rows=empty(n_cas, Kg, ROW),
-        alive=fresh(state.alive, torch.bool),
-        brick_voxel=fresh(cascades.brick_voxel, torch.int32),
-        brick_map=fresh(cascades.brick_map, torch.int32),
-        emit_bricks=empty(max_bricks, dtype=torch.bool),
-        elist=empty(elen, dtype=torch.int64),
-        near_out=empty(per, dtype=torch.int64),
-        atlas=cascades.atlas.clone(memory_format=torch.contiguous_format),
-        march_coarse=empty(n_cas * 4, 128, dtype=torch.int32),
-        march_fine0=empty(n_cas * 32, 128, dtype=torch.int32),
-        march_fine1=empty(n_cas * 32, 128, dtype=torch.int32),
-        out=empty(6, dtype=torch.int64),
-        num_bricks=empty(dtype=torch.int32),
-        emit_count=empty(1, dtype=torch.int32))
-    colors = {k: fresh(getattr(cascades, k), torch.float32)
-              for k in ("brick_albedo", "brick_emissive", "brick_normal")}
-    sc = r // 16
-    args = _UpdateArgs(
-        F=f, num_faces_host=0 if nf_dev is not None else int(num_faces),
-        num_faces_dev=None if nf_dev is None else nf_dev.data_ptr(),
-        N=n_cas, r=r, D=dirty_lo.shape[0],
-        trunc=_f32(config.truncation_voxels),
-        emit_reach=_f32(max(config.truncation_voxels, 1.5)), K=K, Kg=Kg,
-        ucap=config.update_tri_cap, ccap=config.update_cell_cap, bcap=bcap,
-        pairs_cap=_pairs_cap(config.update_tri_cap, r),
-        max_bricks=max_bricks, elen=elen, share_lo=lo, share_hi=lo + per,
-        n_near=per, atlas_u8=int(config.atlas_u8), bsz=bsz,
-        surf_thresh=_f32(1.5 / (config.truncation_voxels * bsz)),
-        u8_scale=_f32(1.0 / 255.0),
-        march_ok=int(r % 16 == 0 and sc in (1, 2, 4)))
-    for name, t in (*ins.items(), *outs.items()):
-        setattr(args, name, t.data_ptr())
-    lib = _cuda.library()
-    if lib.vri_sdf_update_args_size() != ctypes.sizeof(args):
-        raise RuntimeError("sdf_update: the argument block's layout differs "
-                           "from csrc/sdf_update.cu's")
-    nbytes = lib.vri_sdf_update_scratch(ctypes.addressof(args))
-    if nbytes < 0:
-        raise ValueError("sdf_update: the update's scratch passes 2 GB")
-    scratch = empty(nbytes, dtype=torch.uint8)
-    args.scratch = scratch.data_ptr()
+    ins, outs, colors, tri_albedo, tri_emissive = _pipeline_buffers(
+        cascades, state, world_verts, tri_vertices, tri_albedo,
+        tri_emissive, config, edit=True, per=per)
+    ins.update(
+        dirty_in=dirty_tri_mask.to(torch.bool).contiguous(),
+        center=cascades.center.to(torch.float32).contiguous(),
+        dlo=dirty_lo.to(torch.float32).contiguous(),
+        dhi=dirty_hi.to(torch.float32).contiguous(),
+        bm_old=cascades.brick_map.to(torch.int32).contiguous())
+    lib, args, scratch = _pipeline_args(
+        num_faces, ins, outs, config, lo=lo, per=per, D=dirty_lo.shape[0],
+        ucap=config.update_tri_cap,
+        pairs_cap=_pairs_cap(config.update_tri_cap, r))
     stream = _cuda.stream_ptr(world_verts)
     _cuda.check(lib.vri_sdf_update_lists(ctypes.addressof(args), stream),
                 "sdf_update (lists)")
@@ -1114,12 +1181,7 @@ def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
 
     # the emit: straight into the cascades' rows, or rank i's share
     # gathered over the axis and scattered
-    state = dataclasses.replace(
-        state, cell_tris=outs["cell_tris"].reshape(n_cas, 4096, K),
-        cell_count=outs["cell_count"].reshape(n_cas, 4096),
-        cell_rows=outs["cell_rows"], glob_tris=outs["glob_tris"],
-        glob_rows=outs["glob_rows"], alive=outs["alive"],
-        emit_bricks=outs["emit_bricks"])
+    state = _pipeline_state(state, outs, config)
     tris = (outs["tri9"], outs["valid"], tri_albedo, tri_emissive,
             outs["tri_n"])
     atlas = outs["atlas"]
@@ -1134,8 +1196,10 @@ def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
     else:
         from vri_tpu_torch.parallel import mesh as mesh_mod
 
-        share = (empty(per, bsz, bsz, bsz, dtype=atlas.dtype),
-                 empty(per, 3), empty(per, 3), empty(per, 3))
+        share = (torch.empty((per, bsz, bsz, bsz), dtype=atlas.dtype,
+                             device=dev),
+                 *(torch.empty((per, 3), dtype=torch.float32, device=dev)
+                   for _ in range(3)))
         _emit_call(mine, per, outs["emit_count"], lo, outs["brick_voxel"],
                    state, outs["origins"], ins["vs"], tris, config, share,
                    outs["near_out"])
@@ -1148,17 +1212,10 @@ def _update_kernel(cascades: SDFCascades, state: BuildState, world_verts,
     out = outs["out"]
     near = out[1] if ax is None else mesh_mod.psum(out[1].clone(), ax)
     _count_update(out[4], bricks, kernel=True)
-    cascades = cascades.replace(
-        brick_map=outs["brick_map"].reshape(cascades.brick_map.shape),
-        brick_voxel=outs["brick_voxel"], num_bricks=outs["num_bricks"],
-        overflow=(cascades.overflow + out[2]).to(torch.int32), atlas=atlas,
-        **colors, march_coarse=outs["march_coarse"],
-        march_fine0=outs["march_fine0"], march_fine1=outs["march_fine1"],
-        near_drop=cascades.near_drop + near)
+    cascades = _pipeline_cascades(cascades, outs, colors, near)
     state = dataclasses.replace(
         state, list_overflow=state.list_overflow + out[3])
     return cascades, state, out[0]
-
 
 _update_kernel.launches = 0
 
@@ -1328,14 +1385,118 @@ def _edge_cells(dc, device) -> torch.Tensor:
     return near & kept[1:17, 1:17, 1:17]
 
 
+def _scroll_kernel(cascades: SDFCascades, state: BuildState, new_centers,
+                   world_verts, tri_vertices, num_faces, *, tri_albedo=None,
+                   tri_emissive=None, config: SDFConfig, scrolled: tuple):
+    """:func:`scroll_cascades_reference` on the card, bit-equal to it: the
+    fresh bin of the scrolled cascades in PyTorch (:func:`_bin_cascades`),
+    then the pipeline of ``csrc/sdf_update.cu`` from the scroll's entry
+    (``vri_sdf_scroll_lists``: each state table copied once into its new
+    buffer, a scrolled cascade shifted as it is copied; the dirty cells
+    at ``update_cell_cap``, the fresh lists and rows installed, their
+    occupancy, the allocation, the ESD and the emit list), one
+    ``sdf_emit`` launch reading the live count on the device, and
+    ``vri_sdf_update_finish``; no host sync.
+    ``_scroll_kernel.launches`` counts the pipelines."""
+    from vri_tpu_torch import _cuda
+
+    r = config.cascade_resolution
+    K = config.cell_list_cap
+    Kg = config.global_list_cap
+    bcap = config.update_brick_cap
+    dev = world_verts.device
+    f = tri_vertices.shape[0]
+    on = [n for n in range(config.num_cascades) if scrolled[n]]
+
+    # the fresh bin at the new origins: one sort keyed by cascade gives
+    # each cascade the lists of its own
+    if on:
+        vs = cascades.voxel_size
+        org = cascade_origin(new_centers, vs, r)
+        p = world_verts[tri_vertices.long()]
+        tri_lo, tri_hi = geometry.tri_aabb(p[:, 0], p[:, 1], p[:, 2])
+        valid = torch.arange(f, device=dev) < num_faces
+        bins = _bin_cascades(tri_lo, tri_hi, valid,
+                             torch.cat([org[n:n + 1] for n in on]),
+                             torch.cat([vs[n:n + 1] for n in on]), r, K, Kg)
+    else:
+        bins = (torch.empty((0, 4096, K), dtype=torch.int32, device=dev),
+                torch.empty((0, 4096), dtype=torch.int32, device=dev),
+                torch.empty((0, Kg), dtype=torch.int32, device=dev),
+                torch.empty((0,), dtype=torch.int64, device=dev))
+
+    ins, outs, colors, tri_albedo, tri_emissive = _pipeline_buffers(
+        cascades, state, world_verts, tri_vertices, tri_albedo,
+        tri_emissive, config, edit=False, per=bcap)
+    ins.update(
+        zip(("fresh_tris", "fresh_count", "fresh_glob", "fresh_over"),
+            (x.contiguous() for x in bins)),
+        center=new_centers.to(torch.float32).contiguous(),
+        center_old=cascades.center.to(torch.float32).contiguous(),
+        cell_count_old=state.cell_count.to(torch.int32).contiguous(),
+        cell_rows_old=state.cell_rows.to(torch.float32).contiguous(),
+        alive_old=state.alive.to(torch.bool).contiguous(),
+        brick_voxel_old=cascades.brick_voxel.to(torch.int32).contiguous(),
+        brick_map_old=cascades.brick_map.to(torch.int32).contiguous(),
+        bm_old=outs["brick_map"],
+        entering=torch.empty((), dtype=torch.int64, device=dev))
+    lib, args, scratch = _pipeline_args(
+        num_faces, ins, outs, config, lo=0, per=bcap,
+        scrolled=sum(1 << n for n in on))
+    stream = _cuda.stream_ptr(world_verts)
+    _cuda.check(lib.vri_sdf_scroll_lists(ctypes.addressof(args), stream),
+                "sdf_scroll (lists)")
+    _scroll_kernel.launches += 1
+    profiler.count("sdf_scroll.cells", ins["entering"])
+
+    state = _pipeline_state(state, outs, config)
+    _emit_call(outs["elist"][:bcap], bcap, outs["emit_count"], 0,
+               outs["brick_voxel"], state, outs["origins"], ins["vs"],
+               (outs["tri9"], outs["valid"], tri_albedo, tri_emissive,
+                outs["tri_n"]), config,
+               (outs["atlas"], colors["brick_albedo"],
+                colors["brick_emissive"], colors["brick_normal"]),
+               outs["near_out"], direct=True)
+    _cuda.check(lib.vri_sdf_update_finish(ctypes.addressof(args), stream),
+                "sdf_scroll (finish)")
+    out = outs["out"]
+    profiler.count("sdf_scroll.bricks", out[5])
+    cascades = _pipeline_cascades(cascades, outs, colors, out[1],
+                                  center=new_centers)
+    state = dataclasses.replace(
+        state, list_overflow=state.list_overflow + out[3])
+    return cascades, state, out[0]
+
+
+_scroll_kernel.launches = 0
+
+
 def scroll_cascades(cascades: SDFCascades, state: BuildState, new_centers,
                     world_verts, tri_vertices, num_faces, *, tri_albedo=None,
                     tri_emissive=None, config: SDFConfig, scrolled: tuple):
-    """Clipmap scroll: recenter the cascades flagged in ``scrolled``
-    reusing every surviving brick.  ``new_centers`` must be snapped to
-    whole cells (s voxels) per cascade.  Surviving bricks keep their atlas
-    content (world voxel positions are absolute, only the map window
-    moves); the entering slab re-bins and re-emits, and so do the
+    """Clipmap scroll: on the card the device pipeline
+    (:func:`_scroll_kernel`, no host sync), on the CPU the plain version
+    (:func:`scroll_cascades_reference`), bit-equal to each other.  Returns
+    (cascades, state, needs_full); see the plain version."""
+    scroll = (_scroll_kernel if world_verts.is_cuda
+              else scroll_cascades_reference)
+    return scroll(cascades, state, new_centers, world_verts, tri_vertices,
+                  num_faces, tri_albedo=tri_albedo,
+                  tri_emissive=tri_emissive, config=config,
+                  scrolled=scrolled)
+
+
+def scroll_cascades_reference(cascades: SDFCascades, state: BuildState,
+                              new_centers, world_verts, tri_vertices,
+                              num_faces, *, tri_albedo=None,
+                              tri_emissive=None, config: SDFConfig,
+                              scrolled: tuple):
+    """Clipmap scroll, the plain version on any device (live lengths, a
+    host sync a dynamic shape): recenter the cascades flagged in
+    ``scrolled`` reusing every surviving brick.  ``new_centers`` must be
+    snapped to whole cells (s voxels) per cascade.  Surviving bricks keep
+    their atlas content (world voxel positions are absolute, only the map
+    window moves); the entering slab re-bins and re-emits, and so do the
     surviving cells beside each moved edge (:func:`_edge_cells`), whose
     bricks were emitted from the old window's candidates: the JAX
     package's scroll re-emits the entering slab only, and its cascades
